@@ -6,17 +6,30 @@ main path, the BraTS MC-dropout direct eval, at full width.
 
 Phases (any failure is an uncaught exception and a non-zero exit):
 1. device: a CUDA card is required; prints its name and power limit and
-   switches TF32 off for the f32 path;
-2. build: one ``nvcc`` per kernel source, all started together;
+   switches TF32 off for the direct comparisons of the f32 U-Net;
+2. build: one ``nvcc`` per kernel source, all started together; the
+   compiler's register, shared memory and spill report of each kernel;
 3. kernels: each kernel against its plain version at the main path's
    shapes (a seeded 155x240x240 subject with exact bin-edge and threshold
-   values, plus a ragged size); counts must be equal; times with CUDA
-   events;
+   values, the same with unsorted thresholds, and a ragged size); counts
+   must be equal and reruns bit-identical; then, on that subject, the
+   wrapper call's time (CUDA events; the record's ``ms``), the kernel's
+   device time (torch.profiler; ``kernel_ms``, null when the trace holds
+   no kernel) and the other device work of a call, the plain version's
+   time, the bound, the bound's share of the kernel time
+   (``bound_share``), achieved GB/s and occupancy; and the kernel's time
+   at half the size and at one block's work, which part its time at the
+   full size into a fixed cost and a streaming rate;
 4. main path: ``evaluate_subjects`` over 2 in-memory BraTS-shaped subjects
    with the flagship U-Net (config/train_brats_baseline.yaml: depth 4, 32
    start filters, 4 channels, dropout 0.05) at seeded random weights,
-   MC=20 at batch 32 (config/test_brats_baseline_mc.yaml). Before it, one
-   deterministic 8-slice batch on the card is held against the CPU;
+   MC=20 at batch 32 (config/test_brats_baseline_mc.yaml), called under
+   torch's default TF32 flags as a library caller would. Before it, one
+   deterministic 8-slice batch on the card is held against the CPU. The
+   first subject's eval planes are kept, and the kernel is checked and
+   timed on them as in phase 3 (real fg maps pile into bin 0 and tn;
+   ``real_planes_ms``, ``real_planes_kernel_ms`` and
+   ``real_planes_bound_share`` in the record);
 5. breakdown (information): one MC batch's forward time and convolution
    TFLOP/s, in f32 and with TF32 on; one subject under torch.profiler for
    the device's busy share and its costliest kernels.
@@ -38,6 +51,7 @@ import torch
 from rcu_tpu_torch.data import nifti
 from rcu_tpu_torch.eval.direct import DEFAULT_THRESHOLDS, evaluate_subjects
 from rcu_tpu_torch.models import get_model
+from rcu_tpu_torch.eval import pipeline
 from rcu_tpu_torch.ops.cuda import build, evalstats
 
 SEED = 20
@@ -75,14 +89,30 @@ def device_phase():
     return HBM_BYTES_PER_S[part]
 
 
+def ptxas_summaries(report):
+    """{kernel function: "registers ...; spills ..."} from ``-Xptxas -v``."""
+    summaries, function = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            function = line.split("'")[1]
+        elif function and ("registers" in line or "spill" in line):
+            text = line.split("ptxas info    : ", 1)[-1].strip()
+            summaries[function] = "; ".join(
+                filter(None, (summaries.get(function), text)))
+    return summaries
+
+
 def build_phase():
+    """Builds the kernels; returns {name: {kernel function: ptxas summary}}."""
     t0 = time.perf_counter()
-    reports = build.build_all(KERNELS)
-    log(f"build: {time.perf_counter() - t0:.1f} s for {list(reports) or 'cached'}")
-    for name, text in reports.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    built = build.build_all(KERNELS)
+    log(f"build: {time.perf_counter() - t0:.1f} s for {list(built) or 'cached'}")
+    summaries = {}
+    for name in KERNELS:
+        summaries[name] = ptxas_summaries(build.report(name))
+        for function, summary in sorted(summaries[name].items()):
+            log(f"  {name} {function[-60:]}: {summary}")
+    return summaries
 
 
 def seeded_subject(n_or_shape, seed, device):
@@ -121,10 +151,11 @@ def cuda_ms(fn, reps):
     return float(np.median(times))
 
 
-def profiled_kernel_ms(fn, kernel_name, reps=20):
-    """Mean device time of the CUDA kernel ``kernel_name`` per call of
-    ``fn``, from torch.profiler's CUPTI trace; None when the trace holds
-    no such kernel."""
+def profiled_ms(fn, reps=20):
+    """{device activity (kernel, memset): its mean device ms per run}, from
+    torch.profiler's CUPTI trace of ``reps`` calls of ``fn``, each of which
+    runs it once; the mean is over the runs that the trace holds, which
+    may drop some."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -132,62 +163,123 @@ def profiled_kernel_ms(fn, kernel_name, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    for event in prof.key_averages():
-        if kernel_name in event.key:
-            return event.device_time_total / event.count / 1e3
-    return None
+    return {event.key: event.device_time_total / event.count / 1e3
+            for event in prof.key_averages() if event.device_time_total > 0}
 
 
-def kernel_phase(hbm_rate):
-    """fused_eval_stats against its plain version; returns the JSON record
-    without the main path's launch count."""
-    max_err = 0.0
-    for size, seed in ((BRATS, 1), (1_000_003, 2)):
-        planes = seeded_subject(size, seed, DEVICE)
-        got = evalstats.fused_eval_stats(*planes, DEFAULT_THRESHOLDS)
-        again = evalstats.fused_eval_stats(*planes, DEFAULT_THRESHOLDS)
-        want = evalstats.fused_eval_stats_reference(*planes, DEFAULT_THRESHOLDS)
-        torch.cuda.synchronize()
-        for key, value in want.items():
-            if not torch.equal(got[key], again[key]):
-                raise AssertionError(f"fused_eval_stats {key}: reruns differ")
-            if key == "bins_conf_sum":
-                # f32 per thread, f64 from the warp sums on, vs a f64 bincount
-                err = float((got[key] - value).abs().max())
-                torch.testing.assert_close(got[key], value, rtol=1e-5, atol=1e-3)
-                max_err = max(max_err, err)
-            elif not torch.equal(got[key], value):
-                raise AssertionError(f"fused_eval_stats {key}: kernel "
-                                     f"{got[key].tolist()} != plain "
-                                     f"{value.tolist()} at size {size}")
-        log(f"fused_eval_stats size {size}: counts equal, conf-sum max abs "
-            f"err {max_err:.3e}")
-    planes = seeded_subject(BRATS, 1, DEVICE)
+def kernel_ms(times, kernel_name="fused_eval_stats_kernel"):
+    """The kernel's ms per call in ``profiled_ms``'s result; None when the
+    trace holds no such kernel."""
+    return next((ms for key, ms in times.items() if kernel_name in key), None)
+
+
+def check_kernel(planes, thresholds, label):
+    """fused_eval_stats against its plain version: equal counts, sums at
+    rtol 1e-5 / atol 1e-3, bit-identical reruns; returns the sums' max abs
+    error."""
+    got = evalstats.fused_eval_stats(*planes, thresholds)
+    again = evalstats.fused_eval_stats(*planes, thresholds)
+    want = evalstats.fused_eval_stats_reference(*planes, thresholds)
+    torch.cuda.synchronize()
+    err = 0.0
+    for key, value in want.items():
+        bits = (lambda x: x.view(torch.int64)) if value.is_floating_point() \
+            else (lambda x: x)
+        if not torch.equal(bits(got[key]), bits(again[key])):
+            raise AssertionError(f"fused_eval_stats {key}: reruns differ")
+        if key == "bins_conf_sum":
+            # f32 per lane, f64 from the block sums on, vs a f64 bincount
+            err = float((got[key] - value).abs().max())
+            torch.testing.assert_close(got[key], value, rtol=1e-5, atol=1e-3)
+        elif not torch.equal(got[key], value):
+            raise AssertionError(f"fused_eval_stats {key}: kernel "
+                                 f"{got[key].tolist()} != plain "
+                                 f"{value.tolist()} on {label}")
+    log(f"fused_eval_stats {label}: counts equal, reruns bit-identical, "
+        f"conf-sum max abs err {err:.3e}")
+    return err
+
+
+def size_sweep(planes, th):
+    """The kernel's time at the full size, at half of it and at one block's
+    work: the streaming rate between the first two, and the fixed cost
+    that no size removes."""
+    flat = [p.reshape(-1) for p in planes]
+    n = flat[0].numel()
+    sizes = (n, n // 2, evalstats.THREADS * evalstats.VOXELS_PER_THREAD)
+    ms = [kernel_ms(profiled_ms(
+        lambda m=m: evalstats.fused_eval_stats(*[p[:m] for p in flat], th)))
+        for m in sizes]
+    if None in ms:
+        log("fused_eval_stats size sweep: the trace holds no kernel; not measured")
+        return
+    rate = (sizes[0] - sizes[1]) * 11 / (ms[0] - ms[1]) / 1e6
+    log(f"fused_eval_stats size sweep (torch.profiler, mean of 20): {ms[0]} ms "
+        f"at {sizes[0]:,} voxels, {ms[1]} ms at {sizes[1]:,}: {rate:.0f} GB/s "
+        f"between them; {ms[2]} ms for one block's {sizes[2]:,} voxels")
+
+
+def time_kernel(planes, label, hbm_rate, ptxas):
+    """Wrapper, kernel and plain times on one plane set, beside the bound:
+    the record's ``ms`` (the wrapper call, CUDA events), ``kernel_ms``
+    (torch.profiler) and ``bound_share`` (bound / kernel time)."""
     n = planes[0].numel()
-    ms = cuda_ms(lambda: evalstats.fused_eval_stats(*planes, DEFAULT_THRESHOLDS), 30)
-    plain_ms = cuda_ms(lambda: evalstats.fused_eval_stats_reference(
-        *planes, DEFAULT_THRESHOLDS), 20)
-    kernel_ms = profiled_kernel_ms(
-        lambda: evalstats.fused_eval_stats(*planes, DEFAULT_THRESHOLDS),
-        "fused_eval_stats_kernel")
-    n_th = len(DEFAULT_THRESHOLDS)
+    th = DEFAULT_THRESHOLDS
+
+    def call():
+        evalstats.fused_eval_stats(*planes, th)
+
+    wrapper_ms = cuda_ms(call, 30)
+    plain_ms = cuda_ms(lambda: evalstats.fused_eval_stats_reference(*planes, th), 10)
+    device_ms = profiled_ms(call)
+    kernel = kernel_ms(device_ms)
+    others = {key: ms for key, ms in device_ms.items()
+              if "fused_eval_stats_kernel" not in key}
     bytes_moved = n * (4 + 4 + 1 + 1 + 1)
-    # per voxel: 10 edge compares, 1 add, 3 class predicates, 1 compare per
-    # threshold; the outputs are a few hundred bytes
-    ops = n * (10 + 1 + 3 + n_th)
+    # per voxel: 9 edge compares, 1 add, 3 class predicates, 1 compare per
+    # threshold; the outputs are a thousand bytes
+    ops = n * (9 + 1 + 3 + len(th))
     bytes_ms, ops_ms = bytes_moved / hbm_rate * 1e3, ops / F32_OPS_PER_S * 1e3
-    log(f"fused_eval_stats {BRATS}: {ms:.4f} ms per wrapper call (median of "
-        f"30), of which the kernel {kernel_ms} ms (profiler), plain "
-        f"{plain_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
-        f"({bytes_moved / 1e6:.1f} MB at {hbm_rate / 1e12:.2f} TB/s), "
-        f"{bytes_moved / ms / 1e6:.0f} GB/s achieved")
-    return {"name": "fused_eval_stats", "route": "cuda",
-            "source": "rcu_tpu_torch/csrc/evalstats.cu",
-            "replaces": "rcu_tpu/ops/pallas/evalstats.py:97",
-            "launches": None, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+    bound_ms = max(bytes_ms, ops_ms)
+    device = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm, shared = evalstats.occupancy(device, len(th))
+    (summary,) = ptxas.values()
+    share = None if kernel is None else bound_ms / kernel
+    rate = "not measured" if kernel is None else \
+        f"{bytes_moved / kernel / 1e6:.0f} GB/s achieved, {share:.3f} of the bound"
+    log(f"fused_eval_stats {label}: wrapper call {wrapper_ms:.4f} ms (CUDA "
+        f"events, median of 30), kernel {kernel} ms (torch.profiler, mean of "
+        f"20; other device work a call {others}), plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms ({bytes_moved / 1e6:.1f} MB at "
+        f"{hbm_rate / 1e12:.2f} TB/s), {rate}; {per_sm} blocks of "
+        f"{evalstats.THREADS} per SM x {sms} SMs, {shared} B of dynamic shared "
+        f"memory a block; ptxas: {summary}")
+    return {"ms": wrapper_ms, "kernel_ms": kernel, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None}
+            "bound_share": share}
+
+
+def kernel_phase(hbm_rate, ptxas):
+    """fused_eval_stats against its plain version and timed on the seeded
+    uniform subject; returns the JSON record without the main path's
+    launch count and the real planes' numbers."""
+    unsorted = DEFAULT_THRESHOLDS[::-1] + (0.5,)
+    planes = seeded_subject(BRATS, 1, DEVICE)
+    max_err = max(check_kernel(planes, DEFAULT_THRESHOLDS, f"uniform {BRATS}"),
+                  check_kernel(planes, unsorted,
+                               f"uniform {BRATS}, unsorted thresholds"),
+                  check_kernel(seeded_subject(1_000_003, 2, DEVICE),
+                               DEFAULT_THRESHOLDS, "uniform 1,000,003"))
+    record = {"name": "fused_eval_stats", "route": "cuda",
+              "source": "rcu_tpu_torch/csrc/evalstats.cu",
+              "replaces": "rcu_tpu/ops/pallas/evalstats.py:97",
+              "launches": None, "max_abs_err": max_err}
+    record.update(time_kernel(planes, f"uniform {BRATS}", hbm_rate, ptxas))
+    size_sweep(planes, DEFAULT_THRESHOLDS)
+    record["library_ms"] = None
+    return record
 
 
 class BratsLikeDataset:
@@ -263,16 +355,39 @@ def gpu_vs_cpu_check(model, dataset):
 
 
 def main_path_phase(model, dataset, out_dir):
+    """Returns the kernel's launches in the run and the first subject's
+    eval planes (fg, target, prediction, entropy / ln 2, mask)."""
+    planes = []
+    subject_eval = pipeline.fused_subject_eval
+
+    def keep_planes(*args):
+        if not planes:
+            planes.extend(args[:5])
+        return subject_eval(*args)
+
+    # torch's defaults, as a library caller has them: evaluate_subjects
+    # runs the f32 U-Net in full float32 all the same
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    pipeline.fused_subject_eval = keep_planes
     evalstats.fused_eval_stats.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eces = evaluate_subjects(model, dataset, out_dir, run_id="smoke",
-                             mc=MC_STEPS, batch_size=BATCH, seed=SEED,
-                             device=DEVICE)
-    torch.cuda.synchronize()
+    try:
+        eces = evaluate_subjects(model, dataset, out_dir, run_id="smoke",
+                                 mc=MC_STEPS, batch_size=BATCH, seed=SEED,
+                                 device=DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        pipeline.fused_subject_eval = subject_eval
     seconds = time.perf_counter() - t0
     launches = evalstats.fused_eval_stats.launches
+    if not (torch.backends.cudnn.allow_tf32
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError("evaluate_subjects did not restore the TF32 flags")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     n = len(dataset.subjects)
     if launches != n:
         raise AssertionError(f"fused_eval_stats launched {launches} times for "
@@ -297,7 +412,7 @@ def main_path_phase(model, dataset, out_dir):
         f"{seconds:.2f} s = {seconds / n:.3f} s/subject, "
         f"{voxels / seconds / 1e6:.3f} M voxels/s, peak memory {peak_gb:.2f} GB, "
         f"eces {eces}")
-    return launches
+    return launches, planes
 
 
 def conv_flops_per_image(model):
@@ -385,8 +500,8 @@ def profile_phase(model, dataset, out_dir):
 
 def main():
     hbm_rate = device_phase()
-    build_phase()
-    record = kernel_phase(hbm_rate)
+    ptxas = build_phase()["evalstats"]
+    record = kernel_phase(hbm_rate, ptxas)
     torch.manual_seed(SEED)
     model = get_model("unet", FLAGSHIP).to(DEVICE)
     with tempfile.TemporaryDirectory() as tmp:
@@ -395,8 +510,15 @@ def main():
         log(f"synthetic data: {time.perf_counter() - t0:.1f} s")
         spread_head(model, dataset)
         cpu_batch, cpu_logits = gpu_vs_cpu_check(model, dataset)
-        record["launches"] = main_path_phase(model, dataset,
-                                             os.path.join(tmp, "eval"))
+        record["launches"], planes = main_path_phase(
+            model, dataset, os.path.join(tmp, "eval"))
+        label = f"real planes of {dataset.subjects[0]} {BRATS}"
+        check_kernel(planes, DEFAULT_THRESHOLDS, label)
+        real = time_kernel(planes, label, hbm_rate, ptxas)
+        record["real_planes_ms"] = real["ms"]
+        record["real_planes_kernel_ms"] = real["kernel_ms"]
+        record["real_planes_bound_share"] = real["bound_share"]
+        del planes
         forward_breakdown(model, dataset, cpu_batch, cpu_logits)
         profile_phase(model, dataset, os.path.join(tmp, "profile"))
     log(json.dumps({"kernels": [record]}))

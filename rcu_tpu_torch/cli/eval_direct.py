@@ -2,8 +2,9 @@
 
 Streams each test-split subject through MC-dropout inference and the fused
 eval kernel and writes the eval CSV families. Ported protocols: ``mc`` and
-``deterministic`` (``-mc 0``). Convolutions run in full float32: TF32 is
-switched off, as the parity bar of the f32 path needs.
+``deterministic`` (``-mc 0``). Convolutions run in full float32
+(``evaluate_subjects`` switches TF32 off), as the parity bar of the f32
+path needs.
 
 Usage:
   python -m rcu_tpu_torch.cli.eval_direct -config_file config/test_brats_baseline_mc.yaml \
@@ -17,13 +18,9 @@ import os
 
 def main(config_file, run_id=None, out_dir=None, mc=None, unmasked=False,
          device=None):
-    import torch
-
     from rcu_tpu_torch.engine import config as cfg_lib
     from rcu_tpu_torch.eval.direct import evaluate_direct
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     config = cfg_lib.load(config_file)
     run_id = run_id or config.test_name or "baseline"
     out_dir = out_dir or os.path.join(

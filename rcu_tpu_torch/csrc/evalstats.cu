@@ -8,33 +8,54 @@
 //     confidences and sum of targets (the weight applies to bins only);
 //   - the unweighted confusion counts tp/tn/fp/fn;
 //   - tpu/tnu/fpu/fnu for up to 23 thresholds, uncertainty > threshold.
-// Bin ids follow rcu_tpu_torch/ops/calibration.bin_ids: the host passes the
-// float32 edge values and, per edge, whether the float64 edge makes the
-// comparison '>' or '>='; the kernel only compares.
 //
-// Bound: memory. A voxel is 11 bytes (fg and uncertainty f32, target,
-// prediction and weight u8), 98.2 MB for a 155x240x240 BraTS volume, about
-// 29 us at the H100 SXM's 3.35 TB/s. The instructions per voxel (ten
-// compares for the bin, ten select-adds for the confidence sums, and per 32
-// voxels one ballot for each bin and each threshold) are of the same order
-// as that memory time, so this first version may be issue-bound; PERF.md
-// holds its measured time.
+// Bound on an H100 SXM: memory. A voxel is 11 bytes (fg and uncertainty
+// f32; target, prediction and weight u8), 98.2 MB for a 155x240x240 BraTS
+// volume, 29.3 us at 3.35 TB/s.
 //
-// Design:
-//   - grid-stride loop over 4-voxel quads with float4 / 32-bit loads; the
-//     ragged tail (n not a multiple of 4) is masked, never padded;
-//   - counts come from warp ballots + popc, so a warp counts 32 voxels per
-//     predicate in two instructions; each count is owned by one lane (lane k
-//     holds bin k, lane j threshold j, lane 0 the confusion counts), which
-//     keeps the per-thread registers small;
-//   - confidence sums are per-thread float32, then float64 from the warp
-//     shuffle reduction on;
-//   - each block reduces its warps in shared memory in a fixed order and
-//     writes one int32 row and one float64 row of partials. The caller sums
-//     the rows (int64 / float64) in a fixed order. No atomics anywhere, so
-//     two runs on the same input give bit-identical results.
-// Counts are exact: per block they stay int32, which the host guarantees
-// by sizing the grid so that no block sees 2^31 voxels.
+// The first design (warp ballots) ran at 11x that bound. Its main loop,
+// read from `cuobjdump -sass` (scripts/sass_loop.py), holds 4495 warp
+// instructions per pass of 4 voxels a lane, 1124 per 32 voxels: 24 ballots
+// and 68 predicated popc-and-add chains per 32 voxels, every one issued by
+// the whole warp and kept by one lane. That is ~0.30 ms of issue for a
+// volume on 132 SMs (4 schedulers each, 1.98 GHz), the time it took. This
+// design answers its four limits:
+//   1. Issue. No warp votes: every lane counts its own voxels into private
+//      counters in dynamic shared memory, laid out [warp][cell][lane], so
+//      the 32 lanes of a warp always hit 32 different banks whatever the
+//      data (real fg maps pile into bin 0 and tn), and counting needs no
+//      atomics. Per voxel: the bin id (9 compares against the edges in
+//      `p >= e` form: the host turns a strict edge into the next float up,
+//      and passing the top edge keeps the last bin), m = the number of
+//      thresholds with u > th (the host sorts them, NaN as +inf), the class
+//      c = 2 * target + prediction, and three shared increments:
+//        bin cell [2 * id + target] += w, conf cell [id] += w ? p : 0,
+//        hist cell [c][m] += 1.
+//      Each compare is a predicated add (2 instructions; `m += u > th`
+//      compiles to 3). The main loop holds 569 warp instructions per pass
+//      of 8 voxels a lane, the threshold loop in it 73 for 4 thresholds;
+//      at 11 thresholds that is ~80 issued per 32 voxels, ~21 us of issue
+//      for a volume, under the memory time.
+//   2. Waves. The grid is the occupancy times the SM count (queried once
+//      per device and threshold count), with a grid-stride loop: one wave.
+//      The lane counters bound the occupancy (2 blocks of 256 an SM at 11
+//      thresholds), not the registers.
+//   3. Loads. Chunks of 8 voxels a thread: two float4 of fg, two of u and
+//      one 8-byte load of each u8 plane; the ragged tail is one masked
+//      chunk, never padded. The kernel streams near the memory rate between
+//      half and full size, so these loads in flight suffice and a bulk-copy
+//      ring in shared memory (which would also take room from the lane
+//      counters) has nothing to add.
+//   4. The cross-block sums and the wrapper. One launch: each block writes
+//      its row of partial sums; the last block (an atomic ticket after a
+//      __threadfence, zeroed by the launcher before the launch) sums the
+//      rows in block order and writes the int64 / float64 result row with
+//      the threshold rows in the caller's order. The wrapper makes one
+//      allocation a call and caches the edge and threshold arguments.
+// Determinism: counts are exact; confidences add in f32 per lane in voxel
+// order, in f64 from the block sums on, always in the same order, so two
+// runs give bit-identical results. Per-lane counters are int32: the host
+// refuses a size at which one lane could see 2^31 voxels.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -42,165 +63,241 @@
 namespace {
 
 constexpr int kBins = 10;
+constexpr int kEdges = kBins - 1;  // passing the top edge keeps the last bin
 constexpr int kMaxThresholds = 23;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// int32 partial row: bin counts, bin target sums, tp/tn/fp/fn, then
-// (tpu, tnu, fpu, fnu) per threshold
-constexpr int kOffCount = 0;
+constexpr int kVoxels = 8;  // voxels per thread per iteration: a chunk
+constexpr int kQuads = kVoxels / 4;  // float4s of a chunk in an f32 plane,
+                                     // 32-bit words in a u8 plane
+constexpr int kClasses = 4;  // c = 2 * target + prediction: tn, fp, fn, tp
+// result row: int64 bin counts, bin target sums, tp/tn/fp/fn, then
+// (tpu, tnu, fpu, fnu) per threshold in the caller's order; then the
+// float64 confidence sums
 constexpr int kOffTrue = kBins;
-constexpr int kOffConfusion = 2 * kBins;
 constexpr int kOffThresh = 2 * kBins + 4;
 constexpr int kIntCols = kOffThresh + 4 * kMaxThresholds;
-constexpr unsigned kFull = 0xffffffffu;
+// per-lane cells for T thresholds: (bin, target) counts, the (class, m)
+// histogram with m in 0..T, then the f32 confidence sums
+constexpr int kBinCells = 2 * kBins;
+__host__ __device__ constexpr int int_cells(int n_thresholds) {
+  return kBinCells + kClasses * (n_thresholds + 1);
+}
+__host__ __device__ constexpr int lane_cells(int n_thresholds) {
+  return int_cells(n_thresholds) + kBins;
+}
+constexpr int kMaxCells = lane_cells(kMaxThresholds);
+constexpr size_t shared_bytes(int n_thresholds) {
+  return sizeof(int) * 32 * kWarps * lane_cells(n_thresholds);
+}
 
 struct Params {
-  float edge_hi[kBins];
-  float thresholds[kMaxThresholds];
-  int edge_strict;  // bit k: edge k passes with p > hi instead of p >= hi
+  float edge[kEdges];  // voxel p is above edge k when p >= edge[k]
+  float thresholds[kMaxThresholds];  // ascending
+  int slot[kMaxThresholds];  // the caller's row of the j-th smallest
   int n_thresholds;
 };
 
-__device__ __forceinline__ int bin_id(float p, const Params& prm) {
-  int id = 0;
-#pragma unroll
-  for (int k = 0; k < kBins; ++k) {
-    const bool strict = (prm.edge_strict >> k) & 1;
-    id += strict ? (p > prm.edge_hi[k]) : (p >= prm.edge_hi[k]);
-  }
-  return id < kBins - 1 ? id : kBins - 1;
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
+  // bit 7 of each byte: the byte is not 0
+  return (((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// m += 1 where a > b (a >= b), also false for NaN: a compare and a
+// predicated add, where `m += a > b` compiles to three instructions
+__device__ __forceinline__ void add_gt(int& m, float a, float b) {
+  asm("{\n\t.reg .pred p;\n\tsetp.gt.f32 p, %1, %2;\n\t@p add.s32 %0, %0, 1;\n\t}"
+      : "+r"(m) : "f"(a), "f"(b));
+}
+__device__ __forceinline__ void add_ge(int& m, float a, float b) {
+  asm("{\n\t.reg .pred p;\n\tsetp.ge.f32 p, %1, %2;\n\t@p add.s32 %0, %0, 1;\n\t}"
+      : "+r"(m) : "f"(a), "f"(b));
+}
+
+// The words of one u8 plane for chunk q (one 8-byte load), bit 7 of each
+// byte set where the byte is not 0.
+__device__ __forceinline__ void load_bytes(const uint8_t* __restrict__ plane,
+                                           long long q, uint32_t (&w)[kQuads]) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(plane) + q);
+  w[0] = nonzero_bytes(v.x);
+  w[1] = nonzero_bytes(v.y);
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T s) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}
+
+// Counts the voxels of one chunk into this lane's cells (cell k at
+// cells[32 * k]); kTail: some lie past the end (bit e of `valid`: voxel e
+// exists).
+template <bool kTail>
+__device__ __forceinline__ void count_chunk(
+    const float (&f)[kVoxels], const float (&u)[kVoxels],
+    const uint32_t (&tw)[kQuads], const uint32_t (&pw)[kQuads],
+    const uint32_t (&ww)[kQuads], unsigned valid, const Params& prm,
+    int* cells) {
+  const int row = prm.n_thresholds + 1;  // m = 0..T
+  int* bin_cell = cells;
+  int* hist_cell = cells + 32 * kBinCells;
+  float* conf_cell =
+      reinterpret_cast<float*>(cells + 32 * int_cells(prm.n_thresholds));
+  int m[kVoxels];
+#pragma unroll
+  for (int e = 0; e < kVoxels; ++e) m[e] = 0;
+  for (int j = 0; j < prm.n_thresholds; ++j) {
+    const float th = prm.thresholds[j];
+#pragma unroll
+    for (int e = 0; e < kVoxels; ++e) add_gt(m[e], u[e], th);
+  }
+#pragma unroll
+  for (int e = 0; e < kVoxels; ++e) {
+    const float p = f[e];
+    int id = 0;
+#pragma unroll
+    for (int k = 0; k < kEdges; ++k) add_ge(id, p, prm.edge[k]);
+    const int bit = 8 * (e & 3) + 7;
+    const int t = (tw[e >> 2] >> bit) & 1;
+    const int c = 2 * t + ((pw[e >> 2] >> bit) & 1);
+    const int w = (ww[e >> 2] >> bit) & 1;
+    bin_cell[32 * (2 * id + t)] += w;
+    hist_cell[32 * (c * row + m[e])] += kTail ? (valid >> e) & 1 : 1;
+    conf_cell[32 * id] += w ? p : 0.0f;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 fused_eval_stats_kernel(const float* __restrict__ fg,
                         const float* __restrict__ unc,
                         const uint8_t* __restrict__ tgt,
                         const uint8_t* __restrict__ pred,
                         const uint8_t* __restrict__ weight, long long n,
-                        Params prm, int* __restrict__ part_int,
-                        double* __restrict__ part_conf) {
-  __shared__ int s_int[kWarps][kIntCols];
-  __shared__ double s_conf[kWarps][kBins];
+                        Params prm, unsigned* __restrict__ ticket,
+                        long long* __restrict__ part,
+                        long long* __restrict__ out_int,
+                        double* __restrict__ out_conf) {
+  const int T = prm.n_thresholds;
+  const int n_int = int_cells(T);
+  const int n_cells = lane_cells(T);
+  extern __shared__ __align__(16) int s_cells[];  // [warp][cell][lane]
+  __shared__ long long s_total[int_cells(kMaxThresholds)];
+  __shared__ double s_conf[kBins];
+  __shared__ bool s_last;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  int bin_count = 0, bin_true = 0;
-  int tpu = 0, tnu = 0, fpu = 0, fnu = 0;
-  int tp = 0, tn = 0, fp = 0, fn = 0;
-  float conf[kBins];
-#pragma unroll
-  for (int k = 0; k < kBins; ++k) conf[k] = 0.0f;
+  int* mine = s_cells + warp * n_cells * 32 + lane;
+  for (int k = 0; k < n_cells; ++k) mine[32 * k] = 0;  // 0.0f has the same bits
 
-  const long long n_quads = (n + 3) / 4;
+  const long long n_full = n / kVoxels;  // whole chunks
   const long long stride = (long long)gridDim.x * kThreads;
-  // q0 is the same for the whole warp, so every lane runs every iteration
-  // and the ballots below always see the full warp
-  for (long long q0 = (long long)blockIdx.x * kThreads + warp * 32;
-       q0 < n_quads; q0 += stride) {
-    const long long q = q0 + lane;
-    float f[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float u[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    uint32_t tb = 0, pb = 0, wb = 0;
-    unsigned valid = 0;  // bit e: voxel 4q+e exists
-    if (4 * q + 3 < n) {
-      const float4 f4 = reinterpret_cast<const float4*>(fg)[q];
-      const float4 u4 = reinterpret_cast<const float4*>(unc)[q];
-      f[0] = f4.x; f[1] = f4.y; f[2] = f4.z; f[3] = f4.w;
-      u[0] = u4.x; u[1] = u4.y; u[2] = u4.z; u[3] = u4.w;
-      tb = reinterpret_cast<const uint32_t*>(tgt)[q];
-      pb = reinterpret_cast<const uint32_t*>(pred)[q];
-      wb = reinterpret_cast<const uint32_t*>(weight)[q];
-      valid = 0xfu;
-    } else if (q < n_quads) {
+  long long q = (long long)blockIdx.x * kThreads + threadIdx.x;
+  for (; q < n_full; q += stride) {
+    float f[kVoxels], u[kVoxels];
+    uint32_t tw[kQuads], pw[kQuads], ww[kQuads];
+    const float4* f4 = reinterpret_cast<const float4*>(fg) + kQuads * q;
+    const float4* u4 = reinterpret_cast<const float4*>(unc) + kQuads * q;
+#pragma unroll
+    for (int i = 0; i < kQuads; ++i) {
+      const float4 a = __ldg(f4 + i);
+      const float4 b = __ldg(u4 + i);
+      f[4 * i] = a.x; f[4 * i + 1] = a.y; f[4 * i + 2] = a.z; f[4 * i + 3] = a.w;
+      u[4 * i] = b.x; u[4 * i + 1] = b.y; u[4 * i + 2] = b.z; u[4 * i + 3] = b.w;
+    }
+    load_bytes(tgt, q, tw);
+    load_bytes(pred, q, pw);
+    load_bytes(weight, q, ww);
+    count_chunk<false>(f, u, tw, pw, ww, 0u, prm, mine);
+  }
+  if (q == n_full && n_full * kVoxels < n) {
+    // the ragged tail: one chunk, masked, counted by the one thread whose
+    // stride lands on it
+    float f[kVoxels], u[kVoxels];
+    uint32_t tw[kQuads] = {}, pw[kQuads] = {}, ww[kQuads] = {};
+    const long long base = kVoxels * q;
 #pragma unroll  // constant indices keep f/u in registers
-      for (int e = 0; e < 4; ++e) {
-        const long long i = 4 * q + e;
-        if (i < n) {
-          f[e] = fg[i];
-          u[e] = unc[i];
-          tb |= (uint32_t)tgt[i] << (8 * e);
-          pb |= (uint32_t)pred[i] << (8 * e);
-          wb |= (uint32_t)weight[i] << (8 * e);
-          valid |= 1u << e;
-        }
-      }
+    for (int e = 0; e < kVoxels; ++e) {
+      const bool in = base + e < n;
+      f[e] = in ? fg[base + e] : 0.0f;
+      u[e] = in ? unc[base + e] : 0.0f;
+      const int bit = 8 * (e & 3) + 7;
+      tw[e >> 2] |= (uint32_t)(in && tgt[base + e]) << bit;
+      pw[e >> 2] |= (uint32_t)(in && pred[base + e]) << bit;
+      ww[e >> 2] |= (uint32_t)(in && weight[base + e]) << bit;
     }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool v = (valid >> e) & 1u;
-      const bool ti = v && ((tb >> (8 * e)) & 0xffu);
-      const bool pi = v && ((pb >> (8 * e)) & 0xffu);
-      const bool wi = v && ((wb >> (8 * e)) & 0xffu);
-      const int id = bin_id(f[e], prm);
-#pragma unroll
-      for (int k = 0; k < kBins; ++k) conf[k] += (wi && id == k) ? f[e] : 0.0f;
-
-      const unsigned T = __ballot_sync(kFull, ti);
-      const unsigned P = __ballot_sync(kFull, pi);
-      const unsigned V = __ballot_sync(kFull, v);
-      if (lane == 0) {
-        tp += __popc(T & P);
-        fp += __popc(~T & P);
-        fn += __popc(T & ~P);
-        tn += __popc(~T & ~P & V);
-      }
-#pragma unroll
-      for (int k = 0; k < kBins; ++k) {
-        const unsigned B = __ballot_sync(kFull, wi && id == k);
-        if (lane == k) {
-          bin_count += __popc(B);
-          bin_true += __popc(B & T);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kMaxThresholds; ++j) {
-        if (j < prm.n_thresholds) {  // uniform across the grid
-          const unsigned U = __ballot_sync(kFull, v && u[e] > prm.thresholds[j]);
-          if (lane == j) {
-            tpu += __popc(T & P & U);
-            tnu += __popc(~T & ~P & U);
-            fpu += __popc(~T & P & U);
-            fnu += __popc(T & ~P & U);
-          }
-        }
-      }
-    }
-  }
-
-  int* row = s_int[warp];
-  if (lane < kBins) {
-    row[kOffCount + lane] = bin_count;
-    row[kOffTrue + lane] = bin_true;
-  }
-  if (lane == 0) {
-    row[kOffConfusion + 0] = tp;
-    row[kOffConfusion + 1] = tn;
-    row[kOffConfusion + 2] = fp;
-    row[kOffConfusion + 3] = fn;
-  }
-  if (lane < kMaxThresholds) {
-    row[kOffThresh + 4 * lane + 0] = tpu;
-    row[kOffThresh + 4 * lane + 1] = tnu;
-    row[kOffThresh + 4 * lane + 2] = fpu;
-    row[kOffThresh + 4 * lane + 3] = fnu;
-  }
-#pragma unroll
-  for (int k = 0; k < kBins; ++k) {
-    double s = conf[k];
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(kFull, s, off);
-    if (lane == 0) s_conf[warp][k] = s;
+    count_chunk<true>(f, u, tw, pw, ww, (1u << (unsigned)(n - base)) - 1u,
+                      prm, mine);
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < kIntCols; i += kThreads) {
-    int acc = 0;
-    for (int w = 0; w < kWarps; ++w) acc += s_int[w][i];
-    part_int[(long long)blockIdx.x * kIntCols + i] = acc;
+  // The block's row: each warp takes every kWarps-th cell, a lane sums its
+  // column over the warps, the warp sums its lanes (a fixed order), lane 0
+  // writes part[cell * grid + block]; confidence sums as f64 bits.
+  const int grid = gridDim.x;
+#pragma unroll  // a constant trip count: the cells' shuffle chains overlap
+  for (int k0 = 0; k0 < kMaxCells; k0 += kWarps) {
+    const int k = k0 + warp;
+    if (k >= n_cells) break;
+    long long bits;
+    if (k < n_int) {
+      long long s = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += s_cells[(w * n_cells + k) * 32 + lane];
+      bits = warp_sum(s);
+    } else {
+      double s = 0.0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        s += (double)__int_as_float(s_cells[(w * n_cells + k) * 32 + lane]);
+      }
+      bits = __double_as_longlong(warp_sum(s));
+    }
+    if (lane == 0) part[(long long)k * grid + blockIdx.x] = bits;
   }
-  if (threadIdx.x < kBins) {
-    double acc = 0.0;
-    for (int w = 0; w < kWarps; ++w) acc += s_conf[w][threadIdx.x];
-    part_conf[(long long)blockIdx.x * kBins + threadIdx.x] = acc;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(ticket, 1u) == (unsigned)grid - 1u;
+  __syncthreads();
+  if (!s_last) return;
+
+  // The last block: each column summed over the blocks in a fixed order
+  // (lane l takes blocks l, l + 32, ...), read from L2.
+  __threadfence();
+  for (int k = warp; k < n_cells; k += kWarps) {
+    const long long* col = part + (long long)k * grid;
+    if (k < n_int) {
+      long long s = 0;
+#pragma unroll 8
+      for (int b = lane; b < grid; b += 32) s += __ldcg(col + b);
+      s = warp_sum(s);
+      if (lane == 0) s_total[k] = s;
+    } else {
+      double s = 0.0;
+#pragma unroll 8
+      for (int b = lane; b < grid; b += 32) s += __longlong_as_double(__ldcg(col + b));
+      s = warp_sum(s);
+      if (lane == 0) s_conf[k - n_int] = s;
+    }
+  }
+  __syncthreads();
+  const int i = threadIdx.x;
+  if (i < kBins) {
+    out_int[i] = s_total[2 * i] + s_total[2 * i + 1];
+    out_int[kOffTrue + i] = s_total[2 * i + 1];
+    out_conf[i] = s_conf[i];
+  } else if (i < kBins + 4 + 4 * T) {
+    // the confusion count of class c sums m >= 0, threshold j's sums m > j
+    // (u > th_j <=> m > j, the thresholds ascending); the output order tp,
+    // tn, fp, fn is class 3, 0, 1, 2
+    const int r = i - kBins - 4;  // -4..-1: the confusion counts
+    const int j = r < 0 ? -1 : r / 4;
+    const int c = (r + 7) % 4;
+    const long long* hist = s_total + kBinCells + c * (T + 1);
+    long long s = 0;
+    for (int m = j + 1; m <= T; ++m) s += hist[m];
+    out_int[r < 0 ? kOffThresh + r : kOffThresh + 4 * prm.slot[j] + r % 4] = s;
   }
 }
 
@@ -212,29 +309,70 @@ extern "C" int rcu_fused_eval_stats_layout(int* out) {
   out[1] = kMaxThresholds;
   out[2] = kIntCols;
   out[3] = kThreads;
+  out[4] = kVoxels;
+  out[5] = kMaxCells;
   return 0;
 }
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = queued).
-// fg/unc must be 16-byte aligned, tgt/pred/weight 4-byte aligned;
-// part_int is (grid, kIntCols) int32, part_conf (grid, kBins) float64.
+// The kernel's resident blocks per SM for `n_thresholds` on the current
+// device (the grid of one wave is that times the SM count) and its dynamic
+// shared memory a block; also lifts its dynamic shared memory limit there
+// to what the most thresholds need. Returns a cudaError_t.
+extern "C" int rcu_fused_eval_stats_occupancy(int n_thresholds, int* blocks,
+                                              int* shared) {
+  if (n_thresholds < 0 || n_thresholds > kMaxThresholds) {
+    return (int)cudaErrorInvalidValue;
+  }
+  *shared = (int)shared_bytes(n_thresholds);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_eval_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)shared_bytes(kMaxThresholds));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fused_eval_stats_kernel, kThreads, shared_bytes(n_thresholds));
+}
+
+// Zeroes the ticket and launches on `stream`; returns the cudaError_t of
+// the two (0 = queued). fg and unc 16-byte aligned, the u8 planes 8-byte
+// aligned. `edge` holds the 9 inner bin edges in `p >= edge` form;
+// `thresholds` ascending without NaN, `slots[j]` the caller's row of
+// thresholds[j] (a permutation of 0..n_thresholds-1). `scratch`: an 8-byte
+// ticket slot, then lane_cells(n_thresholds) * grid 8-byte partials.
+// `out`: kIntCols int64 then kBins float64.
 extern "C" int rcu_fused_eval_stats(const float* fg, const float* unc,
                                     const uint8_t* tgt, const uint8_t* pred,
                                     const uint8_t* weight, long long n,
-                                    const float* edge_hi, int edge_strict,
-                                    const float* thresholds, int n_thresholds,
-                                    int* part_int, double* part_conf, int grid,
+                                    const float* edge, const float* thresholds,
+                                    const int* slots, int n_thresholds,
+                                    void* scratch, long long* out, int grid,
                                     void* stream) {
   if (n < 0 || n_thresholds < 0 || n_thresholds > kMaxThresholds || grid <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   Params prm;
-  memset(&prm, 0, sizeof(prm));
-  memcpy(prm.edge_hi, edge_hi, sizeof(prm.edge_hi));
-  memcpy(prm.thresholds, thresholds, sizeof(float) * n_thresholds);
-  prm.edge_strict = edge_strict;
+  memcpy(prm.edge, edge, sizeof(prm.edge));
+  unsigned seen = 0;
+  for (int j = 0; j < kMaxThresholds; ++j) {
+    prm.thresholds[j] = j < n_thresholds ? thresholds[j] : __builtin_inff();
+    prm.slot[j] = j < n_thresholds ? slots[j] : 0;
+    if (j < n_thresholds) {
+      if (j > 0 && !(thresholds[j - 1] <= thresholds[j])) {
+        return (int)cudaErrorInvalidValue;  // unsorted, or NaN
+      }
+      if (slots[j] < 0 || slots[j] >= n_thresholds || (seen >> slots[j]) & 1u) {
+        return (int)cudaErrorInvalidValue;  // not a permutation
+      }
+      seen |= 1u << slots[j];
+    }
+  }
   prm.n_thresholds = n_thresholds;
-  fused_eval_stats_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      fg, unc, tgt, pred, weight, n, prm, part_int, part_conf);
+  const cudaStream_t s = (cudaStream_t)stream;
+  unsigned* ticket = static_cast<unsigned*>(scratch);
+  long long* part = static_cast<long long*>(scratch) + 1;
+  cudaError_t err = cudaMemsetAsync(ticket, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return (int)err;
+  fused_eval_stats_kernel<<<grid, kThreads, shared_bytes(n_thresholds), s>>>(
+      fg, unc, tgt, pred, weight, n, prm, ticket, part, out,
+      reinterpret_cast<double*>(out + kIntCols));
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,7 @@ dataset object with ``subjects``, ``read_volume``, ``shape`` and ``files``.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -167,9 +168,9 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
     ``mc`` counts the MC-dropout samples (default ``others.mc`` or 20;
     ``mc=0`` is the deterministic protocol). ``masked`` applies the BraTS
     t2>0 foreground mask to the ECE bins. Runs on ``cuda`` unless
-    ``device`` says otherwise. Convolutions follow torch's TF32 setting:
-    the f32 parity bar holds with ``torch.backends.cudnn.allow_tf32 =
-    False``, which the CLI sets."""
+    ``device`` says otherwise. The U-Net runs in full float32, held to the
+    f32 parity bar: :func:`evaluate_subjects` switches TF32 off for its
+    work and restores the caller's setting."""
     device = resolve_device(device)
     if mc is None:
         cfg_mc = config.others.get("mc")
@@ -195,6 +196,21 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
         dataset.close()
 
 
+@contextlib.contextmanager
+def _full_float32():
+    """cuDNN and matmul TF32 off within the block; the caller's flags come
+    back afterwards, also on error."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
 def _to_host(tree):
     if isinstance(tree, dict):
         return {k: _to_host(v) for k, v in tree.items()}
@@ -207,29 +223,33 @@ def evaluate_subjects(model, dataset, out_dir: str, *, run_id: str = "baseline",
                       device=None) -> dict:
     """The direct eval's core over ``dataset.subjects`` (see module doc).
 
-    Subject ``i``'s MC stream is ``(seed, i)`` (``eval.pipeline``)."""
+    Subject ``i``'s MC stream is ``(seed, i)`` (``eval.pipeline``). The
+    f32 U-Net is held to the f32 bar, so cuDNN and matmul TF32 are off
+    while it runs (torch's default lets cuDNN use TF32, which misses that
+    bar); the caller's flags are restored afterwards, also on error."""
     device = resolve_device(device)
-    sinks = _EvalSinks(out_dir, run_id, thresholds)
-    eces = {}
-    for si, subject in enumerate(dataset.subjects):
-        t0 = time.time()
-        volume = np.asarray(dataset.read_volume(subject, "images"), np.float32)
-        if volume.ndim != 4:
-            raise NotImplementedError("native-2D datasets are not ported yet")
-        labels = np.asarray(dataset.read_volume(subject, "labels"))
-        if labels.ndim > 3:  # trailing channel axis -> the gt channel
-            labels = labels[..., 0]
-        target = labels > 0.5
-        mask = foreground_mask(dataset, subject, target.shape) if masked \
-            else np.ones(target.shape, bool)
-        out = pipeline.volume_mc_eval(
-            model, mc, batch_size, torch.from_numpy(volume).to(device),
-            torch.from_numpy(target).to(device),
-            torch.from_numpy(mask).to(device), thresholds, rng=(seed, si))
-        row = _to_host(out)
-        sinks.write_subject(subject, row)
-        eces[subject] = float(row["ece"])
-        logging.info("direct eval %s ece=%.5f (%.2fs)", subject,
-                     eces[subject], time.time() - t0)
-    sinks.finish()
-    return eces
+    with _full_float32():
+        sinks = _EvalSinks(out_dir, run_id, thresholds)
+        eces = {}
+        for si, subject in enumerate(dataset.subjects):
+            t0 = time.time()
+            volume = np.asarray(dataset.read_volume(subject, "images"), np.float32)
+            if volume.ndim != 4:
+                raise NotImplementedError("native-2D datasets are not ported yet")
+            labels = np.asarray(dataset.read_volume(subject, "labels"))
+            if labels.ndim > 3:  # trailing channel axis -> the gt channel
+                labels = labels[..., 0]
+            target = labels > 0.5
+            mask = foreground_mask(dataset, subject, target.shape) if masked \
+                else np.ones(target.shape, bool)
+            out = pipeline.volume_mc_eval(
+                model, mc, batch_size, torch.from_numpy(volume).to(device),
+                torch.from_numpy(target).to(device),
+                torch.from_numpy(mask).to(device), thresholds, rng=(seed, si))
+            row = _to_host(out)
+            sinks.write_subject(subject, row)
+            eces[subject] = float(row["ece"])
+            logging.info("direct eval %s ece=%.5f (%.2fs)", subject,
+                         eces[subject], time.time() - t0)
+        sinks.finish()
+        return eces

@@ -38,6 +38,17 @@ def library_path(name: str) -> str:
                         f"lib{name}.so")
 
 
+def _report_path(name: str) -> str:
+    return os.path.join(os.path.dirname(library_path(name)), "nvcc.txt")
+
+
+def report(name: str) -> str:
+    """The compiler output (``-Xptxas -v``: registers, shared memory,
+    spills) of the library built for the current source."""
+    with open(_report_path(name)) as f:
+        return f.read()
+
+
 def build_all(names) -> dict:
     """Compile every missing library, one ``nvcc`` per source, all started
     together. Returns ``{name: compiler output}`` (``-Xptxas -v`` register
@@ -59,6 +70,8 @@ def build_all(names) -> dict:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out}")
             continue
+        with open(_report_path(name), "w") as f:
+            f.write(out)
         os.replace(tmp, path)  # atomic: concurrent builders never see half a file
         reports[name] = out
     if failed:

@@ -8,12 +8,21 @@ CUDA tensors and takes :func:`fused_eval_stats_reference` only for CPU
 tensors; anything else raises. ``fused_eval_stats.launches`` counts kernel
 launches and ``fused_eval_stats.plain_calls`` the CPU calls, so a run can
 show which path it went through.
+
+The host side of the kernel is plain functions here, so the CPU tests
+reach it: the bin edges in ``>=`` form (:func:`kernel_edges`), the sorted
+thresholds and the caller's row of each (:func:`sort_thresholds`), the
+algebra of the kernel's last step (:func:`counts_from_histogram`) and the
+int32 guard (:func:`check_lane_counts`) and the cache key of the
+threshold arguments (:func:`host_args_key`).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
+import numpy as np
 import torch
 
 from rcu_tpu_torch.ops.calibration import (_bin_proportions, bin_edges,
@@ -24,28 +33,95 @@ from rcu_tpu_torch.ops.uncertainty import _correction_from_counts
 N_BINS = 10
 MAX_THRESHOLDS = 23
 THREADS = 256  # the kernel's block size (checked against the library)
+VOXELS_PER_THREAD = 8  # per grid-stride iteration (checked likewise)
 _INT_COLS = 2 * N_BINS + 4 + 4 * MAX_THRESHOLDS
-_BLOCKS_PER_SM = 4
-_MAX_BLOCK_VOXELS = 2 ** 30  # int32 per-block counts stay exact below 2^31
+_LANE_LIMIT = 2 ** 31  # per-lane int32 counters stay exact below it
+_ALIGN = {torch.float32: 16, torch.uint8: 8}  # the kernel's vector loads
+# class c = 2 * target + prediction is tn, fp, fn, tp; the result's order
+# tp, tn, fp, fn takes these classes
+CLASS_ORDER = (3, 0, 1, 2)
 
 
 @functools.cache
 def _library():
     from rcu_tpu_torch.ops.cuda import build
     lib = build.load("evalstats")
-    layout = (ctypes.c_int * 4)()
+    layout = (ctypes.c_int * 6)()
     lib.rcu_fused_eval_stats_layout.argtypes = [ctypes.c_void_p]
     lib.rcu_fused_eval_stats_layout.restype = ctypes.c_int
     lib.rcu_fused_eval_stats_layout(layout)
-    if tuple(layout) != (N_BINS, MAX_THRESHOLDS, _INT_COLS, THREADS):
+    want = (N_BINS, MAX_THRESHOLDS, _INT_COLS, THREADS, VOXELS_PER_THREAD,
+            lane_cells(MAX_THRESHOLDS))
+    if tuple(layout) != want:
         raise RuntimeError(f"evalstats.cu layout {tuple(layout)} does not "
                            "match the Python wrapper")
     ptr = ctypes.c_void_p
+    lib.rcu_fused_eval_stats_occupancy.argtypes = [ctypes.c_int, ptr, ptr]
+    lib.rcu_fused_eval_stats_occupancy.restype = ctypes.c_int
     lib.rcu_fused_eval_stats.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, ptr, ctypes.c_int, ptr,
+        ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, ptr, ptr, ptr,
         ctypes.c_int, ptr, ptr, ctypes.c_int, ptr]
     lib.rcu_fused_eval_stats.restype = ctypes.c_int
     return lib
+
+
+def kernel_edges(n_bins: int = N_BINS) -> np.ndarray:
+    """The inner bin edges as the kernel compares them: ``p`` lies above
+    edge ``k`` when ``p >= edges[k]``. A strict edge (``p > hi``) becomes
+    the next float32 up; the top edge is left out, since passing it keeps
+    the last bin. Sums of these compares equal ``calibration.bin_ids``."""
+    up = np.float32(np.inf)
+    return np.asarray([np.nextafter(hi, up) if strict else hi
+                       for hi, strict in bin_edges(n_bins)[:-1]], np.float32)
+
+
+def sort_thresholds(thresholds):
+    """-> (ascending float32 thresholds, ``order``): ``order[k]`` is the
+    caller's index of the k-th smallest, the row the kernel writes its
+    counts to. NaN becomes +inf: ``u > NaN`` and ``u > inf`` are false for
+    every ``u``, so the counts are the same."""
+    th = np.asarray(thresholds, np.float32).reshape(-1)
+    th = np.where(np.isnan(th), np.float32(np.inf), th)
+    order = np.argsort(th, kind="stable")
+    return th[order], order
+
+
+def counts_from_histogram(hist):
+    """The kernel's last step, in numpy. ``hist[c, m]`` counts the voxels
+    of class ``c = 2 * target + prediction`` whose uncertainty exceeds
+    exactly ``m`` of the ascending thresholds. -> (tp, tn, fp, fn) and the
+    (T, 4) (tpu, tnu, fpu, fnu) rows: ``u > th_j`` <=> ``m > j``, so row
+    ``j`` sums ``hist[:, j + 1:]``."""
+    hist = np.asarray(hist, np.int64)[list(CLASS_ORDER)]
+    suffix = np.cumsum(hist[:, ::-1], axis=1)[:, ::-1]  # [c, m]: sum over >= m
+    return suffix[:, 0], np.ascontiguousarray(suffix[:, 1:].T)
+
+
+def lane_cells(n_thresholds: int) -> int:
+    """A lane's counters, and a block's row of partial sums: the (bin,
+    target) counts, the (class, m) histogram with m in 0..T, the
+    confidence sums."""
+    return 2 * N_BINS + 4 * (n_thresholds + 1) + N_BINS
+
+
+def lane_voxels(n: int, grid: int) -> int:
+    """The most voxels one lane counts: its share of the chunks of
+    ``VOXELS_PER_THREAD`` voxels that the grid-stride loop hands out."""
+    chunks = -(-n // VOXELS_PER_THREAD)
+    return -(-chunks // (grid * THREADS)) * VOXELS_PER_THREAD
+
+
+def check_lane_counts(n: int, grid: int) -> None:
+    """Raise where a lane's int32 counters could reach 2^31."""
+    if lane_voxels(n, grid) >= _LANE_LIMIT:
+        raise ValueError(f"{n} voxels on {grid} blocks give one lane "
+                         f"{lane_voxels(n, grid)} voxels; its int32 counters "
+                         f"hold fewer than {_LANE_LIMIT}")
+
+
+def grid_size(n: int, wave: int) -> int:
+    """Blocks of one launch: one full wave, fewer where ``n`` is small."""
+    return max(1, min(wave, -(-n // (VOXELS_PER_THREAD * THREADS))))
 
 
 def _stats_dict(counts, conf_sum, n_thresholds):
@@ -83,11 +159,11 @@ def fused_eval_stats_reference(fg, target, prediction, uncertainty, weight,
 
 
 def _check_cuda_inputs(fg, target, prediction, uncertainty, weight):
-    planes = {"fg": (fg, torch.float32, 16), "uncertainty": (uncertainty, torch.float32, 16),
-              "target": (target, torch.uint8, 4),
-              "prediction": (prediction, torch.uint8, 4),
-              "weight": (weight, torch.uint8, 4)}
-    for name, (x, dtype, align) in planes.items():
+    planes = {"fg": (fg, torch.float32), "uncertainty": (uncertainty, torch.float32),
+              "target": (target, torch.uint8),
+              "prediction": (prediction, torch.uint8),
+              "weight": (weight, torch.uint8)}
+    for name, (x, dtype) in planes.items():
         if x.device != fg.device:
             raise ValueError(f"{name} is on {x.device}, fg on {fg.device}")
         if x.dtype != dtype:
@@ -96,9 +172,49 @@ def _check_cuda_inputs(fg, target, prediction, uncertainty, weight):
             raise ValueError(f"{name} must be contiguous")
         if x.numel() != fg.numel():
             raise ValueError(f"{name} has {x.numel()} elements, fg {fg.numel()}")
-        if x.data_ptr() % align:
-            raise ValueError(f"{name} must be {align}-byte aligned for the "
-                             "kernel's vector loads")
+        if x.data_ptr() % _ALIGN[dtype]:
+            raise ValueError(f"{name} must be {_ALIGN[dtype]}-byte aligned "
+                             "for the kernel's vector loads")
+
+
+@functools.cache
+def occupancy(device_index: int, n_thresholds: int) -> tuple:
+    """(resident blocks per SM, dynamic shared memory bytes a block) of the
+    kernel for this threshold count on the device: the lane counters grow
+    with the count, and they set the occupancy."""
+    blocks, shared = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        err = _library().rcu_fused_eval_stats_occupancy(
+            n_thresholds, ctypes.byref(blocks), ctypes.byref(shared))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(f"fused_eval_stats occupancy query failed: "
+                           f"cudaError {err}, {blocks.value} blocks per SM")
+    return blocks.value, shared.value
+
+
+def _wave(device_index: int, n_thresholds: int) -> int:
+    """Blocks of one full wave on the device."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return occupancy(device_index, n_thresholds)[0] * sms
+
+
+def host_args_key(thresholds) -> tuple:
+    """The cache key of a threshold list: float values, every NaN as +inf
+    (the same counts, see :func:`sort_thresholds`), so that NaN objects
+    that compare unequal still share one entry."""
+    return tuple(math.inf if math.isnan(x) else x
+                 for x in map(float, thresholds))
+
+
+@functools.lru_cache(maxsize=64)
+def _host_args(key: tuple):
+    """ctypes arguments for one threshold key: the edges, the sorted
+    thresholds and the caller's row of each."""
+    th, order = sort_thresholds(key)
+    edge = (ctypes.c_float * (N_BINS - 1))(*kernel_edges())
+    th_arg = (ctypes.c_float * MAX_THRESHOLDS)(*th)
+    slots = (ctypes.c_int * MAX_THRESHOLDS)(*order)
+    return edge, th_arg, slots, th.size
 
 
 def fused_eval_stats(fg, target, prediction, uncertainty, weight, thresholds):
@@ -106,7 +222,8 @@ def fused_eval_stats(fg, target, prediction, uncertainty, weight, thresholds):
 
     On CUDA: ``fg``/``uncertainty`` float32, ``target``/``prediction``/
     ``weight`` uint8 0/1 (a bool tensor's ``.view(torch.uint8)``), all
-    contiguous with equal sizes; at most 23 thresholds."""
+    contiguous with equal sizes, the float32 planes 16-byte and the uint8
+    planes 8-byte aligned; at most 23 thresholds in any order."""
     if len(thresholds) > MAX_THRESHOLDS:
         raise ValueError(f"at most {MAX_THRESHOLDS} thresholds, got {len(thresholds)}")
     if fg.device.type == "cpu":
@@ -117,29 +234,28 @@ def fused_eval_stats(fg, target, prediction, uncertainty, weight, thresholds):
         raise ValueError(f"fused_eval_stats runs on cuda or cpu, not {fg.device}")
     _check_cuda_inputs(fg, target, prediction, uncertainty, weight)
     lib = _library()
+    edge, th_arg, slots, n_th = _host_args(host_args_key(thresholds))
+    device = fg.device.index if fg.device.index is not None \
+        else torch.cuda.current_device()
     n = fg.numel()
-    sms = torch.cuda.get_device_properties(fg.device).multi_processor_count
-    quads = -(-n // 4)
-    grid = max(1, min(_BLOCKS_PER_SM * sms, -(-quads // THREADS)),
-               -(-n // _MAX_BLOCK_VOXELS))
-    part_int = torch.empty((grid, _INT_COLS), dtype=torch.int32, device=fg.device)
-    part_conf = torch.empty((grid, N_BINS), dtype=torch.float64, device=fg.device)
-    edges = bin_edges(N_BINS)
-    edge_hi = (ctypes.c_float * N_BINS)(*[float(hi) for hi, _ in edges])
-    strict = sum(1 << k for k, (_, s) in enumerate(edges) if s)
-    th = (ctypes.c_float * MAX_THRESHOLDS)(*[float(x) for x in thresholds])
-    with torch.cuda.device(fg.device):
+    grid = grid_size(n, _wave(device, n_th))
+    check_lane_counts(n, grid)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    # the one allocation: the result row, then the ticket and the blocks'
+    # partial rows
+    width = _INT_COLS + N_BINS
+    out = torch.empty(width + 1 + lane_cells(n_th) * grid, dtype=torch.int64,
+                      device=fg.device)
+    with torch.cuda.device(device):
         err = lib.rcu_fused_eval_stats(
             fg.data_ptr(), uncertainty.data_ptr(), target.data_ptr(),
-            prediction.data_ptr(), weight.data_ptr(), n, edge_hi, strict, th,
-            len(thresholds), part_int.data_ptr(), part_conf.data_ptr(), grid,
-            torch.cuda.current_stream(fg.device).cuda_stream)
+            prediction.data_ptr(), weight.data_ptr(), n, edge, th_arg, slots,
+            n_th, out[width:].data_ptr(), out.data_ptr(), grid, stream)
     if err != 0:
         raise RuntimeError(f"fused_eval_stats launch failed: cudaError {err}")
     fused_eval_stats.launches += 1
-    # second pass: fixed-order sums over the per-block rows
-    return _stats_dict(part_int.sum(0, dtype=torch.int64), part_conf.sum(0),
-                       len(thresholds))
+    return _stats_dict(out[:_INT_COLS],
+                       out[_INT_COLS:width].view(torch.float64), n_th)
 
 
 fused_eval_stats.launches = 0

@@ -73,6 +73,64 @@ def test_cuda_kernel_matches_plain_version(cuda_device, shape, masked):
             assert torch.equal(got[key], value), key
 
 
+def same_bits(a, b):
+    """Equal tensors, NaN for NaN (bit-identical reruns)."""
+    if a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    return torch.equal(a, b)
+
+
+def odd_subject(kind, shape, seed=7):
+    """``skewed``: 95 % of fg below 0.1 (real maps pile into bin 0 and
+    tn); ``nonfinite``: NaN and +-inf in fg and u; else make_subject."""
+    fg, target, prediction, unc, mask = make_subject(seed, shape)
+    rng = np.random.RandomState(seed + 1)
+    if kind == "skewed":
+        low = rng.rand(*shape) < 0.95
+        fg = np.where(low, rng.rand(*shape) * 0.1, fg).astype(np.float32)
+        target = target & ~low
+        prediction = fg > 0.5
+    elif kind == "nonfinite":
+        special = np.float32([np.nan, np.inf, -np.inf])
+        for plane in (fg, unc):
+            flat = plane.reshape(-1)
+            flat[rng.choice(flat.size, 30, replace=False)] = np.resize(special, 30)
+        prediction = fg > 0.5
+    return fg, target, prediction, unc, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape,thresholds", [
+    ("plain", (5, 31, 29), (0.5, 0.1, 0.9, 0.1, 0.3, 0.3)),  # unsorted, duplicates
+    ("plain", (5, 31, 29), THRESHOLDS[::-1]),
+    ("plain", (5, 31, 29), ()),
+    ("plain", (1_000_003,), tuple(np.linspace(0.0, 1.0, 23))),  # the most
+    ("skewed", (155, 48, 48), THRESHOLDS),
+    ("nonfinite", (5, 31, 29), THRESHOLDS),
+    ("nonfinite", (3, 17, 19), (0.3, float("nan"), 0.1, float("inf"))),
+    ("plain", (15,), THRESHOLDS),  # one 8-voxel chunk and a ragged tail
+    ("plain", (5,), THRESHOLDS),  # less than one chunk
+])
+def test_cuda_kernel_exact_on_odd_inputs(cuda_device, kind, shape, thresholds):
+    """Sizes that are no multiple of the chunk; exact counts and
+    bit-identical reruns against the plain version."""
+    fg, target, prediction, unc, mask = odd_subject(kind, shape)
+    inputs = port_inputs(fg, target, prediction, unc, mask, cuda_device)
+    got = evalstats.fused_eval_stats(*inputs, thresholds)
+    again = evalstats.fused_eval_stats(*inputs, thresholds)
+    torch.cuda.synchronize()
+    want = evalstats.fused_eval_stats_reference(*inputs, thresholds)
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        assert same_bits(got[key], again[key]), key
+        assert got[key].dtype == value.dtype and got[key].shape == value.shape, key
+        if key == "bins_conf_sum":
+            torch.testing.assert_close(got[key], value, rtol=1e-6, atol=1e-6,
+                                       equal_nan=True)
+        else:
+            assert torch.equal(got[key], value), (key, got[key], value)
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     fg, target, prediction, unc, mask = make_subject(6, (2, 8, 8))
@@ -86,6 +144,21 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         evalstats.fused_eval_stats(shifted, *[x.reshape(-1)[:n] for x in inputs[1:]],
                                    THRESHOLDS)
+    byte = torch.cat([inputs[1].reshape(-1), inputs[1].reshape(-1)[:4]])[4:]
+    assert byte.data_ptr() % 8  # 4-byte aligned was enough before
+    with pytest.raises(ValueError, match="target must be 8-byte aligned"):
+        evalstats.fused_eval_stats(inputs[0].reshape(-1), byte,
+                                   *[x.reshape(-1) for x in inputs[2:]], THRESHOLDS)
+    # the u8 planes are read 8 bytes at a time: 8-byte alignment is enough
+    eight = torch.empty(n + 8, dtype=torch.uint8, device=cuda_device)[8:]
+    eight.copy_(inputs[1].reshape(-1))
+    assert eight.data_ptr() % 16 == 8
+    got = evalstats.fused_eval_stats(inputs[0].reshape(-1), eight,
+                                     *[x.reshape(-1) for x in inputs[2:]],
+                                     THRESHOLDS)
+    want = evalstats.fused_eval_stats_reference(
+        inputs[0], inputs[1], *inputs[2:], THRESHOLDS)
+    assert torch.equal(got["thresh_counts"], want["thresh_counts"])
 
 
 class TinyVolumes:

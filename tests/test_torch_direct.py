@@ -225,3 +225,50 @@ def test_empty_mask_writes_rows_then_raises(env, tmp_path):
                                       batch_size=2, device="cpu")
     rows = read_dir(out_dir)["eval_ece_baseline.csv"]
     assert rows[1][1] == "z" and rows[1][2] == "nan"
+
+
+class FlagRecorder(torch.nn.Module):
+    """A U-Net whose forward records the TF32 flags it runs under, and
+    raises after recording when ``fail``."""
+
+    def __init__(self, fail):
+        super().__init__()
+        from rcu_tpu_torch.models import get_model
+        self.inner = get_model("unet", PARAMS)
+        self.fail = fail
+        self.seen = []
+
+    def forward(self, x, generators=None):
+        self.seen.append((torch.backends.cudnn.allow_tf32,
+                          torch.backends.cuda.matmul.allow_tf32))
+        if self.fail:
+            raise RuntimeError("forward failed")
+        return self.inner(x) if generators is None else self.inner(x, generators)
+
+
+@pytest.mark.parametrize("fail", [False, True])
+def test_evaluate_subjects_runs_f32_and_restores_tf32(tmp_path, fail):
+    """Under torch's default TF32 setting a library call still runs the f32
+    U-Net in full float32, and leaves the caller's flags as they were."""
+    from tests.test_torch_cuda import TinyVolumes
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    model = FlagRecorder(fail)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        if fail:
+            with pytest.raises(RuntimeError, match="forward failed"):
+                port_direct.evaluate_subjects(model, TinyVolumes((2, 8, 8)),
+                                              str(tmp_path), mc=2, batch_size=2,
+                                              masked=False, device="cpu")
+        else:
+            port_direct.evaluate_subjects(model, TinyVolumes((2, 8, 8)),
+                                          str(tmp_path), mc=0, batch_size=2,
+                                          masked=False, device="cpu")
+        assert model.seen and set(model.seen) == {(False, False)}
+        assert torch.backends.cudnn.allow_tf32 is True
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved

@@ -13,8 +13,11 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from rcu_tpu.eval import kernels as lax_kernels
+from rcu_tpu.ops import calibration as jax_calibration
 from rcu_tpu.ops.pallas import evalstats as jax_evalstats
+from rcu_tpu_torch.ops import calibration
 from rcu_tpu_torch.ops.cuda import evalstats
+import sass_loop
 from tests.test_torch_cuda import EDGES, THRESHOLDS, make_subject, port_inputs
 
 COUNT_KEYS = ("tpu", "tnu", "fpu", "fnu", "tp", "tn", "fp", "fn")
@@ -158,3 +161,180 @@ def test_fuzz_against_lax(shape_index, seed, masked, target_rate, edge_rate):
         jnp.asarray(THRESHOLDS, jnp.float32)))
     p, t = prediction, target
     assert int(confusion["tn"]) == int(np.sum(~p & ~t))
+
+
+# host logic of the CUDA kernel (rcu_tpu_torch/csrc/evalstats.cu), which
+# the CPU reaches as plain functions of the wrapper module
+NAN, INF = float("nan"), float("inf")
+THRESHOLD_SETS = [THRESHOLDS, THRESHOLDS[::-1], (0.5, 0.1, 0.9, 0.1, 0.3, 0.3),
+                  (0.3, NAN, 0.1, INF, -INF, 0.0), (0.7,), (),
+                  tuple(np.linspace(0.0, 1.0, 23))]
+
+
+def salted_planes(seed, n, thresholds):
+    """fg salted with every bin edge, its neighbours, NaN and +-inf; u with
+    every threshold, its neighbours, NaN and +-inf."""
+    rng = np.random.RandomState(seed)
+    fg = rng.rand(n).astype(np.float32)
+    unc = rng.rand(n).astype(np.float32)
+    special = np.float32([NAN, INF, -INF, 0.0, -0.0, 1.0])
+    edges = np.concatenate([EDGES, np.nextafter(EDGES, np.float32(2)),
+                            np.nextafter(EDGES, np.float32(-1)), special])
+    th = np.float32([t for t in thresholds if np.isfinite(t)])
+    levels = np.concatenate([th, np.nextafter(th, np.float32(2)),
+                             np.nextafter(th, np.float32(-1)), special])
+    fg[rng.choice(n, edges.size, replace=False)] = edges
+    unc[rng.choice(n, levels.size, replace=False)] = levels
+    target = rng.rand(n) < 0.3
+    weight = rng.rand(n) < 0.8
+    return fg, target, fg > 0.5, unc, weight
+
+
+def test_kernel_edges_give_the_bin_ids():
+    fg = salted_planes(11, 4000, THRESHOLDS)[0]
+    edges = evalstats.kernel_edges()
+    assert edges.dtype == np.float32 and edges.shape == (9,)
+    ids = (fg[:, None] >= edges[None, :]).sum(1)
+    np.testing.assert_array_equal(
+        ids, calibration.bin_ids(torch.from_numpy(fg)).numpy())
+    np.testing.assert_array_equal(  # the JAX package's bin ids
+        ids[np.isfinite(fg)], np.asarray(jax_calibration.bin_ids(
+            jnp.asarray(fg[np.isfinite(fg)]), 10)))
+
+
+@pytest.mark.parametrize("thresholds", THRESHOLD_SETS)
+def test_sorted_thresholds_go_back_to_the_callers_order(thresholds):
+    th, order = evalstats.sort_thresholds(thresholds)
+    assert th.dtype == np.float32 and th.shape == (len(thresholds),)
+    assert np.all(th[:-1] <= th[1:]) and not np.isnan(th).any()
+    assert sorted(order.tolist()) == list(range(len(thresholds)))
+    want = np.float32(thresholds).reshape(-1)
+    want = np.where(np.isnan(want), np.float32(INF), want)
+    np.testing.assert_array_equal(th, want[order])
+
+
+@pytest.mark.parametrize("thresholds", THRESHOLD_SETS)
+def test_histogram_suffix_sums_equal_the_reference(thresholds):
+    """The (class, m) histogram, summed as the kernel's last block sums it,
+    gives the plain version's confusion and threshold counts."""
+    fg, target, prediction, unc, weight = salted_planes(12, 5003, thresholds)
+    th, order = evalstats.sort_thresholds(thresholds)
+    m = (unc[:, None] > th[None, :]).sum(1)
+    c = 2 * target.astype(int) + prediction.astype(int)
+    hist = np.zeros((4, th.size + 1), np.int64)
+    np.add.at(hist, (c, m), 1)
+    confusion, rows = evalstats.counts_from_histogram(hist)
+    placed = np.empty_like(rows)
+    placed[order] = rows  # the kernel writes sorted row j to row order[j]
+    want = evalstats.fused_eval_stats_reference(
+        *port_inputs(fg, target, prediction, unc, weight), thresholds)
+    assert confusion.tolist() == [int(want[k]) for k in ("tp", "tn", "fp", "fn")]
+    np.testing.assert_array_equal(placed, want["thresh_counts"].numpy())
+
+
+@pytest.mark.parametrize("n,grid,lane", [
+    (0, 1, 0), (7, 1, 8), (8_928_000, 264, 136), (8_928_000, 1, 34_880),
+    (2 ** 39 - 16 * 256, 1, 2 ** 31 - 16), (2 ** 39, 1, 2 ** 31),
+    (2 ** 40, 132, 32_537_632)])
+def test_lane_counts_stay_within_int32(n, grid, lane):
+    assert evalstats.lane_voxels(n, grid) == lane
+    if lane >= 2 ** 31:
+        with pytest.raises(ValueError, match="int32"):
+            evalstats.check_lane_counts(n, grid)
+    else:
+        evalstats.check_lane_counts(n, grid)
+
+
+@pytest.mark.parametrize("n,wave,grid", [(0, 264, 1), (7, 264, 1),
+                                         (2048, 264, 1), (2049, 264, 2),
+                                         (8_928_000, 264, 264),
+                                         (1_000_003, 132, 132)])
+def test_grid_is_one_wave_at_most(n, wave, grid):
+    assert evalstats.grid_size(n, wave) == grid
+
+
+@pytest.mark.parametrize("thresholds", THRESHOLD_SETS)
+def test_threshold_arguments_are_cached_once_per_key(thresholds):
+    """Equal thresholds share one cache entry, NaN objects that compare
+    unequal included; the cached arguments are the sorted thresholds and
+    the caller's row of each."""
+    evalstats._host_args.cache_clear()
+    copies = [tuple(float("nan") if np.isnan(x) else float(x)
+                    for x in thresholds) for _ in range(3)]
+    args = [evalstats._host_args(evalstats.host_args_key(c)) for c in copies]
+    assert evalstats._host_args.cache_info().currsize == 1
+    assert all(a is args[0] for a in args)
+    edge, th_arg, slots, n = args[0]
+    th, order = evalstats.sort_thresholds(thresholds)
+    assert n == len(thresholds)
+    np.testing.assert_array_equal(np.float32(th_arg[:n]), th)
+    assert list(slots[:n]) == order.tolist()
+    np.testing.assert_array_equal(np.float32(edge[:]), evalstats.kernel_edges())
+
+
+@pytest.mark.parametrize("n_thresholds,cells", [(0, 34), (11, 78), (23, 126)])
+def test_a_lanes_cells_follow_the_threshold_count(n_thresholds, cells):
+    assert evalstats.lane_cells(n_thresholds) == cells
+
+
+SASS = """
+        Function : _Z6kernelPf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+        /*0020*/                   FSETP.GE.AND P0, PT, R2, R3, PT ;
+.L_x_1:
+        /*0030*/                   IADD3 R4, R4, 0x1, RZ ;
+        /*0040*/                   LDS R5, [R6] ;
+        /*0050*/                   IADD3 R5, R5, R7, RZ ;
+        /*0060*/                   STS [R6], R5 ;
+        /*0070*/               @P0 BRA `(.L_x_1) ;
+        /*0080*/                   ISETP.GE.AND P1, PT, R4, R8, PT ;
+        /*0090*/              @!P1 BRA 0x30 ;
+        /*00a0*/                   EXIT ;
+"""
+# part of the loop placed after the function's exit, as nvcc does for a
+# branch taken rarely; the exit and the store before it are not in it
+SASS_OUT_OF_LINE = """
+        Function : _Z6kernelPf
+        /*0000*/                   S2R R0, SR_TID.X ;
+.L_x_2:
+        /*0010*/                   LDG.E R5, desc[UR4][R2.64] ;
+        /*0020*/               @P0 BRA `(.L_x_3) ;
+        /*0030*/                   IADD3 R4, R4, 0x1, RZ ;
+.L_x_4:
+        /*0040*/                   ISETP.GE.AND P1, PT, R4, R8, PT ;
+        /*0050*/              @!P1 BRA `(.L_x_2) ;
+        /*0060*/                   STS [R6], R5 ;
+        /*0070*/                   EXIT ;
+.L_x_3:
+        /*0080*/                   IADD3 R4, R4, 0x2, RZ ;
+        /*0090*/                   BRA `(.L_x_4) ;
+"""
+# a branch back that is no loop: cold code after the exit rejoins the main
+# line; and the self-branch that pads the end of every function
+SASS_NO_LOOP = """
+        Function : _Z6kernelPf
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/               @P0 BRA `(.L_x_5) ;
+.L_x_6:
+        /*0020*/                   STS [R6], R5 ;
+        /*0030*/                   EXIT ;
+.L_x_5:
+        /*0040*/                   IADD3 R4, R4, 0x2, RZ ;
+        /*0050*/                   BRA `(.L_x_6) ;
+.L_x_7:
+        /*0060*/                   BRA `(.L_x_7) ;
+"""
+
+
+@pytest.mark.parametrize("text,addresses,ops", [
+    (SASS, list(range(0x30, 0xa0, 0x10)), ["IADD3", "LDS"]),
+    (SASS_OUT_OF_LINE, [0x10, 0x20, 0x30, 0x40, 0x50, 0x80, 0x90],
+     ["LDG.E", "BRA"]),
+    (SASS_NO_LOOP, [0x60], ["BRA"])])
+def test_sass_loop_count(text, addresses, ops):
+    functions = sass_loop.parse(text)
+    assert list(functions) == ["_Z6kernelPf"]
+    loop = sass_loop.largest_loop(functions["_Z6kernelPf"])
+    assert [x[0] for x in loop] == addresses
+    assert [x[1] for x in loop][:2] == ops
