@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version, then drives the
-main path, the BraTS MC-dropout direct eval, at full width.
+main path, the BraTS MC-dropout direct eval, and the four other strategy
+families of the direct eval at full width.
 
   python3 chip_smoke.py
 
@@ -32,10 +33,28 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    ``real_planes_bound_share`` in the record);
 5. breakdown (information): one MC batch's forward time and convolution
    TFLOP/s, in f32 and with TF32 on; one subject under torch.profiler for
-   the device's busy share and its costliest kernels.
+   the device's busy share and its costliest kernels;
+6. strategies: ``evaluate_subjects`` over the same 2 subjects with each
+   family at flagship width and seeded weights (heads scaled and centred
+   so that the planes spread over the bins): aleatoric (a sigma-headed
+   U-Net, ``is_log_sigma=False`` as in config/test_brats_aleatoric.yaml),
+   ensemble (10 members, as config/train_ensemble/ has), auxiliary_feat
+   (a segmenter giving its features and a PostNet on them) and
+   auxiliary_segm (a 5-channel error net; the labels gain a baseline
+   prediction, the lesion dilated). Each family prints seconds per
+   subject (CUDA-synced), peak device memory, the kernel's launches and
+   the first subject's ECE; its first subject's eval planes (for the
+   confidence families the folded and rescaled maps) hold the kernel
+   against its plain version and time it; one 2-slice batch on the card
+   is held against the CPU (logits, sigma, features, member mean, PostNet
+   confidence). Last, the kernel against its plain version on a folded
+   plane that is all NaN: a constant confidence rescales 0/0.
 
-The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.
+Every path runs with the kernel's launch count set to 0 before it and
+read after it, and fails unless it launched once per subject. The last
+two lines are the kernels' JSON record (``launches``: the sum over the
+paths, ``by_path``: each path's launches and the kernel's numbers on its
+planes) and ``{"ok": true, "device": {...}}``.
 """
 import copy
 import json
@@ -52,6 +71,7 @@ from rcu_tpu_torch.data import nifti
 from rcu_tpu_torch.eval.direct import DEFAULT_THRESHOLDS, evaluate_subjects
 from rcu_tpu_torch.models import get_model
 from rcu_tpu_torch.eval import pipeline
+from rcu_tpu_torch.ops import prepare
 from rcu_tpu_torch.ops.cuda import build, evalstats
 
 SEED = 20
@@ -59,6 +79,7 @@ FLAGSHIP = dict(nb_classes=2, in_channels=4, depth=4, start_filters=32,
                 dropout=0.05)
 BRATS = (155, 240, 240)
 MC_STEPS, BATCH = 20, 32
+MEMBERS = 10  # config/train_ensemble/train_brats_ensemble_{0..9}.yaml
 KERNELS = ("evalstats",)
 DEVICE = "cuda"
 # H100 memory rates and the SXM part's 67 TFLOP/s f32 peak outside the
@@ -188,9 +209,12 @@ def check_kernel(planes, thresholds, label):
         if not torch.equal(bits(got[key]), bits(again[key])):
             raise AssertionError(f"fused_eval_stats {key}: reruns differ")
         if key == "bins_conf_sum":
-            # f32 per lane, f64 from the block sums on, vs a f64 bincount
-            err = float((got[key] - value).abs().max())
-            torch.testing.assert_close(got[key], value, rtol=1e-5, atol=1e-3)
+            # f32 per lane, f64 from the block sums on, vs a f64 bincount;
+            # a NaN confidence makes its bin's sum NaN on both sides
+            diff = (got[key] - value).abs()[~(got[key].isnan() & value.isnan())]
+            err = float(diff.max()) if diff.numel() else 0.0
+            torch.testing.assert_close(got[key], value, rtol=1e-5, atol=1e-3,
+                                       equal_nan=True)
         elif not torch.equal(got[key], value):
             raise AssertionError(f"fused_eval_stats {key}: kernel "
                                  f"{got[key].tolist()} != plain "
@@ -231,8 +255,11 @@ def time_kernel(planes, label, hbm_rate, ptxas):
 
     wrapper_ms = cuda_ms(call, 30)
     plain_ms = cuda_ms(lambda: evalstats.fused_eval_stats_reference(*planes, th), 10)
-    device_ms = profiled_ms(call)
-    kernel = kernel_ms(device_ms)
+    for _ in range(2):  # a trace may hold none of the kernel's launches
+        device_ms = profiled_ms(call)
+        kernel = kernel_ms(device_ms)
+        if kernel is not None:
+            break
     others = {key: ms for key, ms in device_ms.items()
               if "fused_eval_stats_kernel" not in key}
     bytes_moved = n * (4 + 4 + 1 + 1 + 1)
@@ -285,11 +312,14 @@ def kernel_phase(hbm_rate, ptxas):
 class BratsLikeDataset:
     """Two BraTS-shaped subjects in memory (the SubjectDataset read
     interface): an ellipsoid head with a raw t2 NIfTI for the mask, a
-    spherical lesion as the target, four z-scored channels."""
+    spherical lesion as the target, four z-scored channels. The variant of
+    :meth:`with_baseline` gives [target, baseline prediction] labels, the
+    baseline a dilated lesion, as auxiliary_segm stores hold them."""
 
     def __init__(self, tmp_dir, n_subjects=2, seed=SEED):
         self.subjects = [f"synthetic_{i}" for i in range(n_subjects)]
         self._data, self._t2 = {}, {}
+        self._labels_with_baseline = False
         grid = np.ogrid[:BRATS[0], :BRATS[1], :BRATS[2]]
         centre = np.asarray(BRATS) / 2.0
         for i, name in enumerate(self.subjects):
@@ -299,6 +329,8 @@ class BratsLikeDataset:
             spot = centre + rng.uniform(-0.15, 0.15, 3) * np.asarray(BRATS)
             lesion = sum(((g - c) / (0.08 * BRATS[1])) ** 2
                          for g, c in zip(grid, spot)) < 1.0
+            dilated = sum(((g - c) / (0.1 * BRATS[1])) ** 2
+                          for g, c in zip(grid, spot)) < 1.0
             images = rng.standard_normal(BRATS + (4,)).astype(np.float32)
             images *= head[..., None]
             images[lesion] += 2.0
@@ -306,13 +338,23 @@ class BratsLikeDataset:
             self._t2[name] = os.path.join(tmp_dir, f"{name}_t2.nii.gz")
             nifti.write(t2, self._t2[name])
             self._data[name] = {"images": images,
-                                "labels": (lesion & head).astype(np.uint8)}
+                                "labels": (lesion & head).astype(np.uint8),
+                                "baseline": (dilated & head).astype(np.uint8)}
+
+    def with_baseline(self):
+        """The same subjects with [target, baseline] labels."""
+        view = copy.copy(self)
+        view._labels_with_baseline = True
+        return view
 
     def read_volume(self, subject, category):
-        return self._data[subject][category]
+        data = self._data[subject]
+        if category == "labels" and self._labels_with_baseline:
+            return np.stack([data["labels"], data["baseline"]], axis=-1)
+        return data[category]
 
     def shape(self, subject, category="images"):
-        return self._data[subject][category].shape
+        return self.read_volume(subject, category).shape
 
     def files(self, subject):
         return {"images": {"t2": self._t2[subject]}}
@@ -331,7 +373,7 @@ def spread_head(model, dataset):
     std 2 on real-looking input: the fg map then spreads over the
     reliability bins instead of sitting at 0.5."""
     with torch.inference_mode():
-        logits = model(middle_batch(dataset).to(DEVICE))
+        logits = model(middle_batch(dataset).to(DEVICE)).logits
         scale = 2.0 / float((logits[:, 1] - logits[:, 0]).std())
         head = getattr(model, f"Conv_{FLAGSHIP['depth']}")
         head.weight.mul_(scale)
@@ -345,8 +387,8 @@ def gpu_vs_cpu_check(model, dataset):
     cpu_model = get_model("unet", FLAGSHIP)
     cpu_model.load_state_dict(model.state_dict())
     with torch.inference_mode():
-        want = cpu_model(x)
-        got = model(x.to(DEVICE)).cpu()
+        want = cpu_model(x).logits
+        got = model(x.to(DEVICE)).logits.cpu()
     err = float((got - want).abs().max())
     torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-4)
     log(f"deterministic batch {tuple(x.shape)}: card vs CPU logits max abs "
@@ -354,9 +396,12 @@ def gpu_vs_cpu_check(model, dataset):
     return x, want
 
 
-def main_path_phase(model, dataset, out_dir):
-    """Returns the kernel's launches in the run and the first subject's
-    eval planes (fg, target, prediction, entropy / ln 2, mask)."""
+def run_path(dataset, out_dir, models, run_id, **kwargs):
+    """``evaluate_subjects`` with the kernel's launch count set to 0 before
+    it and read after it; the path fails unless it launched the kernel once
+    per subject and every ECE is finite. Returns (launches, seconds, eces,
+    the first subject's eval planes (ECE plane, target, prediction,
+    uncertainty, mask))."""
     planes = []
     subject_eval = pipeline.fused_subject_eval
 
@@ -365,39 +410,36 @@ def main_path_phase(model, dataset, out_dir):
             planes.extend(args[:5])
         return subject_eval(*args)
 
-    # torch's defaults, as a library caller has them: evaluate_subjects
-    # runs the f32 U-Net in full float32 all the same
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = True
     pipeline.fused_subject_eval = keep_planes
     evalstats.fused_eval_stats.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
-        eces = evaluate_subjects(model, dataset, out_dir, run_id="smoke",
-                                 mc=MC_STEPS, batch_size=BATCH, seed=SEED,
-                                 device=DEVICE)
+        eces = evaluate_subjects(models, dataset, out_dir, run_id=run_id,
+                                 batch_size=BATCH, seed=SEED, device=DEVICE,
+                                 **kwargs)
         torch.cuda.synchronize()
     finally:
         pipeline.fused_subject_eval = subject_eval
     seconds = time.perf_counter() - t0
     launches = evalstats.fused_eval_stats.launches
-    if not (torch.backends.cudnn.allow_tf32
-            and torch.backends.cuda.matmul.allow_tf32):
-        raise AssertionError("evaluate_subjects did not restore the TF32 flags")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     n = len(dataset.subjects)
     if launches != n:
-        raise AssertionError(f"fused_eval_stats launched {launches} times for "
-                             f"{n} subjects")
+        raise AssertionError(f"{run_id}: fused_eval_stats launched {launches} "
+                             f"times for {n} subjects")
     if not all(math.isfinite(e) for e in eces.values()):
-        raise AssertionError(f"non-finite ECE: {eces}")
+        raise AssertionError(f"{run_id}: non-finite ECE: {eces}")
+    return launches, seconds, eces, planes
+
+
+def check_csvs(out_dir, run_id, result_id, n):
+    """The CSV families of a run: result-id files with a row per subject,
+    the minmax summary under the bare run id with one row."""
     names = sorted(os.listdir(out_dir))
-    expected = ["eval_calibration_smoke.csv", "eval_ece_smoke.csv",
-                "eval_summary_minmax_smoke.csv"] + [
-        f"eval_uncertainty_smoke_th{t:.2f}".replace(".", "") + ".csv"
+    expected = [f"eval_calibration_{result_id}.csv", f"eval_ece_{result_id}.csv",
+                f"eval_summary_minmax_{run_id}.csv"] + [
+        f"eval_uncertainty_{result_id}_th{t:.2f}".replace(".", "") + ".csv"
         for t in DEFAULT_THRESHOLDS]
     if sorted(expected) != names:
         raise AssertionError(f"CSV families {names} != {sorted(expected)}")
@@ -406,6 +448,24 @@ def main_path_phase(model, dataset, out_dir):
             rows = f.read().strip().splitlines()[1:]
         if len(rows) != (1 if "minmax" in name else n):
             raise AssertionError(f"{name}: {len(rows)} rows")
+
+
+def main_path_phase(model, dataset, out_dir):
+    """Returns the kernel's launches in the run and the first subject's
+    eval planes (fg, target, prediction, entropy / ln 2, mask)."""
+    # torch's defaults, as a library caller has them: evaluate_subjects
+    # runs the f32 U-Net in full float32 all the same
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    launches, seconds, eces, planes = run_path(dataset, out_dir, model,
+                                               "smoke", mc=MC_STEPS)
+    if not (torch.backends.cudnn.allow_tf32
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError("evaluate_subjects did not restore the TF32 flags")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = len(dataset.subjects)
+    check_csvs(out_dir, "smoke", "smoke", n)
     voxels = n * int(np.prod(BRATS))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"main path: MC{MC_STEPS} direct eval of {n} subjects {BRATS} in "
@@ -454,7 +514,7 @@ def forward_breakdown(model, dataset, cpu_batch, cpu_logits):
         det_ms = cuda_ms(lambda: steps.predict(model, images), 5)
         torch.backends.cudnn.allow_tf32 = True
         tf32_ms = cuda_ms(mc, 3)
-        tf32_err = float((model(cpu_batch.to(DEVICE)).cpu() - cpu_logits)
+        tf32_err = float((model(cpu_batch.to(DEVICE)).logits.cpu() - cpu_logits)
                          .abs().max())
         torch.backends.cudnn.allow_tf32 = False
     log(f"forward: MC{MC_STEPS} batch of {BATCH} slices ({MC_STEPS * BATCH} "
@@ -467,9 +527,10 @@ def forward_breakdown(model, dataset, cpu_batch, cpu_logits):
         f"f32 max abs err {tf32_err:.3e}")
 
 
-def profile_phase(model, dataset, out_dir):
-    """One subject's MC eval under torch.profiler: the device's busy share
-    of the wall time and the kernels that take the most device time."""
+def profile_phase(models, dataset, out_dir, label=f"MC{MC_STEPS}", **options):
+    """One subject's eval under torch.profiler (the MC path's unless
+    ``options`` name another strategy): the device's busy share of the
+    wall time and the kernels that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     one = copy.copy(dataset)
@@ -477,8 +538,9 @@ def profile_phase(model, dataset, out_dir):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        evaluate_subjects(model, one, out_dir, run_id="profile", mc=MC_STEPS,
-                          batch_size=BATCH, seed=SEED, device=DEVICE)
+        evaluate_subjects(models, one, out_dir, run_id="profile",
+                          batch_size=BATCH, seed=SEED, device=DEVICE,
+                          **(options or {"mc": MC_STEPS}))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -491,11 +553,160 @@ def profile_phase(model, dataset, out_dir):
         busy += max(0.0, end - max(start, reach))
         reach = max(reach, end)
         by_name[name] = by_name.get(name, 0.0) + end - start
-    log(f"profile: 1 subject MC{MC_STEPS} in {wall_us / 1e6:.3f} s under the "
+    log(f"profile: 1 subject {label} in {wall_us / 1e6:.3f} s under the "
         f"profiler, device busy {busy / 1e6:.3f} s = "
         f"{100 * busy / wall_us:.1f} %, {len(spans)} kernels")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         log(f"  {100 * us / busy:5.1f} %  {us / 1e3:9.2f} ms  {name[:90]}")
+
+
+FAMILIES = (("aleatoric", "_globalrescale"), ("ensemble", ""),
+            ("auxiliary_feat", "_rescale"), ("auxiliary_segm", "_rescale"))
+
+
+def error_net_batch(dataset):
+    """``middle_batch`` with the baseline prediction as a 5th channel."""
+    labels = dataset.with_baseline().read_volume(dataset.subjects[0], "labels")
+    mid = labels.shape[0] // 2
+    base = labels[max(0, mid - 4):mid + 4, ..., 1].astype(np.float32)
+    return torch.cat([middle_batch(dataset), torch.from_numpy(base[:, None])],
+                     dim=1)
+
+
+def centre_head(forward, head, x, std=2.0):
+    """Scale and shift the 1x1 class conv ``head`` so that the logit
+    difference of ``forward(x)`` has median 0 and standard deviation
+    ``std``: seeded weights give near-constant maps, which would fill a
+    bin or two and predict one class."""
+    with torch.inference_mode():
+        logits = forward(x)
+        diff = logits[:, 1] - logits[:, 0]
+        scale = std / float(diff.std())
+        head.weight.mul_(scale)
+        head.bias.mul_(scale)
+        head.bias[1] -= scale * float(diff.median())
+
+
+def strategy_models(dataset):
+    """{family: what evaluate_subjects takes}, seeded, flagship width."""
+    x = middle_batch(dataset).to(DEVICE)
+    head = f"Conv_{FLAGSHIP['depth']}"
+
+    def unet(seed, inputs=x, **options):
+        torch.manual_seed(seed)
+        model = get_model("unet", {**FLAGSHIP, **options}).to(DEVICE)
+        centre_head(lambda v: model(v).logits, getattr(model, head), inputs)
+        return model
+
+    segmenter = unet(SEED + 30, provide_features=True)
+    torch.manual_seed(SEED + 31)
+    postnet = get_model("postnet", dict(nb_classes=2, in_channels=FLAGSHIP[
+        "start_filters"])).to(DEVICE)
+    with torch.inference_mode():
+        features = segmenter(x).features
+    centre_head(lambda v: postnet(v).logits, postnet.Conv_0, features)
+    return {"aleatoric": unet(SEED + 1, sigma_out=True),
+            "ensemble": [unet(SEED + 10 + k) for k in range(MEMBERS)],
+            "auxiliary_feat": (segmenter, postnet),
+            "auxiliary_segm": unet(SEED + 40, error_net_batch(dataset).to(DEVICE),
+                                   in_channels=5)}
+
+
+def family_outputs(name, models, x):
+    """What the family's models give for one batch: logits, sigma,
+    features, the member-mean softmax, the PostNet's confidence."""
+    if name == "ensemble":
+        total = None
+        for member in models:
+            probs = torch.softmax(member(x).logits, dim=1)
+            total = probs if total is None else total + probs
+        return {"member mean": total / len(models)}
+    if name == "auxiliary_feat":
+        segmenter, postnet = models
+        out = segmenter(x)
+        return {"logits": out.logits, "features": out.features,
+                "confidence": torch.softmax(postnet(out.features).logits,
+                                            dim=1)[:, 1]}
+    out = models(x)
+    return {"logits": out.logits} if out.sigma is None else \
+        {"logits": out.logits, "sigma": out.sigma}
+
+
+def card_vs_cpu(name, models, x):
+    """The family's outputs for a 2-slice batch on the card against the
+    CPU at the f32 bar (TF32 off); returns the max abs error."""
+    def to_cpu(m):
+        if isinstance(m, torch.nn.Module):
+            return copy.deepcopy(m).cpu()
+        return type(m)(to_cpu(k) for k in m)
+
+    with torch.inference_mode():
+        want = family_outputs(name, to_cpu(models), x)
+        got = family_outputs(name, models, x.to(DEVICE))
+    errs = {}
+    for key, value in want.items():
+        errs[key] = float((got[key].cpu() - value).abs().max())
+        torch.testing.assert_close(got[key].cpu(), value, rtol=1e-3, atol=2e-4)
+    log(f"strategy {name}: card vs CPU on {tuple(x.shape)}, max abs err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return max(errs.values())
+
+
+def nan_plane_check(planes):
+    """A constant confidence rescales 0/0: the kernel against its plain
+    version on the folded and rescaled planes, NaN at every voxel."""
+    _, target, prediction, _, mask = planes
+    rescaled = prepare.rescale_subject_min_max(
+        torch.full(target.shape, 0.3, device=target.device))
+    folded = prepare.uncertainty_to_foreground_probabilities(rescaled,
+                                                             prediction)
+    if not folded.isnan().all():
+        raise AssertionError("a constant confidence did not rescale to NaN")
+    return check_kernel((folded, target, prediction, rescaled, mask),
+                        DEFAULT_THRESHOLDS, f"all-NaN folded plane {BRATS}")
+
+
+def strategies_phase(dataset, tmp, hbm_rate, ptxas):
+    """Each family's run, its kernel checks and timing, and its card
+    against the CPU; returns ({family: its by_path record}, the kernel
+    checks' max abs error)."""
+    t0 = time.perf_counter()
+    models = strategy_models(dataset)
+    log(f"strategy models: {time.perf_counter() - t0:.1f} s")
+    batches = {"plain": middle_batch(dataset)[3:5],
+               "error net": error_net_batch(dataset)[3:5]}
+    n = len(dataset.subjects)
+    by_path, errs = {}, []
+    for name, suffix in FAMILIES:
+        data = dataset.with_baseline() if name == "auxiliary_segm" else dataset
+        out_dir = os.path.join(tmp, name)
+        options = {"is_log_sigma": False} if name == "aleatoric" else {}
+        launches, seconds, eces, planes = run_path(
+            data, out_dir, models[name], name, strategy=name, **options)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check_csvs(out_dir, name, name + suffix, n)
+        first = eces[dataset.subjects[0]]
+        log(f"strategy {name}: {n} subjects {BRATS} in {seconds:.2f} s = "
+            f"{seconds / n:.3f} s/subject (CUDA-synced), peak memory "
+            f"{peak_gb:.2f} GB, fused_eval_stats launches {launches}, first "
+            f"subject's ECE {first:.6f}")
+        label = f"{name} planes of {dataset.subjects[0]} {BRATS}"
+        errs.append(check_kernel(planes, DEFAULT_THRESHOLDS, label))
+        timed = time_kernel(planes, label, hbm_rate, ptxas)
+        if name == "auxiliary_feat":
+            errs.append(nan_plane_check(planes))
+        del planes
+        if name in ("ensemble", "auxiliary_segm"):
+            profile_phase(models[name], data, os.path.join(tmp, "profile_" + name),
+                          label=name, strategy=name)
+        cpu_err = card_vs_cpu(name, models[name], batches[
+            "error net" if name == "auxiliary_segm" else "plain"])
+        by_path[name] = {"launches": launches, "s_per_subject": seconds / n,
+                         "peak_gb": peak_gb, "first_ece": first,
+                         "card_vs_cpu_max_abs_err": cpu_err,
+                         **{k: timed[k] for k in ("ms", "kernel_ms",
+                                                  "plain_ms", "bound_share")}}
+    return by_path, max(errs)
 
 
 def main():
@@ -521,6 +732,11 @@ def main():
         del planes
         forward_breakdown(model, dataset, cpu_batch, cpu_logits)
         profile_phase(model, dataset, os.path.join(tmp, "profile"))
+        del model
+        by_path, err = strategies_phase(dataset, tmp, hbm_rate, ptxas)
+    record["by_path"] = {"mc": {"launches": record["launches"]}, **by_path}
+    record["launches"] = sum(p["launches"] for p in record["by_path"].values())
+    record["max_abs_err"] = max(record["max_abs_err"], err)
     log(json.dumps({"kernels": [record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

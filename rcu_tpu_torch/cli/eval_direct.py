@@ -1,15 +1,23 @@
 """Direct one-pass test+eval on the GPU (``bin/eval_direct.py`` counterpart).
 
-Streams each test-split subject through MC-dropout inference and the fused
-eval kernel and writes the eval CSV families. Ported protocols: ``mc`` and
-``deterministic`` (``-mc 0``). Convolutions run in full float32
-(``evaluate_subjects`` switches TF32 off), as the parity bar of the f32
-path needs.
+Streams each test-split subject through inference and the fused eval
+kernel and writes the eval CSV families. The six protocols, detected from
+the checkpoint and the config as ``rcu_tpu.eval.direct`` does, or named with
+``-strategy``:
+- ``mc``: MC-dropout mean and entropy (baseline_mc, center_mc);
+- ``deterministic`` (``-mc 0``): one forward (baseline, center);
+- ``aleatoric``: the sigma head, rescaled by the run's global bounds;
+- ``ensemble``: the members' mean softmax and its entropy;
+- ``auxiliary_feat``: a PostNet on a frozen segmenter's features;
+- ``auxiliary_segm``: an error net over the images and a baseline
+  prediction stored as a second labels channel.
+Convolutions run in full float32 (``evaluate_subjects`` switches TF32
+off), as the parity bar of the f32 path needs.
 
 Usage:
   python -m rcu_tpu_torch.cli.eval_direct -config_file config/test_brats_baseline_mc.yaml \
       [-run_id baseline_mc] [-out_dir out/eval/brats/direct] [-mc 20] \
-      [-unmasked] [-device cpu]
+      [-strategy ensemble] [-unmasked] [-device cpu]
 """
 import argparse
 import logging
@@ -17,7 +25,7 @@ import os
 
 
 def main(config_file, run_id=None, out_dir=None, mc=None, unmasked=False,
-         device=None):
+         device=None, strategy=None):
     from rcu_tpu_torch.engine import config as cfg_lib
     from rcu_tpu_torch.eval.direct import evaluate_direct
 
@@ -26,13 +34,15 @@ def main(config_file, run_id=None, out_dir=None, mc=None, unmasked=False,
     out_dir = out_dir or os.path.join(
         os.path.dirname(config.model_dir or "."), "eval_direct")
     eces = evaluate_direct(config, out_dir, run_id=run_id, mc=mc,
-                           masked=not unmasked, device=device)
+                           masked=not unmasked, strategy=strategy,
+                           device=device)
     for subject, ece in eces.items():
         print(f"{subject}: ece={ece:.5f}")
     print(f"wrote eval CSVs to {out_dir}")
 
 
 def cli():
+    from rcu_tpu_torch.eval.direct import STRATEGIES
     parser = argparse.ArgumentParser(description="Direct one-pass test+eval (GPU)")
     parser.add_argument("-config_file", type=str, required=True)
     parser.add_argument("-run_id", type=str, default=None)
@@ -40,6 +50,10 @@ def cli():
     parser.add_argument("-mc", type=int, default=None,
                         help="MC-dropout sample count (default others.mc "
                              "or 20; 0 = deterministic protocol)")
+    parser.add_argument("-strategy", type=str, default=None,
+                        choices=STRATEGIES,
+                        help="protocol (default: detected from the "
+                             "checkpoint and config)")
     parser.add_argument("-unmasked", action="store_true",
                         help="skip the BraTS t2>0 foreground mask")
     parser.add_argument("-device", type=str, default=None,
@@ -48,7 +62,7 @@ def cli():
     args = parser.parse_args()
     logging.basicConfig(level=logging.INFO)
     main(args.config_file, args.run_id, args.out_dir, args.mc, args.unmasked,
-         args.device)
+         args.device, args.strategy)
 
 
 if __name__ == "__main__":

@@ -107,3 +107,12 @@ def load(path: str) -> TestConfiguration:
         raise ValueError(f"{path}: expected config type "
                          f"{TestConfiguration.META_TYPE!r}, got {mtype!r}")
     return TestConfiguration.from_dict(raw["config"])
+
+
+def require_log_sigma(config) -> bool:
+    """``others.is_log_sigma`` is required for aleatoric runs: it says
+    whether the sigma head gives log-sigma (exp) or sigma (abs)."""
+    if "is_log_sigma" not in config.others:
+        raise ValueError(
+            'missing "is_log_sigma" entry in the configuration (others)')
+    return bool(config.others["is_log_sigma"])

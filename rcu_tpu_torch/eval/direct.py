@@ -1,15 +1,17 @@
-"""Direct one-pass test+eval: checkpoint -> per-volume MC-dropout inference
-+ calibration/uncertainty eval -> the eval CSV families, with no NIfTI
+"""Direct one-pass test+eval: checkpoint -> per-volume inference +
+calibration/uncertainty eval -> the eval CSV families, with no NIfTI
 artifacts in between (``rcu_tpu.eval.direct`` counterpart).
 
-Ported: the ``mc`` and ``deterministic`` (``mc=0``) protocols on volume
-stores, one device, the flat CSV layout. The other strategy families,
-native-2D datasets, meshes and the bf16/fast-decoder/int8/BN-fold variants
-are later slices and raise ``NotImplementedError``.
+Ported: the six protocols of :data:`STRATEGIES`, which cover the paper's
+eight strategies (baseline and center run ``deterministic``, their MC
+variants ``mc``), on volume stores, one device, the flat CSV layout.
+Native-2D datasets, meshes and the bf16/fast-decoder/int8/BN-fold
+variants are later slices and raise ``NotImplementedError``.
 
-:func:`evaluate_direct` builds the dataset and the model from a test config
-and its checkpoint; :func:`evaluate_subjects` is the core, and takes any
-dataset object with ``subjects``, ``read_volume``, ``shape`` and ``files``.
+:func:`evaluate_direct` detects the strategy as ``rcu_tpu.eval.direct`` does and
+builds the dataset and the models from a test config and its checkpoints;
+:func:`evaluate_subjects` is the core, and takes any dataset object with
+``subjects``, ``read_volume``, ``shape`` and ``files``.
 """
 from __future__ import annotations
 
@@ -25,13 +27,24 @@ from rcu_tpu_torch import directories as dirs
 from rcu_tpu_torch.data import nifti
 from rcu_tpu_torch.data.split import load_split
 from rcu_tpu_torch.engine import checkpoint as ckpt_lib
+from rcu_tpu_torch.engine import config as cfg_lib
 from rcu_tpu_torch.engine import databuild
 from rcu_tpu_torch.eval import hooks as ev_hooks
 from rcu_tpu_torch.eval import pipeline
 from rcu_tpu_torch.models import get_model
-from rcu_tpu_torch.models.convert import unet_state_dict_from_flax
+from rcu_tpu_torch.models.convert import state_dict_from_flax
 
 DEFAULT_THRESHOLDS = (0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95)
+STRATEGIES = ("mc", "deterministic", "aleatoric", "ensemble",
+              "auxiliary_feat", "auxiliary_segm")
+# result-id suffix and minmax confidence entry of each strategy family
+_ID_SUFFIX = {"mc": "", "deterministic": "", "ensemble": "",
+              "aleatoric": "_globalrescale",
+              "auxiliary_feat": "_rescale", "auxiliary_segm": "_rescale"}
+_CONFIDENCE_ENTRY = {"mc": "probabilities", "deterministic": "probabilities",
+                     "ensemble": "probabilities", "aleatoric": "sigma",
+                     "auxiliary_feat": "confidence",
+                     "auxiliary_segm": "confidence"}
 _ECE_COLUMNS = ("ece", "dice", "tp", "tn", "fp", "fn", "n")
 
 
@@ -47,19 +60,22 @@ def resolve_device(device=None) -> torch.device:
 
 class _EvalSinks:
     """The run's CSV families in ``out_dir``: calibration bins, the ece_dice
-    row, one correction CSV per threshold and the run minmax summary."""
+    row and one correction CSV per threshold under the result id (the run
+    id and the strategy's suffix), and the run minmax summary under the
+    bare run id with the strategy's confidence entry."""
 
-    def __init__(self, out_dir, run_id, thresholds):
+    def __init__(self, out_dir, run_id, thresholds, strategy):
         os.makedirs(out_dir, exist_ok=True)
-        self.run_id = run_id
+        self.result_id = result_id = run_id + _ID_SUFFIX[strategy]
+        self.confidence_entry = _CONFIDENCE_ENTRY[strategy]
         self.calib = ev_hooks.WriteCsvHook(os.path.join(
-            out_dir, dirs.CALIBRATION_PLACEHOLDER.format(run_id)))
+            out_dir, dirs.CALIBRATION_PLACEHOLDER.format(result_id)))
         self.ece = ev_hooks.WriteCsvHook(
-            os.path.join(out_dir, dirs.ECE_PLACEHOLDER.format(run_id)),
+            os.path.join(out_dir, dirs.ECE_PLACEHOLDER.format(result_id)),
             entries=_ECE_COLUMNS)
         self.corr = [ev_hooks.WriteCsvHook(os.path.join(
             out_dir, dirs.UNCERTAINTY_PLACEHOLDER.format(
-                run_id, f"{threshold:.2f}".replace(".", ""))))
+                result_id, f"{threshold:.2f}".replace(".", ""))))
             for threshold in thresholds]
         self.minmax_path = os.path.join(
             out_dir, dirs.MINMAX_PLACEHOLDER.format(run_id))
@@ -67,11 +83,13 @@ class _EvalSinks:
         self.nonfinite = []  # subjects with NaN/inf ECE; finish() raises
 
     def write_subject(self, subject, row):
-        """``row``: the host (numpy) eval dict of one subject."""
+        """``row``: the host (numpy) eval dict of one subject; its
+        ``conf_min``/``conf_max``, where it has them, join the run bounds."""
         ece = float(row["ece"])
         if not np.isfinite(ece):
-            # an empty eval mask bins zero voxels: write the row anyway, keep
-            # going, and fail in finish() once every CSV is written
+            # a constant confidence map (the subject rescale divides 0/0) or
+            # an empty eval mask: write the row anyway, keep going, and fail
+            # in finish() once every CSV is written
             self.nonfinite.append(subject)
             logging.error("subject '%s': non-finite ECE (%s), finish() will "
                           "raise", subject, ece)
@@ -83,41 +101,127 @@ class _EvalSinks:
             "bins_non_zero": row["bins_non_zero"],
             "ece": ece,
             "dice": float(row["dice"]),
-        }, subject, self.run_id)
+        }, subject, self.result_id)
         self.ece.on_subject({k: ev_hooks.csv_value(k, row[k])
-                             for k in _ECE_COLUMNS}, subject, self.run_id)
+                             for k in _ECE_COLUMNS}, subject, self.result_id)
         for ti, hook in enumerate(self.corr):
             hook.on_subject({k: ev_hooks.csv_value(k, corr[k][ti])
                              for k in ev_hooks.CORRECTION_KEYS}, subject,
-                            self.run_id)
-        self.bounds["min"].append(float(row["conf_min"]))
-        self.bounds["max"].append(float(row["conf_max"]))
+                            self.result_id)
+        if "conf_min" in row:
+            self.add_bounds(row["conf_min"], row["conf_max"])
+
+    def add_bounds(self, mn, mx):
+        self.bounds["min"].append(float(mn))
+        self.bounds["max"].append(float(mx))
 
     def finish(self):
         for hook in (self.calib, self.ece, *self.corr):
-            hook.on_run_end(self.run_id)
+            hook.on_run_end(self.result_id)
         if self.bounds["min"]:
-            ev_hooks.write_summary_csv(self.minmax_path, self.bounds)
+            ev_hooks.write_summary_csv(self.minmax_path, self.bounds,
+                                       self.confidence_entry)
         if self.nonfinite:
             raise ValueError(
                 f"{len(self.nonfinite)} subject(s) produced a non-finite ECE: "
-                f"{', '.join(self.nonfinite[:5])} — the subject's eval mask "
-                "selected zero voxels. Every CSV was still written (NaN rows "
-                "mark the affected subjects).")
+                f"{', '.join(self.nonfinite[:5])} — either the confidence map "
+                "was constant (the subject min-max rescale divides 0/0) or "
+                "the subject's eval mask selected zero voxels. Every CSV was "
+                "still written (NaN rows mark the affected subjects).")
 
 
-def load_model(model_dir: str, test_at, device) -> torch.nn.Module:
-    """The checkpoint's U-Net with its weights, on ``device``."""
+def _global_bounds(bounds):
+    """The run's sigma (min, max); a constant range raises, since the
+    global rescale would divide 0/0 into every cell."""
+    gmin, gmax = min(bounds["min"]), max(bounds["max"])
+    if not gmax > gmin:
+        raise ValueError(
+            f"degenerate sigma range [{gmin}, {gmax}] across the run — the "
+            "sigma head produced a constant map; the global-rescale protocol "
+            "cannot evaluate it")
+    return gmin, gmax
+
+
+def load_model(model_dir: str, test_at, device,
+               provide_features: bool = False) -> torch.nn.Module:
+    """The checkpoint's model (U-Net or PostNet) with its weights, on
+    ``device``. A PostNet whose model.json records no ``in_channels`` (flax
+    infers it) takes it from its first kernel."""
     mf = ckpt_lib.ModelFiles.from_model_dir(model_dir)
     model_node, _ = ckpt_lib.load_model_parameters(mf)
-    model = get_model(model_node.type, model_node.params)
     path = ckpt_lib.find_checkpoint_file(mf, test_at)
     if path is None:
         raise FileNotFoundError(f"no checkpoint '{test_at}' in {model_dir}")
     raw = ckpt_lib.load_checkpoint(path)
-    model.load_state_dict(unet_state_dict_from_flax(raw["params"],
-                                                    raw["batch_stats"]))
+    params = dict(model_node.params)
+    if provide_features:
+        params["provide_features"] = True
+    if model_node.type == "postnet" and not params.get("in_channels"):
+        params["in_channels"] = int(
+            raw["params"]["ConvBnRelu_0"]["Conv_0"]["kernel"].shape[2])
+    model = get_model(model_node.type, params)
+    model.load_state_dict(state_dict_from_flax(raw["params"],
+                                               raw["batch_stats"]))
     return model.to(device)
+
+
+def _primary_test_at(config):
+    return "best" if config.test_at in (None, "") else config.test_at
+
+
+def _load_ensemble(config, device) -> list:
+    """The primary model (``model_dir`` at ``test_at``) first, then the
+    ``others.model_dir`` members at ``others.test_at``."""
+    model_dirs = config.others.get("model_dir")
+    if isinstance(model_dirs, str):
+        model_dirs = [model_dirs]
+    if not model_dirs or "test_at" not in config.others:
+        raise ValueError('missing "model_dir" or "test_at" entry in the '
+                         'configuration (others): fill others.model_dir with '
+                         'the trained member model dirs')
+    member_at = config.others["test_at"]
+    all_dirs = ([(config.model_dir, _primary_test_at(config))]
+                if config.model_dir else []) \
+        + [(d, member_at) for d in model_dirs]
+    members = []
+    for i, (model_dir, at) in enumerate(all_dirs):
+        logging.info("load ensemble model [%d/%d] %s", i + 1, len(all_dirs),
+                     os.path.basename(model_dir))
+        members.append(load_model(model_dir, at, device))
+    return members
+
+
+def _load_aux_feat(config, device) -> tuple:
+    """(the frozen segmenter of ``others.model_dir``, giving its features;
+    the PostNet of ``model_dir``)."""
+    if not isinstance(config.others.get("model_dir"), str) \
+            or "test_at" not in config.others:
+        raise ValueError(
+            'missing "model_dir" or "test_at" entry in the configuration '
+            "(others): auxiliary_feat needs others.model_dir pointing at the "
+            "trained frozen-segmenter dir and others.test_at naming its "
+            "checkpoint")
+    if not config.model_dir:
+        raise ValueError(
+            "auxiliary_feat needs config.model_dir pointing at the trained "
+            "confidence net (PostNet) dir — others.model_dir names only the "
+            "frozen segmenter")
+    segmenter = load_model(config.others["model_dir"],
+                           config.others["test_at"], device,
+                           provide_features=True)
+    return segmenter, load_model(config.model_dir, _primary_test_at(config),
+                                 device)
+
+
+def _load_models(config, strategy: str, device):
+    """What :func:`evaluate_subjects` takes for ``strategy``: the members
+    (ensemble), the (segmenter, PostNet) pair (auxiliary_feat), else the
+    one model of ``model_dir``."""
+    if strategy == "ensemble":
+        return _load_ensemble(config, device)
+    if strategy == "auxiliary_feat":
+        return _load_aux_feat(config, device)
+    return load_model(config.model_dir, _primary_test_at(config), device)
 
 
 def foreground_mask(dataset, subject, shape) -> np.ndarray:
@@ -139,36 +243,52 @@ def foreground_mask(dataset, subject, shape) -> np.ndarray:
     return fg
 
 
-def _check_mc_protocol(config, dataset):
-    """Raise for the strategy families that are not ported yet (the JAX
-    driver's auto-detection order)."""
-    mf = ckpt_lib.ModelFiles.from_model_dir(config.model_dir)
-    model_node, _ = ckpt_lib.load_model_parameters(mf)
-    if model_node.params.get("sigma_out"):
-        raise NotImplementedError("the aleatoric strategy is not ported yet")
-    if config.others.get("model_dir") is not None:
-        raise NotImplementedError(
-            "ensemble/auxiliary_feat strategies are not ported yet")
-    subject = dataset.subjects[0]
-    if len(dataset.shape(subject, "images")) != 4:
-        raise NotImplementedError("native-2D datasets are not ported yet")
-    labels_shape = tuple(dataset.shape(subject, "labels"))
-    if len(labels_shape) >= 4 and labels_shape[-1] == 2:
-        raise NotImplementedError("the auxiliary_segm strategy is not ported yet")
+def _detect_strategy(config, dataset, strategy):
+    """Explicit ``strategy`` wins; otherwise, in ``rcu_tpu.eval.direct``'s order:
+    sigma head -> aleatoric, others.model_dir list -> ensemble,
+    others.model_dir str -> auxiliary_feat (the frozen segmenter),
+    2-channel labels -> auxiliary_segm, else mc."""
+    if strategy is not None:
+        if strategy not in STRATEGIES:
+            raise ValueError(f"unknown strategy '{strategy}'; "
+                             f"choose one of {STRATEGIES}")
+        return strategy
+    if config.model_dir:
+        mf = ckpt_lib.ModelFiles.from_model_dir(config.model_dir)
+        model_node, _ = ckpt_lib.load_model_parameters(mf)
+        if model_node.params.get("sigma_out"):
+            return "aleatoric"
+    member_dirs = config.others.get("model_dir")
+    if isinstance(member_dirs, (list, tuple)):
+        return "ensemble"
+    if isinstance(member_dirs, str):
+        logging.warning(
+            "others.model_dir is a string (%s) -> inferring strategy "
+            "'auxiliary_feat' (frozen-segmenter confidence protocol). If it "
+            "is a single ensemble member, pass strategy='ensemble' "
+            "explicitly.", member_dirs)
+        return "auxiliary_feat"
+    labels_shape = tuple(dataset.shape(dataset.subjects[0], "labels"))
+    if len(labels_shape) >= 3 and labels_shape[-1] == 2:
+        return "auxiliary_segm"
+    return "mc"
 
 
 def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
                     mc: int = None, thresholds=DEFAULT_THRESHOLDS,
-                    masked: bool = True, device=None) -> dict:
+                    masked: bool = True, strategy: str = None,
+                    device=None) -> dict:
     """Fused inference + eval for every test-split subject of ``config``;
     writes the ``eval_calibration_*``, ``eval_ece_*``,
     ``eval_uncertainty_*_th*`` and ``eval_summary_minmax_*`` CSVs into
     ``out_dir`` and returns the per-subject ECE dict.
 
-    ``mc`` counts the MC-dropout samples (default ``others.mc`` or 20;
-    ``mc=0`` is the deterministic protocol). ``masked`` applies the BraTS
-    t2>0 foreground mask to the ECE bins. Runs on ``cuda`` unless
-    ``device`` says otherwise. The U-Net runs in full float32, held to the
+    ``strategy`` is one of :data:`STRATEGIES`, detected from the checkpoint
+    and the config by default (:func:`_detect_strategy`). ``mc`` counts
+    the MC-dropout samples of the ``mc`` strategy (default ``others.mc`` or
+    20; ``mc=0`` is the deterministic protocol). ``masked`` applies the
+    BraTS t2>0 foreground mask to the ECE bins. Runs on ``cuda`` unless
+    ``device`` says otherwise. The models run in full float32, held to the
     f32 parity bar: :func:`evaluate_subjects` switches TF32 off for its
     work and restores the caller's setting."""
     device = resolve_device(device)
@@ -184,11 +304,15 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
     databuild.build_transform(config.test_data.transform)
     dataset = databuild.build_data(config.test_data, subjects=subjects)
     try:
-        _check_mc_protocol(config, dataset)
-        test_at = "best" if config.test_at in (None, "") else config.test_at
-        model = load_model(config.model_dir, test_at, device)
-        return evaluate_subjects(model, dataset, out_dir, run_id=run_id,
-                                 mc=int(mc),
+        if len(dataset.shape(dataset.subjects[0], "images")) != 4:
+            raise NotImplementedError("native-2D datasets are not ported yet")
+        strategy = _detect_strategy(config, dataset, strategy)
+        models = _load_models(config, strategy, device)
+        is_log_sigma = cfg_lib.require_log_sigma(config) \
+            if strategy == "aleatoric" else False
+        return evaluate_subjects(models, dataset, out_dir, strategy=strategy,
+                                 run_id=run_id, mc=int(mc),
+                                 is_log_sigma=is_log_sigma,
                                  batch_size=config.test_data.batch_size,
                                  seed=config.seed, thresholds=thresholds,
                                  masked=masked, device=device)
@@ -217,35 +341,107 @@ def _to_host(tree):
     return tree.cpu().numpy()
 
 
-def evaluate_subjects(model, dataset, out_dir: str, *, run_id: str = "baseline",
-                      mc: int = 20, batch_size: int = 32, seed: int = 20,
-                      thresholds=DEFAULT_THRESHOLDS, masked: bool = True,
-                      device=None) -> dict:
+def _check_models(strategy, models):
+    """Raise where ``models`` is not what ``strategy`` runs."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy '{strategy}'; "
+                         f"choose one of {STRATEGIES}")
+    if strategy == "ensemble":
+        if isinstance(models, torch.nn.Module) or not models:
+            raise TypeError("ensemble takes a non-empty list of members")
+    elif strategy == "auxiliary_feat":
+        if isinstance(models, torch.nn.Module) or len(models) != 2 \
+                or not getattr(models[0], "provide_features", False):
+            raise TypeError("auxiliary_feat takes a (segmenter with "
+                            "provide_features, PostNet) pair")
+    elif not isinstance(models, torch.nn.Module):
+        raise TypeError(f"{strategy} takes one model")
+    elif strategy == "aleatoric" and not getattr(models, "sigma_out", False):
+        raise ValueError("strategy 'aleatoric' needs a sigma-headed model")
+
+
+def _read_images(dataset, subject, device):
+    volume = np.asarray(dataset.read_volume(subject, "images"), np.float32)
+    if volume.ndim != 4:
+        raise NotImplementedError("native-2D datasets are not ported yet")
+    return torch.from_numpy(volume).to(device)
+
+
+def _split_labels(labels, needs_baseline: bool):
+    """-> (target bool, baseline uint8 or None). auxiliary_segm labels carry
+    [gt, baseline prediction] on the trailing axis; otherwise a trailing
+    channel axis drops to the gt channel."""
+    labels = np.asarray(labels)
+    if needs_baseline:
+        if labels.shape[-1] != 2:
+            raise ValueError("auxiliary_segm needs [gt, prediction] 2-channel "
+                             f"labels; got label shape {labels.shape}")
+        return labels[..., 0] > 0.5, (labels[..., 1] > 0.5).astype(np.uint8)
+    if labels.ndim > 3:
+        labels = labels[..., 0]
+    return labels > 0.5, None
+
+
+def evaluate_subjects(models, dataset, out_dir: str, *, strategy: str = "mc",
+                      run_id: str = "baseline", mc: int = 20,
+                      is_log_sigma: bool = False, batch_size: int = 32,
+                      seed: int = 20, thresholds=DEFAULT_THRESHOLDS,
+                      masked: bool = True, device=None) -> dict:
     """The direct eval's core over ``dataset.subjects`` (see module doc).
 
-    Subject ``i``'s MC stream is ``(seed, i)`` (``eval.pipeline``). The
-    f32 U-Net is held to the f32 bar, so cuDNN and matmul TF32 are off
-    while it runs (torch's default lets cuDNN use TF32, which misses that
-    bar); the caller's flags are restored afterwards, also on error."""
+    ``models``: one model for mc, deterministic, aleatoric (sigma head)
+    and auxiliary_segm (5 input channels); the list of members for
+    ensemble; the (segmenter with ``provide_features``, PostNet) pair for
+    auxiliary_feat. ``mc=0`` runs the mc strategy as deterministic, and
+    subject ``i``'s MC stream is ``(seed, i)`` (``eval.pipeline``).
+    aleatoric runs two passes: the subjects' sigma bounds, then the eval
+    with the run's global bounds (a constant range raises in between).
+
+    The f32 models are held to the f32 bar, so cuDNN and matmul TF32 are
+    off while they run (torch's default lets cuDNN use TF32, which misses
+    that bar); the caller's flags are restored afterwards, also on error."""
+    _check_models(strategy, models)
     device = resolve_device(device)
     with _full_float32():
-        sinks = _EvalSinks(out_dir, run_id, thresholds)
+        sinks = _EvalSinks(out_dir, run_id, thresholds, strategy)
+        bounds = None
+        if strategy == "aleatoric":
+            for subject in dataset.subjects:
+                sinks.add_bounds(*pipeline.volume_sigma_minmax(
+                    models, batch_size, _read_images(dataset, subject, device),
+                    is_log_sigma))
+            bounds = _global_bounds(sinks.bounds)
+            logging.info("direct aleatoric: global sigma range [%.6f, %.6f]",
+                         *bounds)
         eces = {}
         for si, subject in enumerate(dataset.subjects):
             t0 = time.time()
-            volume = np.asarray(dataset.read_volume(subject, "images"), np.float32)
-            if volume.ndim != 4:
-                raise NotImplementedError("native-2D datasets are not ported yet")
-            labels = np.asarray(dataset.read_volume(subject, "labels"))
-            if labels.ndim > 3:  # trailing channel axis -> the gt channel
-                labels = labels[..., 0]
-            target = labels > 0.5
+            volume = _read_images(dataset, subject, device)
+            target, baseline = _split_labels(
+                dataset.read_volume(subject, "labels"),
+                strategy == "auxiliary_segm")
             mask = foreground_mask(dataset, subject, target.shape) if masked \
                 else np.ones(target.shape, bool)
-            out = pipeline.volume_mc_eval(
-                model, mc, batch_size, torch.from_numpy(volume).to(device),
-                torch.from_numpy(target).to(device),
-                torch.from_numpy(mask).to(device), thresholds, rng=(seed, si))
+            target = torch.from_numpy(target).to(device)
+            mask = torch.from_numpy(mask).to(device)
+            common = (target, mask, thresholds)
+            if strategy in ("mc", "deterministic"):
+                out = pipeline.volume_mc_eval(
+                    models, mc if strategy == "mc" else 0, batch_size, volume,
+                    *common, rng=(seed, si))
+            elif strategy == "aleatoric":
+                out = pipeline.volume_aleatoric_eval(
+                    models, batch_size, volume, *common, *bounds, is_log_sigma)
+            elif strategy == "ensemble":
+                out = pipeline.volume_ensemble_eval(models, batch_size, volume,
+                                                    *common)
+            elif strategy == "auxiliary_feat":
+                out = pipeline.volume_aux_feat_eval(*models, batch_size,
+                                                    volume, *common)
+            else:
+                out = pipeline.volume_aux_segm_eval(
+                    models, batch_size, volume,
+                    torch.from_numpy(baseline).to(device), *common)
             row = _to_host(out)
             sinks.write_subject(subject, row)
             eces[subject] = float(row["ece"])

@@ -1,10 +1,20 @@
-"""Whole-volume MC-dropout inference + eval reductions
-(``rcu_tpu.eval.pipeline`` counterparts of ``_mc_scan``, ``_entropy_eval``,
-``make_volume_mc_eval_fn`` and ``make_volume_mc_fn``).
+"""Whole-volume inference + eval reductions of every strategy family
+(``rcu_tpu.eval.pipeline`` counterparts of the ``_*_scan`` helpers,
+``_entropy_eval``, ``_confidence_eval`` and the ``make_volume_*_eval_fn``
+factories, with ``make_volume_mc_fn``).
 
 PyTorch runs eagerly, so the JAX factories become plain functions: a
 Python loop over the volume's slice batches, then one call of the fused
-eval kernel per subject.
+eval kernel per subject. Two protocols feed the kernel:
+- entropy (mc, deterministic, ensemble): the fg probability is the ECE
+  plane, the entropy in bits the uncertainty plane, ``fg > 0.5`` the
+  prediction;
+- confidence (aleatoric, auxiliary_feat, auxiliary_segm): the family's
+  confidence map rescaled (per subject, or by the run's global bounds for
+  aleatoric) is the uncertainty plane, that folded by the prediction
+  (``ops.prepare``) the ECE plane. Rescale and fold are plain tensor ops,
+  as the JAX package computes them outside its kernel: the subject's min
+  and max are needed before any voxel can be folded.
 
 MC random stream: batch ``b`` of subject ``s`` draws sample ``t``'s dropout
 masks from a ``torch.Generator`` seeded with
@@ -20,9 +30,15 @@ import math
 import numpy as np
 import torch
 
-from rcu_tpu_torch.engine.steps import mc_forward, multi_prediction_summary, predict
-from rcu_tpu_torch.ops import metrics
+from rcu_tpu_torch.engine.steps import (aleatoric_forward, mc_forward,
+                                        multi_prediction_summary, predict)
+from rcu_tpu_torch.ops import metrics, prepare
 from rcu_tpu_torch.ops.cuda.evalstats import fused_subject_eval
+
+
+def _slice_batches(volume, batch_size):
+    return [volume[start:start + batch_size]
+            for start in range(0, volume.shape[0], batch_size)]
 
 
 def sample_generators(rng, batch_index: int, mc_steps: int, device):
@@ -48,8 +64,7 @@ def _mc_scan(model, mc_steps: int, volume, batch_size: int, rng,
     weight-scaling forward runs only when ``weight_scaling`` asks for its
     output (the eval path never reads it)."""
     fg, ent, ws = [], [], []
-    for b, start in enumerate(range(0, volume.shape[0], batch_size)):
-        images = volume[start:start + batch_size]
+    for b, images in enumerate(_slice_batches(volume, batch_size)):
         if mc_steps:
             gens = sample_generators(rng, b, mc_steps, volume.device)
             summary = multi_prediction_summary(mc_forward(model, images, gens))
@@ -80,18 +95,40 @@ def _as_u8(x):
     return x.contiguous()
 
 
-def _entropy_eval(fg, ent, target, mask, thresholds):
-    """The 'probabilities' protocol's eval reductions in one kernel pass:
-    ECE bins on the fg map (masked), the threshold correction on the
-    normalized entropy and the confusion row (both unmasked), plus the
-    subject's fg min/max for the run minmax CSV."""
-    prediction = fg > 0.5
+def _eval_row(fg, uncertainty, prediction, target, mask, thresholds):
+    """One kernel pass: ECE bins on ``fg`` (masked), the threshold
+    correction on ``uncertainty`` and the confusion row (both unmasked)."""
     bins, confusion, correction = fused_subject_eval(
-        fg.contiguous(), _as_u8(target), _as_u8(prediction), ent.contiguous(),
-        None if mask is None else _as_u8(mask), thresholds)
+        fg.contiguous(), _as_u8(target), _as_u8(prediction),
+        uncertainty.contiguous(), None if mask is None else _as_u8(mask),
+        thresholds)
     return {**bins, "dice": correction["dice"][0], "correction": correction,
-            **{k: confusion[k] for k in ("tp", "tn", "fp", "fn", "n")},
+            **{k: confusion[k] for k in ("tp", "tn", "fp", "fn", "n")}}
+
+
+def _entropy_eval(fg, ent, target, mask, thresholds):
+    """The 'probabilities' protocol's eval row, plus the subject's fg
+    min/max for the run minmax CSV."""
+    return {**_eval_row(fg, ent, fg > 0.5, target, mask, thresholds),
             "conf_min": torch.min(fg), "conf_max": torch.max(fg)}
+
+
+def _folded_eval(rescaled, prediction, target, mask, thresholds):
+    """Fold the rescaled map by the prediction; the folded map is the ECE
+    plane, the rescaled one the uncertainty plane."""
+    folded = prepare.uncertainty_to_foreground_probabilities(rescaled,
+                                                             prediction)
+    return _eval_row(folded, rescaled, prediction, target, mask, thresholds)
+
+
+def _confidence_eval(confidence, prediction, target, mask, thresholds):
+    """The 'confidence' protocol's eval row (auxiliary feat/segm): subject
+    min-max rescale, fold, one kernel pass; the run minmax CSV takes the
+    RAW confidence's min/max."""
+    rescaled = prepare.rescale_subject_min_max(confidence)
+    return {**_folded_eval(rescaled, prediction, target, mask, thresholds),
+            "conf_min": torch.min(confidence),
+            "conf_max": torch.max(confidence)}
 
 
 @torch.inference_mode()
@@ -113,3 +150,82 @@ def volume_mc(model, mc_steps: int, batch_size: int, volume, rng):
                               weight_scaling=True)
     return {"fg": fg, "entropy": _normalize_entropy(ent), "ws_fg": ws_fg,
             "prediction": fg > 0.5}
+
+
+def _aleatoric_scan(model, is_log_sigma: bool, volume, batch_size: int):
+    """One deterministic forward per slice batch -> (prediction uint8,
+    predicted-class sigma), each (Z, H, W)."""
+    pred, sigma = [], []
+    for images in _slice_batches(volume, batch_size):
+        _, _, prediction, predicted_sigma = aleatoric_forward(
+            model, images, is_log_sigma)
+        pred.append(prediction.to(torch.uint8))
+        sigma.append(predicted_sigma)
+    return torch.cat(pred), torch.cat(sigma)
+
+
+@torch.inference_mode()
+def volume_sigma_minmax(model, batch_size: int, volume, is_log_sigma: bool):
+    """Pass A of the aleatoric protocol: the subject's predicted-class
+    sigma (min, max), its share of the run's global rescale bounds."""
+    _, sigma = _aleatoric_scan(model, is_log_sigma, volume, batch_size)
+    return torch.min(sigma), torch.max(sigma)
+
+
+@torch.inference_mode()
+def volume_aleatoric_eval(model, batch_size: int, volume, target, mask,
+                          thresholds, sigma_min, sigma_max,
+                          is_log_sigma: bool):
+    """Pass B: sigma rescaled by the run's f32 global bounds, folded, one
+    kernel pass. No conf_min/conf_max: the minmax CSV holds pass A's."""
+    prediction, sigma = _aleatoric_scan(model, is_log_sigma, volume,
+                                        batch_size)
+    rescaled = prepare.rescale_linear(sigma, sigma_min, sigma_max)
+    return _folded_eval(rescaled, prediction, target, mask, thresholds)
+
+
+@torch.inference_mode()
+def volume_ensemble_eval(members, batch_size: int, volume, target, mask,
+                         thresholds):
+    """Member-mean softmax, then the entropy protocol. The members run one
+    after another (the JAX package vmaps them) and their probabilities add
+    in member order before the division by K."""
+    fg, ent = [], []
+    for images in _slice_batches(volume, batch_size):
+        total = None
+        for member in members:
+            probs = predict(member, images)
+            total = probs if total is None else total + probs
+        probabilities = total / len(members)
+        fg.append(probabilities[..., 1])
+        ent.append(metrics.entropy(probabilities, dim=-1))
+    return _entropy_eval(torch.cat(fg), _normalize_entropy(torch.cat(ent)),
+                         target, mask, thresholds)
+
+
+@torch.inference_mode()
+def volume_aux_feat_eval(segmenter, postnet, batch_size: int, volume, target,
+                         mask, thresholds):
+    """The frozen segmenter's argmax (of its logits) is the prediction, the
+    PostNet's softmax fg on the segmenter's features the confidence."""
+    conf, pred = [], []
+    for images in _slice_batches(volume, batch_size):
+        out = segmenter(images.permute(0, 3, 1, 2).contiguous())
+        pred.append(torch.argmax(out.logits, dim=1).to(torch.uint8))
+        conf.append(torch.softmax(postnet(out.features).logits, dim=1)[:, 1])
+    return _confidence_eval(torch.cat(conf), torch.cat(pred), target, mask,
+                            thresholds)
+
+
+@torch.inference_mode()
+def volume_aux_segm_eval(model, batch_size: int, volume, baseline, target,
+                         mask, thresholds):
+    """The error net reads the images and the baseline prediction as a 5th
+    channel; the baseline itself (uint8, (Z, H, W)) is the prediction."""
+    conf = []
+    for images, base in zip(_slice_batches(volume, batch_size),
+                            _slice_batches(baseline, batch_size)):
+        inputs = torch.cat([images, base[..., None].to(torch.float32)], dim=-1)
+        conf.append(predict(model, inputs)[..., 1])
+    return _confidence_eval(torch.cat(conf), baseline, target, mask,
+                            thresholds)

@@ -1,3 +1,4 @@
-"""PyTorch models: the U-Net, its registry and the flax weights bridge."""
+"""PyTorch models: the U-Net and PostNet, their registry and the flax
+weights bridge."""
 from rcu_tpu_torch.models.registry import get_model  # noqa: F401
-from rcu_tpu_torch.models.unet import UNet  # noqa: F401
+from rcu_tpu_torch.models.unet import PostNet, UNet, UNetOutput  # noqa: F401

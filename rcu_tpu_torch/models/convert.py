@@ -1,4 +1,5 @@
-"""Weights bridge: a flax U-Net tree (numpy leaves) -> the port's state_dict.
+"""Weights bridge: a flax U-Net or PostNet tree (numpy leaves) -> the port's
+state_dict.
 
 Module names are the same on both sides (``models.unet`` mirrors flax's),
 so the map is per leaf: a conv ``kernel`` HWIO -> ``weight`` OIHW, conv
@@ -23,8 +24,9 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), value
 
 
-def unet_state_dict_from_flax(params: dict, batch_stats: dict) -> dict:
-    """-> ``{name: tensor}`` loadable with ``UNet.load_state_dict(strict=True)``."""
+def state_dict_from_flax(params: dict, batch_stats: dict) -> dict:
+    """-> ``{name: tensor}`` loadable with ``load_state_dict(strict=True)``
+    into the ``models.unet`` module of the same architecture."""
     state = {}
     for path, value in _flatten(params):
         value = np.asarray(value, np.float32)

@@ -1,10 +1,14 @@
-"""The 2D U-Net of ``rcu_tpu.models.unet`` as a PyTorch module (plain f32).
+"""The 2D U-Net and PostNet of ``rcu_tpu.models.unet`` as PyTorch modules
+(plain f32).
 
 Modules are NCHW inside, as PyTorch's convolutions want; the public
 functions around them (``engine.steps``, ``eval.pipeline``) take NHWC like
-the JAX package. Submodule names mirror flax's (``ConvBlock_0..2d``,
-``Conv_0..d-1`` up-convs, ``ConvBnRelu_0`` head, ``Conv_d`` class conv), so
-``models.convert`` maps a flax tree onto ``state_dict`` by name.
+the JAX package. Both return a :class:`UNetOutput`, as the flax modules do.
+Submodule names mirror flax's (U-Net: ``ConvBlock_0..2d``, ``Conv_0..d-1``
+up-convs, ``ConvBnRelu_0`` head, ``Conv_d`` class conv, and with the sigma
+head ``ConvBnRelu_1`` and ``Conv_{d+1}``; PostNet: ``ConvBnRelu_0..n-1``
+and the ``Conv_0`` head), so ``models.convert`` maps a flax tree onto
+``state_dict`` by name.
 
 Dropout is flax's channel dropout (``broadcast_dims=(1, 2)`` on NHWC): one
 keep/drop draw per (image, channel), kept values divided by ``1 - p``. It
@@ -18,9 +22,19 @@ is not ported yet.
 """
 from __future__ import annotations
 
+import typing
+
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+
+class UNetOutput(typing.NamedTuple):
+    """NCHW logits; the sigma head's output and the decoder features where
+    the model has them."""
+    logits: torch.Tensor
+    sigma: torch.Tensor | None = None
+    features: torch.Tensor | None = None
 
 
 class ChannelDropout(nn.Module):
@@ -43,11 +57,13 @@ class ChannelDropout(nn.Module):
 
 
 class ConvBnRelu(nn.Module):
-    """conv -> [channel dropout] -> batch norm -> relu."""
+    """conv (3x3, or 1x1 in the PostNet) -> [channel dropout] -> batch norm
+    -> relu."""
 
-    def __init__(self, in_ch: int, out_ch: int, dropout: float | None = None):
+    def __init__(self, in_ch: int, out_ch: int, dropout: float | None = None,
+                 kernel: int = 3):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.Conv_0 = nn.Conv2d(in_ch, out_ch, kernel, padding=kernel // 2)
         self.dropout = ChannelDropout(dropout) if dropout is not None else None
         self.BatchNorm_0 = nn.BatchNorm2d(out_ch, eps=1e-5)
 
@@ -113,21 +129,33 @@ def _pad_to(up, target_hw):
                       h_diff // 2, h_diff - h_diff // 2))
 
 
-class UNet(nn.Module):
-    """Configurable 2D encoder-decoder; NCHW in, NCHW f32 logits out.
+class _EvalOnly(nn.Module):
+    """Training is not ported: the module stays in eval mode and
+    ``train(True)`` raises."""
 
-    Only the plain f32 model of the MC/deterministic protocols is ported:
-    the residual blocks, the sigma head, features output, the fast decoder,
-    int8, the BN fold and bf16 compute are later slices and rejected by
-    ``models.registry.get_model``. Training is not ported: the module stays
-    in eval mode and ``train(True)`` raises.
+    def train(self, mode: bool = True):
+        if mode:
+            raise NotImplementedError("training is not ported to rcu_tpu_torch yet")
+        return super().train(False)
+
+
+class UNet(_EvalOnly):
+    """Configurable 2D encoder-decoder; NCHW in, :class:`UNetOutput` out.
+
+    ``sigma_out`` adds the aleatoric sigma head, ``provide_features``
+    returns the decoder output that the heads read. The residual blocks,
+    the fast decoder, int8, the BN fold and bf16 compute are later slices
+    and rejected by ``models.registry.get_model``.
     """
 
     def __init__(self, nb_classes: int, in_channels: int, depth: int = 4,
                  start_filters: int = 16, dropout: float | None = 0.2,
-                 dropout_center: int | None = None):
+                 dropout_center: int | None = None, sigma_out: bool = False,
+                 provide_features: bool = False):
         super().__init__()
         self.depth = depth
+        self.sigma_out = sigma_out
+        self.provide_features = provide_features
         self.down_blocks, self.up_convs, self.up_blocks = [], [], []
         ch_in, ch = in_channels, start_filters
         for i in range(depth):
@@ -150,15 +178,11 @@ class UNet(nn.Module):
             ch //= 2
         self.ConvBnRelu_0 = ConvBnRelu(ch, ch, dropout)
         self.add_module(f"Conv_{depth}", nn.Conv2d(ch, nb_classes, 1))
-        for m in self.modules():  # flax's zero bias init (kernels: the same
-            if isinstance(m, nn.Conv2d):  # U(+-1/sqrt(fan_in)) as torch's)
-                nn.init.zeros_(m.bias)
-        super().train(False)
-
-    def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError("training is not ported to rcu_tpu_torch yet")
-        return super().train(False)
+        if sigma_out:
+            self.ConvBnRelu_1 = ConvBnRelu(ch, ch, dropout)
+            self.add_module(f"Conv_{depth + 1}", nn.Conv2d(ch, nb_classes, 1))
+        _zero_biases(self)
+        self.train(False)
 
     def forward(self, x, generators=None):
         """``generators``: one per MC sample riding the batch (sample-major),
@@ -175,5 +199,46 @@ class UNet(nn.Module):
             x = block(torch.cat([_pad_to(up, skip.shape[2:]), skip], dim=1),
                       generators)
             del up, skip
-        x = self.ConvBnRelu_0(x, generators)
-        return getattr(self, f"Conv_{self.depth}")(x)
+        # both heads read the decoder output x, and the sigma head does not
+        # read the class head's; no op after this point writes into x in
+        # place (each ConvBnRelu's in-place ops act on its conv's output),
+        # so the features returned are the tensor the heads saw
+        logits = getattr(self, f"Conv_{self.depth}")(
+            self.ConvBnRelu_0(x, generators))
+        sigma = None
+        if self.sigma_out:
+            sigma = getattr(self, f"Conv_{self.depth + 1}")(
+                self.ConvBnRelu_1(x, generators))
+        return UNetOutput(logits, sigma, x if self.provide_features else None)
+
+
+class PostNet(_EvalOnly):
+    """The auxiliary confidence net on a segmenter's features
+    (``rcu_tpu.models.unet.PostNet``): ``nb_convs`` 1x1 ConvBnRelu at the
+    input width, then the 1x1 class conv ``Conv_0``. flax infers the input
+    width; here it is ``in_channels``."""
+
+    def __init__(self, nb_classes: int, in_channels: int, nb_convs: int = 3,
+                 dropout: float | None = None):
+        super().__init__()
+        self.layers = []
+        for i in range(nb_convs):
+            layer = ConvBnRelu(in_channels, in_channels, dropout, kernel=1)
+            self.add_module(f"ConvBnRelu_{i}", layer)
+            self.layers.append(layer)
+        self.Conv_0 = nn.Conv2d(in_channels, nb_classes, 1)
+        _zero_biases(self)
+        self.train(False)
+
+    def forward(self, x, generators=None):
+        for layer in self.layers:
+            x = layer(x, generators)
+        return UNetOutput(self.Conv_0(x))
+
+
+def _zero_biases(module):
+    """flax's zero bias init (kernels: the same U(+-1/sqrt(fan_in)) as
+    torch's)."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            nn.init.zeros_(m.bias)

@@ -11,7 +11,7 @@ from rcu_tpu.engine import checkpoint as jax_ckpt
 from rcu_tpu.engine.config import ParametricNode as JaxNode
 from rcu_tpu_torch.engine import checkpoint as ckpt
 from rcu_tpu_torch.models import get_model
-from rcu_tpu_torch.models.convert import unet_state_dict_from_flax
+from rcu_tpu_torch.models.convert import state_dict_from_flax
 from tests.test_torch_unet import flax_unet
 
 PARAMS = dict(nb_classes=2, in_channels=4, depth=2, start_filters=4,
@@ -68,7 +68,7 @@ def test_converted_state_dict_holds_every_array(saved):
     model_dir, params, stats = saved
     mf = ckpt.ModelFiles.from_model_dir(model_dir)
     raw = ckpt.load_checkpoint(ckpt.find_checkpoint_file(mf, "last"))
-    state = unet_state_dict_from_flax(raw["params"], raw["batch_stats"])
+    state = state_dict_from_flax(raw["params"], raw["batch_stats"])
     model = get_model("unet", PARAMS)
     model.load_state_dict(state)  # strict: every key, no extra
     sd = model.state_dict()

@@ -201,3 +201,66 @@ def test_cuda_main_path_launches_the_kernel_once_per_subject(cuda_device,
     evaluate_subjects(model, dataset, str(tmp_path / "mc"), mc=3,
                       batch_size=2, masked=False, device=cuda_device)
     assert evalstats.fused_eval_stats.launches == before + 4
+
+
+class TinyBaselineVolumes(TinyVolumes):
+    """TinyVolumes with [gt, baseline prediction] labels, as auxiliary_segm
+    stores hold them."""
+
+    def read_volume(self, subject, category):
+        volume = super().read_volume(subject, category)
+        if category != "labels":
+            return volume
+        baseline = volume.copy()
+        baseline[:, :4] = 1 - baseline[:, :4]
+        return np.stack([volume, baseline], axis=-1)
+
+
+def family_models(strategy):
+    """Seeded tiny models of a family, heads sharpened so that the maps
+    spread."""
+    params = dict(nb_classes=2, in_channels=4, depth=2, start_filters=8,
+                  dropout=0.1)
+
+    def unet(seed, **options):
+        torch.manual_seed(seed)
+        model = get_model("unet", {**params, **options})
+        with torch.no_grad():
+            model.Conv_2.weight.mul_(50.0)
+        return model
+
+    if strategy == "aleatoric":
+        return unet(1, sigma_out=True)
+    if strategy == "ensemble":
+        return [unet(2 + k) for k in range(3)]
+    if strategy == "auxiliary_feat":
+        torch.manual_seed(6)
+        postnet = get_model("postnet", dict(nb_classes=2, in_channels=8))
+        with torch.no_grad():
+            postnet.Conv_0.weight.mul_(20.0)
+        return unet(5, provide_features=True), postnet
+    return unet(7, in_channels=5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["aleatoric", "ensemble",
+                                      "auxiliary_feat", "auxiliary_segm"])
+def test_cuda_families_launch_the_kernel_once_per_subject(cuda_device,
+                                                          tmp_path, strategy):
+    models = family_models(strategy)
+    dataset = TinyBaselineVolumes() if strategy == "auxiliary_segm" \
+        else TinyVolumes()
+    options = dict(strategy=strategy, batch_size=2, masked=False,
+                   is_log_sigma=strategy == "aleatoric")
+    cpu = evaluate_subjects(models, dataset, str(tmp_path / "cpu"),
+                            device="cpu", **options)
+    on_card = models.to(cuda_device) if isinstance(models, torch.nn.Module) \
+        else type(models)(m.to(cuda_device) for m in models)
+    before = evalstats.fused_eval_stats.launches
+    plain = evalstats.fused_eval_stats.plain_calls
+    gpu = evaluate_subjects(on_card, dataset, str(tmp_path / "gpu"),
+                            device=cuda_device, **options)
+    assert evalstats.fused_eval_stats.launches == before + 2
+    assert evalstats.fused_eval_stats.plain_calls == plain
+    for subject, ece in cpu.items():  # a voxel at a bin edge may flip
+        assert gpu[subject] == pytest.approx(ece, rel=1e-3, abs=1e-4)

@@ -14,7 +14,7 @@ from rcu_tpu.models import get_model as flax_get_model
 from rcu_tpu_torch.engine import steps
 from rcu_tpu_torch.eval.pipeline import sample_generators
 from rcu_tpu_torch.models import get_model
-from rcu_tpu_torch.models.convert import unet_state_dict_from_flax
+from rcu_tpu_torch.models.convert import state_dict_from_flax
 
 
 def _randomize_stats(tree, rng):
@@ -34,7 +34,13 @@ def _randomize_stats(tree, rng):
 def flax_unet(params: dict, hw, seed: int = 0):
     """A flax UNet with perturbed init weights and random BN statistics.
     Returns (flax model, params, batch_stats) with numpy leaves."""
-    model = flax_get_model("unet", params)
+    return flax_net("unet", params, hw, seed)
+
+
+def flax_net(model_type: str, params: dict, hw, seed: int = 0):
+    """:func:`flax_unet` for any model type of the registry (a PostNet's
+    input width is its ``in_channels``)."""
+    model = flax_get_model(model_type, params)
     x0 = np.zeros((1, *hw, params["in_channels"]), np.float32)
     variables = model.init({"params": jax.random.PRNGKey(seed)}, x0, train=False)
     rng = np.random.RandomState(seed)
@@ -48,14 +54,14 @@ def flax_unet(params: dict, hw, seed: int = 0):
 
 def port_unet(params: dict, flax_params, stats):
     model = get_model("unet", params)
-    model.load_state_dict(unet_state_dict_from_flax(flax_params, stats))
+    model.load_state_dict(state_dict_from_flax(flax_params, stats))
     return model
 
 
 def port_logits(model, x):
     with torch.no_grad():
         out = model(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
-    return out.permute(0, 2, 3, 1).numpy()
+    return out.logits.permute(0, 2, 3, 1).numpy()
 
 
 @pytest.mark.parametrize("depth,start,hw,dropout_center", [
@@ -128,7 +134,7 @@ def test_mc_stream_is_seeded_and_per_sample():
 
 
 @pytest.mark.parametrize("option,neutral,value", [
-    ("residual", False, True), ("sigma_out", False, True),
+    ("residual", False, True), ("split_decoder_concat", False, True),
     ("dtype", "float32", "bfloat16"), ("fused_upsample", False, True),
     ("fold_bn", False, True), ("bn", True, False)])
 def test_unported_model_options_raise(option, neutral, value):
@@ -136,6 +142,21 @@ def test_unported_model_options_raise(option, neutral, value):
     get_model("unet", {**params, option: neutral})  # model.json records these
     with pytest.raises(NotImplementedError):
         get_model("unet", {**params, option: value})
+
+
+@pytest.mark.parametrize("model_type,params", [
+    ("unet", dict(nb_classes=2, in_channels=2, depth=2, start_filters=4,
+                  provide_features=True)),
+    ("unet", dict(nb_classes=2, in_channels=2, depth=2, start_filters=4,
+                  sigma_out=True)),
+    ("postnet", dict(nb_classes=2, in_channels=4))])
+def test_ported_heads_build(model_type, params):
+    """The options that the strategy families need now build."""
+    model = get_model(model_type, params)
+    out = model(torch.zeros(1, params["in_channels"], 8, 8))
+    assert out.logits.shape == (1, 2, 8, 8)
+    assert (out.features is not None) == params.get("provide_features", False)
+    assert (out.sigma is not None) == params.get("sigma_out", False)
 
 
 def test_training_mode_is_refused():
