@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version, then drives the
-main path, the BraTS MC-dropout direct eval, and the four other strategy
-families of the direct eval at full width.
+main path, the BraTS MC-dropout direct eval, the four other strategy
+families of the direct eval and the inference variants at full width.
 
   python3 chip_smoke.py
 
@@ -23,8 +23,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    full size into a fixed cost and a streaming rate;
 4. main path: ``evaluate_subjects`` over 2 in-memory BraTS-shaped subjects
    with the flagship U-Net (config/train_brats_baseline.yaml: depth 4, 32
-   start filters, 4 channels, dropout 0.05) at seeded random weights,
-   MC=20 at batch 32 (config/test_brats_baseline_mc.yaml), called under
+   start filters, 4 channels, dropout 0.05) at seeded random weights
+   (every model's BatchNorm statistics those of its input on the middle
+   slices, its class head scaled, centred and antisymmetric), MC=20 at
+   batch 32 (config/test_brats_baseline_mc.yaml), called under
    torch's default TF32 flags as a library caller would. Before it, one
    deterministic 8-slice batch on the card is held against the CPU. The
    first subject's eval planes are kept, and the kernel is checked and
@@ -48,7 +50,22 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    against its plain version and time it; one 2-slice batch on the card
    is held against the CPU (logits, sigma, features, member mean, PostNet
    confidence). Last, the kernel against its plain version on a folded
-   plane that is all NaN: a constant confidence rescales 0/0.
+   plane that is all NaN: a constant confidence rescales 0/0;
+7. variants: the JAX package's inference variants on the same weights,
+   each loaded through ``eval.direct.model_from_flax`` (BN fold in numpy,
+   conversion, precast), through ``evaluate_subjects`` on the same 2
+   subjects: deterministic in f32, then MC20 in bf16 and in bf16 with the
+   fast decoder, and deterministic, ensemble and auxiliary_feat in bf16
+   with the fast decoder and the fold. Each prints s/subject, peak memory,
+   launches, the first ECE and the ECE/Dice deltas against the f32 run of
+   the same weights; a softmax family (mc, deterministic, ensemble) beyond
+   1e-3 fails. The kernel is checked and timed on the bf16 MC planes (f32
+   planes), and one bf16 fast-decoder MC20 subject is profiled. One 2-slice
+   batch of two bf16 variants on the card is held against the CPU at the
+   bar of tests/test_torch_variants.py; one MC batch's forward is timed in
+   f32 and bf16 with each decoder rewrite, bf16 in both memory formats
+   (TFLOP/s of each variant's own convolutions); a dropout_center=2 MC
+   batch with the shared encoder prefix is held against the full forward.
 
 Every path runs with the kernel's launch count set to 0 before it and
 read after it, and fails unless it launched once per subject. The last
@@ -57,6 +74,7 @@ paths, ``by_path``: each path's launches and the kernel's numbers on its
 planes) and ``{"ok": true, "device": {...}}``.
 """
 import copy
+import csv
 import json
 import math
 import os
@@ -68,9 +86,14 @@ import numpy as np
 import torch
 
 from rcu_tpu_torch.data import nifti
-from rcu_tpu_torch.eval.direct import DEFAULT_THRESHOLDS, evaluate_subjects
-from rcu_tpu_torch.models import get_model
+from rcu_tpu_torch.engine import steps
+from rcu_tpu_torch.eval.direct import (DEFAULT_THRESHOLDS, evaluate_subjects,
+                                       model_from_flax)
+from rcu_tpu_torch.models import FAST_DECODER_KWARGS, get_model
+from rcu_tpu_torch.models.convert import flax_from_state_dict
+from rcu_tpu_torch.models.unet import ConvBnRelu
 from rcu_tpu_torch.eval import pipeline
+from rcu_tpu_torch.eval.pipeline import sample_generators
 from rcu_tpu_torch.ops import prepare
 from rcu_tpu_torch.ops.cuda import build, evalstats
 
@@ -368,16 +391,41 @@ def middle_batch(dataset):
     return torch.from_numpy(np.ascontiguousarray(images.transpose(0, 3, 1, 2)))
 
 
-def spread_head(model, dataset):
-    """Scale the seeded model's class conv so that the logit difference has
-    std 2 on real-looking input: the fg map then spreads over the
-    reliability bins instead of sitting at 0.5."""
-    with torch.inference_mode():
-        logits = model(middle_batch(dataset).to(DEVICE)).logits
-        scale = 2.0 / float((logits[:, 1] - logits[:, 0]).std())
-        head = getattr(model, f"Conv_{FLAGSHIP['depth']}")
-        head.weight.mul_(scale)
-        head.bias.mul_(scale)
+def calibrate_bn(model, x):
+    """Set every BatchNorm's running statistics to those of its conv's
+    output on the batch ``x``, layer by layer in one forward (no gradient
+    step): the activations are then normalised as in a trained model, and
+    the bf16 variants' rounding is measured against a signal of the size
+    that a trained model's has."""
+    def hook(layer, args):
+        inputs = args[0]
+        if isinstance(inputs, tuple):
+            inputs = torch.cat(inputs, dim=1)
+        conv = layer.Conv_0
+        y = torch.nn.functional.conv2d(inputs, conv.weight, conv.bias,
+                                       padding=conv.padding)
+        layer.BatchNorm_0.running_mean.copy_(y.mean((0, 2, 3)))
+        layer.BatchNorm_0.running_var.copy_(y.var((0, 2, 3), unbiased=False))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, ConvBnRelu)]
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        for handle in handles:
+            handle.remove()
+
+
+def seeded_unet(seed, x, **options):
+    """A flagship-width U-Net with seeded weights, its BatchNorms
+    calibrated on ``x`` and its class head centred (:func:`centre_head`)."""
+    torch.manual_seed(seed)
+    model = get_model("unet", {**FLAGSHIP, **options}).to(DEVICE)
+    calibrate_bn(model, x)
+    centre_head(lambda v: model(v).logits,
+                getattr(model, f"Conv_{FLAGSHIP['depth']}"), x)
+    return model
 
 
 def gpu_vs_cpu_check(model, dataset):
@@ -476,31 +524,19 @@ def main_path_phase(model, dataset, out_dir):
 
 
 def conv_flops_per_image(model):
-    """2 x the multiply-adds of every convolution in the forward of one
-    BraTS slice, counted from the layers' output shapes."""
-    flops = []
-
-    def count(module, inputs, output):
-        kh, kw = module.kernel_size
-        flops.append(2 * output.numel() * module.in_channels // module.groups
-                     * kh * kw)
-
-    convs = [m for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
-    handles = [m.register_forward_hook(count) for m in convs]
-    with torch.inference_mode():
+    """2 x the multiply-adds of every convolution (plain or transposed) in
+    the forward of one BraTS slice, as torch's FLOP counter counts them."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with torch.inference_mode(), FlopCounterMode(display=False) as counter:
         model(torch.zeros((1, FLAGSHIP["in_channels"]) + BRATS[1:],
                           device=DEVICE))
-    for handle in handles:
-        handle.remove()
-    return sum(flops)
+    return counter.get_total_flops()
 
 
 def forward_breakdown(model, dataset, cpu_batch, cpu_logits):
     """Time one MC forward (32 slices x 20 samples) and one deterministic
     forward with CUDA events, in f32 and, for information, with TF32 on
     (its logits error against the CPU beside it)."""
-    from rcu_tpu_torch.engine import steps
-    from rcu_tpu_torch.eval.pipeline import sample_generators
     images = torch.from_numpy(dataset.read_volume(dataset.subjects[0],
                                                   "images")[:BATCH]).to(DEVICE)
 
@@ -576,40 +612,39 @@ def error_net_batch(dataset):
 def centre_head(forward, head, x, std=2.0):
     """Scale and shift the 1x1 class conv ``head`` so that the logit
     difference of ``forward(x)`` has median 0 and standard deviation
-    ``std``: seeded weights give near-constant maps, which would fill a
-    bin or two and predict one class."""
+    ``std`` (seeded weights give near-constant maps, which would fill a bin
+    or two and predict one class), and make it antisymmetric: the two
+    logits are minus and plus half the difference, the same softmax with
+    no common part for bf16 to round at the logits' size."""
     with torch.inference_mode():
         logits = forward(x)
         diff = logits[:, 1] - logits[:, 0]
         scale = std / float(diff.std())
-        head.weight.mul_(scale)
-        head.bias.mul_(scale)
-        head.bias[1] -= scale * float(diff.median())
+        shift = scale * float(diff.median())
+        half_w = (head.weight[1] - head.weight[0]) * (scale / 2)
+        half_b = ((head.bias[1] - head.bias[0]) * scale - shift) / 2
+        head.weight.copy_(torch.stack([-half_w, half_w]))
+        head.bias.copy_(torch.stack([-half_b, half_b]))
+
+
+POSTNET = dict(nb_classes=2, in_channels=FLAGSHIP["start_filters"])
 
 
 def strategy_models(dataset):
     """{family: what evaluate_subjects takes}, seeded, flagship width."""
     x = middle_batch(dataset).to(DEVICE)
-    head = f"Conv_{FLAGSHIP['depth']}"
-
-    def unet(seed, inputs=x, **options):
-        torch.manual_seed(seed)
-        model = get_model("unet", {**FLAGSHIP, **options}).to(DEVICE)
-        centre_head(lambda v: model(v).logits, getattr(model, head), inputs)
-        return model
-
-    segmenter = unet(SEED + 30, provide_features=True)
+    segmenter = seeded_unet(SEED + 30, x, provide_features=True)
     torch.manual_seed(SEED + 31)
-    postnet = get_model("postnet", dict(nb_classes=2, in_channels=FLAGSHIP[
-        "start_filters"])).to(DEVICE)
+    postnet = get_model("postnet", POSTNET).to(DEVICE)
     with torch.inference_mode():
         features = segmenter(x).features
+    calibrate_bn(postnet, features)
     centre_head(lambda v: postnet(v).logits, postnet.Conv_0, features)
-    return {"aleatoric": unet(SEED + 1, sigma_out=True),
-            "ensemble": [unet(SEED + 10 + k) for k in range(MEMBERS)],
+    return {"aleatoric": seeded_unet(SEED + 1, x, sigma_out=True),
+            "ensemble": [seeded_unet(SEED + 10 + k, x) for k in range(MEMBERS)],
             "auxiliary_feat": (segmenter, postnet),
-            "auxiliary_segm": unet(SEED + 40, error_net_batch(dataset).to(DEVICE),
-                                   in_channels=5)}
+            "auxiliary_segm": seeded_unet(
+                SEED + 40, error_net_batch(dataset).to(DEVICE), in_channels=5)}
 
 
 def family_outputs(name, models, x):
@@ -669,7 +704,7 @@ def nan_plane_check(planes):
 def strategies_phase(dataset, tmp, hbm_rate, ptxas):
     """Each family's run, its kernel checks and timing, and its card
     against the CPU; returns ({family: its by_path record}, the kernel
-    checks' max abs error)."""
+    checks' max abs error, {family: its models})."""
     t0 = time.perf_counter()
     models = strategy_models(dataset)
     log(f"strategy models: {time.perf_counter() - t0:.1f} s")
@@ -706,20 +741,293 @@ def strategies_phase(dataset, tmp, hbm_rate, ptxas):
                          "card_vs_cpu_max_abs_err": cpu_err,
                          **{k: timed[k] for k in ("ms", "kernel_ms",
                                                   "plain_ms", "bound_share")}}
-    return by_path, max(errs)
+    return by_path, max(errs), models
+
+
+# the JAX package's production variants (``rcu_tpu.eval.direct``'s flags)
+BF16 = dict(dtype="bfloat16")
+BF16_FAST = dict(BF16, fast_decoder=True)
+BF16_FAST_FOLD = dict(BF16_FAST, fold_bn=True)
+GATE = 1e-3  # ECE/Dice of a softmax family against f32 (tests/test_bf16_parity.py)
+BF16_STEP = 2.0 ** -8
+
+
+def bf16_bar(depth, split, scale):
+    """tests/test_torch_variants.py's bound on two bf16 forwards: one bf16
+    step (2^-8 relative) of the output's scale for each rounding from the
+    input to the logits (the input cast, each ConvBnRelu's conv and
+    BatchNorm outputs, each up-conv and split add, the class conv)."""
+    roundings = 1 + 2 * (4 * depth + 3) + depth * (2 if split else 1) + 1
+    return roundings * BF16_STEP * scale
+
+
+def variant_of(model, model_type, record, **flags):
+    """The port's loader (``eval.direct.model_from_flax``) on the f32
+    model's weights as a flax tree: the variant that a checkpoint of these
+    weights loads as (fold in numpy f32, conversion, precast)."""
+    return model_from_flax(model_type, record,
+                           *flax_from_state_dict(model.state_dict()), DEVICE,
+                           **flags)
+
+
+def ece_dice(out_dir, result_id):
+    """{subject: (ECE, Dice)} of a run's ece CSV."""
+    with open(os.path.join(out_dir, f"eval_ece_{result_id}.csv")) as f:
+        rows = list(csv.reader(f))
+    ece, dice = rows[0].index("ece"), rows[0].index("dice")
+    return {r[1]: (float(r[ece]), float(r[dice])) for r in rows[1:]}
+
+
+class Unshared(torch.nn.Module):
+    """A model with its dropout-free encoder prefix hidden: ``mc_forward``
+    then runs the full T*B forward."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+        self.dtype = model.dtype
+
+    def forward(self, x, generators=None):
+        return self.model(x, generators)
+
+
+def variant_breakdown(flagship, dataset):
+    """One MC batch's forward (32 slices x 20 samples, the model call
+    alone, CUDA events) and its convolution TFLOP/s (each variant's own
+    FLOPs) in f32, and in bf16 with each decoder rewrite and in both
+    memory formats, all in this call; one deterministic batch with and
+    without the fold."""
+    images = torch.from_numpy(dataset.read_volume(dataset.subjects[0],
+                                                  "images")[:BATCH]).to(DEVICE)
+    nchw = torch.cat([images.permute(0, 3, 1, 2).contiguous()] * MC_STEPS)
+    layouts = {"NCHW": nchw, "channels-last": nchw.contiguous(
+        memory_format=torch.channels_last)}
+    configs = [("f32", {}, "NCHW"),
+               ("f32 fast decoder", {"fast_decoder": True}, "NCHW"),
+               ("bf16", BF16, "NCHW"), ("bf16", BF16, "channels-last"),
+               ("bf16 split concat", dict(BF16, split_decoder_concat=True),
+                "channels-last"),
+               ("bf16 fused upsample", dict(BF16, fused_upsample=True),
+                "channels-last"),
+               ("bf16 fast decoder", BF16_FAST, "NCHW"),
+               ("bf16 fast decoder", BF16_FAST, "channels-last")]
+    ms = {}
+    for label, flags, layout in configs:
+        record = {**FLAGSHIP, **{k: v for k, v in flags.items()
+                                 if k in FAST_DECODER_KWARGS}}
+        model = variant_of(flagship, "unet", record, **{
+            k: v for k, v in flags.items() if k not in FAST_DECODER_KWARGS})
+        flops = conv_flops_per_image(model) * MC_STEPS * BATCH
+        x = layouts[layout].to(model.dtype)
+        with torch.inference_mode():
+            ms[label, layout] = cuda_ms(lambda: model(x, sample_generators(
+                (SEED, 0), 0, MC_STEPS, DEVICE)), 3)
+        log(f"variant forward: MC{MC_STEPS} batch of {BATCH} slices, {label}, "
+            f"{layout}: {ms[label, layout]:.1f} ms, {flops / 1e12:.2f} TFLOP "
+            f"of convolutions = {flops / ms[label, layout] / 1e9:.1f} TFLOP/s")
+        del model, x
+    det = {}
+    for label, flags in (("bf16 fast decoder", BF16_FAST),
+                         ("bf16 fast decoder + fold", BF16_FAST_FOLD)):
+        model = variant_of(flagship, "unet", FLAGSHIP, **flags)
+        with torch.inference_mode():
+            det[label] = cuda_ms(lambda: steps.predict(model, images), 5)
+    log(f"variant forward: deterministic batch of {BATCH} slices "
+        f"(channels-last) "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in det.items()))
+    return ms
+
+
+def input_breakdown(dataset):
+    """One subject's volume onto the card in bf16 two ways (host clock,
+    CUDA-synced, median of 5): cast on the host, then copied (what
+    ``evaluate_subjects`` does for a bf16 model), and copied in f32, then
+    cast on the card; and the f32 copy alone. The two bf16 results are
+    bitwise equal."""
+    volume = np.asarray(dataset.read_volume(dataset.subjects[0], "images"),
+                        np.float32)
+
+    def host_cast():
+        return torch.from_numpy(volume).to(torch.bfloat16).to(DEVICE)
+
+    def card_cast():
+        return torch.from_numpy(volume).to(DEVICE).to(torch.bfloat16)
+
+    def f32_copy():
+        return torch.from_numpy(volume).to(DEVICE)
+
+    if not torch.equal(host_cast(), card_cast()):
+        raise AssertionError("the host's bf16 cast differs from the card's")
+    ms = {}
+    for label, fn in (("host cast + copy", host_cast),
+                      ("f32 copy + card cast", card_cast),
+                      ("f32 copy alone", f32_copy)):
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[label] = float(np.median(times[1:]))
+    log(f"input of one subject {volume.shape} in bf16 (host clock, median "
+        f"of 5): " + ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items()))
+    return ms
+
+
+def shared_encoder_check(flagship, dataset):
+    """A dropout_center=2 model (the outer 2 down blocks dropout-free): its
+    MC batch with the prefix run once against the full T*B forward under
+    the same generators, in f32 (TF32 off), and both times."""
+    center = variant_of(flagship, "unet", {**FLAGSHIP, "dropout_center": 2})
+    if center.mc_shared_blocks != FLAGSHIP["depth"] - 2:
+        raise AssertionError(f"mc_shared_blocks {center.mc_shared_blocks}")
+    images = torch.from_numpy(dataset.read_volume(dataset.subjects[0],
+                                                  "images")[:BATCH]).to(DEVICE)
+
+    def forward(model):
+        return steps.mc_forward(model, images, sample_generators(
+            (SEED, 0), 0, MC_STEPS, DEVICE))
+
+    with torch.inference_mode():
+        shared, full = forward(center), forward(Unshared(center))
+        err = float((shared - full).abs().max())
+        bitwise = torch.equal(shared, full)
+        torch.testing.assert_close(shared, full, rtol=1e-3, atol=2e-4)
+        if torch.equal(shared[0], shared[1]):
+            raise AssertionError("the MC samples of the shared path are equal")
+        shared_ms = cuda_ms(lambda: forward(center), 3)
+        full_ms = cuda_ms(lambda: forward(Unshared(center)), 3)
+    log(f"shared encoder: dropout_center=2 MC{MC_STEPS} batch of {BATCH}, "
+        f"shared prefix against the full forward: probabilities max abs err "
+        f"{err:.3e}, bitwise equal {bitwise}; {shared_ms:.1f} ms shared, "
+        f"{full_ms:.1f} ms full")
+    return err
+
+
+def bf16_card_vs_cpu(label, model, flagship, x, split):
+    """A bf16 variant's logits for a 2-slice batch on the card against the
+    same variant on the CPU, at :func:`bf16_bar` of the f32 logits."""
+    cpu = copy.deepcopy(model).cpu()
+    ref = copy.deepcopy(flagship).cpu()
+    with torch.inference_mode():
+        want = cpu(x).logits
+        got = model(x.to(DEVICE).contiguous(
+            memory_format=torch.channels_last)).logits.cpu()
+        scale = float(ref(x).logits.abs().max())
+    err = float((got - want).abs().max())
+    bar = bf16_bar(FLAGSHIP["depth"], split, scale)
+    if not err <= bar:
+        raise AssertionError(f"{label}: card vs CPU logits {err} > {bar}")
+    log(f"variant {label}: card vs CPU on {tuple(x.shape)}, logits max abs "
+        f"err {err:.3e} (bar {bar:.3e} from |f32 logits| max {scale:.3f})")
+    return err
+
+
+def variants_phase(flagship, families, dataset, tmp, hbm_rate, ptxas):
+    """The inference variants on the weights of the earlier phases, each
+    through ``evaluate_subjects`` like the f32 runs: MC20 in bf16 and in
+    bf16 with the fast decoder, deterministic (after its f32 run),
+    ensemble and auxiliary_feat in bf16 with the fast decoder and the fold.
+    Each prints s/subject, peak GB, the first ECE and the ECE/Dice deltas
+    against the f32 run of the same weights; a softmax family beyond
+    :data:`GATE` fails. Returns ({path: its by_path record}, the kernel
+    check's max abs error)."""
+    n = len(dataset.subjects)
+    by_path = {}
+
+    def run(label, models, run_id, result_id, f32=None, **kwargs):
+        out_dir = os.path.join(tmp, label)
+        launches, seconds, eces, planes = run_path(dataset, out_dir, models,
+                                                   run_id, **kwargs)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check_csvs(out_dir, run_id, result_id, n)
+        record = {"launches": launches, "s_per_subject": seconds / n,
+                  "peak_gb": peak_gb, "first_ece": eces[dataset.subjects[0]]}
+        text = ""
+        if f32 is not None:
+            got, want = ece_dice(out_dir, result_id), ece_dice(*f32)
+            record["ece_delta"] = max(abs(got[k][0] - want[k][0]) for k in want)
+            record["dice_delta"] = max(abs(got[k][1] - want[k][1]) for k in want)
+            text = (f", against f32: ECE delta {record['ece_delta']:.2e}, "
+                    f"Dice delta {record['dice_delta']:.2e}")
+        extra = (f", M voxels/s {n * np.prod(BRATS) / seconds / 1e6:.3f}"
+                 if kwargs.get("mc") else "")
+        log(f"variant {label}: {n} subjects {BRATS} in {seconds:.2f} s = "
+            f"{seconds / n:.3f} s/subject (CUDA-synced){extra}, peak memory "
+            f"{peak_gb:.2f} GB, fused_eval_stats launches {launches}, first "
+            f"subject's ECE {record['first_ece']:.6f}{text}")
+        by_path[label] = record
+        return record, planes
+
+    mc_f32 = (os.path.join(tmp, "eval"), "smoke")
+    det_f32 = (os.path.join(tmp, "deterministic"), "deterministic")
+    run("deterministic", flagship, "deterministic", "deterministic", mc=0)
+    paths = [
+        ("mc_bf16", "unet", BF16, dict(mc=MC_STEPS), mc_f32, True),
+        ("mc_bf16_fast", "unet", BF16_FAST, dict(mc=MC_STEPS), mc_f32, True),
+        ("deterministic_bf16_fast_fold", "unet", BF16_FAST_FOLD, dict(mc=0),
+         det_f32, True),
+        ("ensemble_bf16_fast_fold", "ensemble", BF16_FAST_FOLD,
+         dict(strategy="ensemble"), (os.path.join(tmp, "ensemble"),
+                                     "ensemble"), True),
+        ("auxiliary_feat_bf16_fast_fold", "auxiliary_feat", BF16_FAST_FOLD,
+         dict(strategy="auxiliary_feat"),
+         (os.path.join(tmp, "auxiliary_feat"), "auxiliary_feat_rescale"),
+         False)]
+    err = 0.0
+    for label, kind, flags, kwargs, f32, gated in paths:
+        if kind == "unet":
+            models = variant_of(flagship, "unet", FLAGSHIP, **flags)
+        elif kind == "ensemble":
+            models = [variant_of(m, "unet", FLAGSHIP, **flags)
+                      for m in families["ensemble"]]
+        else:
+            segmenter, postnet = families["auxiliary_feat"]
+            models = (variant_of(segmenter, "unet",
+                                 {**FLAGSHIP, "provide_features": True},
+                                 **flags),
+                      variant_of(postnet, "postnet", POSTNET, **flags))
+        suffix = "_rescale" if kind == "auxiliary_feat" else ""
+        record, planes = run(label, models, label, label + suffix, f32,
+                             **kwargs)
+        if gated and max(record["ece_delta"], record["dice_delta"]) > GATE:
+            raise AssertionError(f"{label}: ECE/Dice against f32 beyond {GATE}:"
+                                 f" {record}")
+        if label == "mc_bf16_fast":
+            if any(p.is_floating_point() and p.dtype != torch.float32
+                   for p in planes):
+                raise AssertionError("the eval planes of a bf16 model are "
+                                     "not float32")
+            plane_label = f"{label} planes of {dataset.subjects[0]} {BRATS}"
+            err = check_kernel(planes, DEFAULT_THRESHOLDS, plane_label)
+            timed = time_kernel(planes, plane_label, hbm_rate, ptxas)
+            record.update({k: timed[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                                 "bound_share")})
+            profile_phase(models, dataset, os.path.join(tmp, "profile_bf16"),
+                          label=f"MC{MC_STEPS} bf16 fast decoder", mc=MC_STEPS)
+        del planes, models
+    x = middle_batch(dataset)[3:5]
+    for path, flags in (("mc_bf16", BF16),
+                        ("deterministic_bf16_fast_fold", BF16_FAST_FOLD)):
+        by_path[path]["card_vs_cpu_max_abs_err"] = bf16_card_vs_cpu(
+            path, variant_of(flagship, "unet", FLAGSHIP, **flags), flagship,
+            x, split=flags.get("fast_decoder", False))
+    variant_breakdown(flagship, dataset)
+    input_breakdown(dataset)
+    shared_encoder_check(flagship, dataset)
+    return by_path, err
 
 
 def main():
     hbm_rate = device_phase()
     ptxas = build_phase()["evalstats"]
     record = kernel_phase(hbm_rate, ptxas)
-    torch.manual_seed(SEED)
-    model = get_model("unet", FLAGSHIP).to(DEVICE)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         dataset = BratsLikeDataset(tmp)
         log(f"synthetic data: {time.perf_counter() - t0:.1f} s")
-        spread_head(model, dataset)
+        model = seeded_unet(SEED, middle_batch(dataset).to(DEVICE))
         cpu_batch, cpu_logits = gpu_vs_cpu_check(model, dataset)
         record["launches"], planes = main_path_phase(
             model, dataset, os.path.join(tmp, "eval"))
@@ -732,11 +1040,14 @@ def main():
         del planes
         forward_breakdown(model, dataset, cpu_batch, cpu_logits)
         profile_phase(model, dataset, os.path.join(tmp, "profile"))
-        del model
-        by_path, err = strategies_phase(dataset, tmp, hbm_rate, ptxas)
-    record["by_path"] = {"mc": {"launches": record["launches"]}, **by_path}
+        by_path, err, families = strategies_phase(dataset, tmp, hbm_rate,
+                                                  ptxas)
+        variants, variant_err = variants_phase(model, families, dataset, tmp,
+                                               hbm_rate, ptxas)
+    record["by_path"] = {"mc": {"launches": record["launches"]}, **by_path,
+                         **variants}
     record["launches"] = sum(p["launches"] for p in record["by_path"].values())
-    record["max_abs_err"] = max(record["max_abs_err"], err)
+    record["max_abs_err"] = max(record["max_abs_err"], err, variant_err)
     log(json.dumps({"kernels": [record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,12 +12,18 @@ the checkpoint and the config as ``rcu_tpu.eval.direct`` does, or named with
 - ``auxiliary_segm``: an error net over the images and a baseline
   prediction stored as a second labels channel.
 Convolutions run in full float32 (``evaluate_subjects`` switches TF32
-off), as the parity bar of the f32 path needs.
+off), as the parity bar of the f32 path needs, unless the JAX CLI's
+inference variants ask for more speed: ``-dtype bfloat16`` (the compute
+dtype; weights and BatchNorm stay f32, the sigma and PostNet heads run in
+f32), ``-fast_decoder`` (concat-free decoder and fused upsample, U-Nets
+only) and ``-fold_bn`` (BatchNorms folded into the convs at load; not
+with the mc protocol).
 
 Usage:
   python -m rcu_tpu_torch.cli.eval_direct -config_file config/test_brats_baseline_mc.yaml \
       [-run_id baseline_mc] [-out_dir out/eval/brats/direct] [-mc 20] \
-      [-strategy ensemble] [-unmasked] [-device cpu]
+      [-strategy ensemble] [-unmasked] [-device cpu] \
+      [-dtype bfloat16] [-fast_decoder] [-fold_bn]
 """
 import argparse
 import logging
@@ -25,7 +31,8 @@ import os
 
 
 def main(config_file, run_id=None, out_dir=None, mc=None, unmasked=False,
-         device=None, strategy=None):
+         device=None, strategy=None, dtype=None, fast_decoder=False,
+         fold_bn=False):
     from rcu_tpu_torch.engine import config as cfg_lib
     from rcu_tpu_torch.eval.direct import evaluate_direct
 
@@ -35,7 +42,8 @@ def main(config_file, run_id=None, out_dir=None, mc=None, unmasked=False,
         os.path.dirname(config.model_dir or "."), "eval_direct")
     eces = evaluate_direct(config, out_dir, run_id=run_id, mc=mc,
                            masked=not unmasked, strategy=strategy,
-                           device=device)
+                           device=device, dtype=dtype,
+                           fast_decoder=fast_decoder, fold_bn=fold_bn)
     for subject, ece in eces.items():
         print(f"{subject}: ece={ece:.5f}")
     print(f"wrote eval CSVs to {out_dir}")
@@ -59,10 +67,23 @@ def cli():
     parser.add_argument("-device", type=str, default=None,
                         help="torch device (default cuda; cpu runs the "
                              "kernels' plain versions)")
+    parser.add_argument("-dtype", type=str, default=None,
+                        choices=("float32", "bfloat16"),
+                        help="compute dtype (default float32); weights, "
+                             "BatchNorm and the sigma/PostNet heads stay f32")
+    parser.add_argument("-fast_decoder", action="store_true",
+                        help="concat-free + fused-upsample U-Net decoder "
+                             "(same checkpoints; accumulation-order "
+                             "numerics)")
+    parser.add_argument("-fold_bn", action="store_true",
+                        help="fold BatchNorms into their convs at load "
+                             "(deterministic single-forward protocols "
+                             "only, not mc)")
     args = parser.parse_args()
     logging.basicConfig(level=logging.INFO)
     main(args.config_file, args.run_id, args.out_dir, args.mc, args.unmasked,
-         args.device, args.strategy)
+         args.device, args.strategy, args.dtype, args.fast_decoder,
+         args.fold_bn)
 
 
 if __name__ == "__main__":

@@ -4,9 +4,11 @@ artifacts in between (``rcu_tpu.eval.direct`` counterpart).
 
 Ported: the six protocols of :data:`STRATEGIES`, which cover the paper's
 eight strategies (baseline and center run ``deterministic``, their MC
-variants ``mc``), on volume stores, one device, the flat CSV layout.
-Native-2D datasets, meshes and the bf16/fast-decoder/int8/BN-fold
-variants are later slices and raise ``NotImplementedError``.
+variants ``mc``), on volume stores, one device, the flat CSV layout, in
+float32 and in the inference variants of the JAX package: the bf16
+compute dtype, the fast decoder and the BN fold (``models.unet``).
+Native-2D datasets, meshes and int8 are later slices and raise
+``NotImplementedError``.
 
 :func:`evaluate_direct` detects the strategy as ``rcu_tpu.eval.direct`` does and
 builds the dataset and the models from a test config and its checkpoints;
@@ -31,7 +33,8 @@ from rcu_tpu_torch.engine import config as cfg_lib
 from rcu_tpu_torch.engine import databuild
 from rcu_tpu_torch.eval import hooks as ev_hooks
 from rcu_tpu_torch.eval import pipeline
-from rcu_tpu_torch.models import get_model
+from rcu_tpu_torch.models import (FAST_DECODER_KWARGS, fold_bn_params,
+                                  get_model, precast_params)
 from rcu_tpu_torch.models.convert import state_dict_from_flax
 
 DEFAULT_THRESHOLDS = (0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95)
@@ -142,11 +145,36 @@ def _global_bounds(bounds):
     return gmin, gmax
 
 
+def model_from_flax(model_type: str, record: dict, params: dict,
+                    batch_stats: dict, device, dtype: str = None,
+                    fast_decoder: bool = False, fold_bn: bool = False):
+    """The port's model of a model.json ``record`` with the weights of a
+    flax tree, on ``device``, in the variant that the options ask for
+    (``rcu_tpu.eval.direct._load_model_state``): ``dtype`` the compute
+    dtype (``"bfloat16"``; the weights stay f32 in the tree),
+    ``fast_decoder`` the decoder rewrites (U-Nets only), ``fold_bn`` the
+    BatchNorms folded into the convs in numpy f32 before the conversion.
+    The conv weights are then cast once to the compute dtype
+    (``precast_params``)."""
+    record = dict(record)
+    if dtype:
+        record["dtype"] = dtype
+    if fast_decoder and model_type == "unet":
+        record.update(FAST_DECODER_KWARGS)
+    if fold_bn:
+        params, batch_stats = fold_bn_params(params, batch_stats)
+        record["fold_bn"] = True
+    model = get_model(model_type, record)
+    model.load_state_dict(state_dict_from_flax(params, batch_stats))
+    return precast_params(model).to(device)
+
+
 def load_model(model_dir: str, test_at, device,
-               provide_features: bool = False) -> torch.nn.Module:
+               provide_features: bool = False, **variant) -> torch.nn.Module:
     """The checkpoint's model (U-Net or PostNet) with its weights, on
-    ``device``. A PostNet whose model.json records no ``in_channels`` (flax
-    infers it) takes it from its first kernel."""
+    ``device``, in the variant of :func:`model_from_flax` (``dtype``,
+    ``fast_decoder``, ``fold_bn``). A PostNet whose model.json records no
+    ``in_channels`` (flax infers it) takes it from its first kernel."""
     mf = ckpt_lib.ModelFiles.from_model_dir(model_dir)
     model_node, _ = ckpt_lib.load_model_parameters(mf)
     path = ckpt_lib.find_checkpoint_file(mf, test_at)
@@ -159,17 +187,15 @@ def load_model(model_dir: str, test_at, device,
     if model_node.type == "postnet" and not params.get("in_channels"):
         params["in_channels"] = int(
             raw["params"]["ConvBnRelu_0"]["Conv_0"]["kernel"].shape[2])
-    model = get_model(model_node.type, params)
-    model.load_state_dict(state_dict_from_flax(raw["params"],
-                                               raw["batch_stats"]))
-    return model.to(device)
+    return model_from_flax(model_node.type, params, raw["params"],
+                           raw["batch_stats"], device, **variant)
 
 
 def _primary_test_at(config):
     return "best" if config.test_at in (None, "") else config.test_at
 
 
-def _load_ensemble(config, device) -> list:
+def _load_ensemble(config, device, variant) -> list:
     """The primary model (``model_dir`` at ``test_at``) first, then the
     ``others.model_dir`` members at ``others.test_at``."""
     model_dirs = config.others.get("model_dir")
@@ -187,11 +213,11 @@ def _load_ensemble(config, device) -> list:
     for i, (model_dir, at) in enumerate(all_dirs):
         logging.info("load ensemble model [%d/%d] %s", i + 1, len(all_dirs),
                      os.path.basename(model_dir))
-        members.append(load_model(model_dir, at, device))
+        members.append(load_model(model_dir, at, device, **variant))
     return members
 
 
-def _load_aux_feat(config, device) -> tuple:
+def _load_aux_feat(config, device, variant) -> tuple:
     """(the frozen segmenter of ``others.model_dir``, giving its features;
     the PostNet of ``model_dir``)."""
     if not isinstance(config.others.get("model_dir"), str) \
@@ -208,20 +234,22 @@ def _load_aux_feat(config, device) -> tuple:
             "frozen segmenter")
     segmenter = load_model(config.others["model_dir"],
                            config.others["test_at"], device,
-                           provide_features=True)
+                           provide_features=True, **variant)
     return segmenter, load_model(config.model_dir, _primary_test_at(config),
-                                 device)
+                                 device, **variant)
 
 
-def _load_models(config, strategy: str, device):
+def _load_models(config, strategy: str, device, variant: dict):
     """What :func:`evaluate_subjects` takes for ``strategy``: the members
     (ensemble), the (segmenter, PostNet) pair (auxiliary_feat), else the
-    one model of ``model_dir``."""
+    one model of ``model_dir``; every model in ``variant``
+    (:func:`model_from_flax`'s options)."""
     if strategy == "ensemble":
-        return _load_ensemble(config, device)
+        return _load_ensemble(config, device, variant)
     if strategy == "auxiliary_feat":
-        return _load_aux_feat(config, device)
-    return load_model(config.model_dir, _primary_test_at(config), device)
+        return _load_aux_feat(config, device, variant)
+    return load_model(config.model_dir, _primary_test_at(config), device,
+                      **variant)
 
 
 def foreground_mask(dataset, subject, shape) -> np.ndarray:
@@ -277,7 +305,9 @@ def _detect_strategy(config, dataset, strategy):
 def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
                     mc: int = None, thresholds=DEFAULT_THRESHOLDS,
                     masked: bool = True, strategy: str = None,
-                    device=None) -> dict:
+                    device=None, dtype: str = None,
+                    fast_decoder: bool = False, fold_bn: bool = False,
+                    quantize: bool = False) -> dict:
     """Fused inference + eval for every test-split subject of ``config``;
     writes the ``eval_calibration_*``, ``eval_ece_*``,
     ``eval_uncertainty_*_th*`` and ``eval_summary_minmax_*`` CSVs into
@@ -288,9 +318,20 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
     the MC-dropout samples of the ``mc`` strategy (default ``others.mc`` or
     20; ``mc=0`` is the deterministic protocol). ``masked`` applies the
     BraTS t2>0 foreground mask to the ECE bins. Runs on ``cuda`` unless
-    ``device`` says otherwise. The models run in full float32, held to the
-    f32 parity bar: :func:`evaluate_subjects` switches TF32 off for its
-    work and restores the caller's setting."""
+    ``device`` says otherwise.
+
+    ``dtype='bfloat16'`` (the JAX package's production configuration),
+    ``fast_decoder`` and ``fold_bn`` load every model of the run in that
+    variant (:func:`model_from_flax`); ``fold_bn`` covers the
+    deterministic single-forward protocols, not ``mc``, and raises
+    ``ValueError`` there. ``quantize`` (int8) is not ported yet. By
+    default the models run in full float32, held to the f32 parity bar:
+    :func:`evaluate_subjects` switches TF32 off for its work and restores
+    the caller's setting."""
+    if quantize:
+        raise NotImplementedError(
+            "quantize=True (int8 PTQ) is not ported to rcu_tpu_torch yet: it "
+            "is the next slice of the port in ROADMAP.md")
     device = resolve_device(device)
     if mc is None:
         cfg_mc = config.others.get("mc")
@@ -307,7 +348,14 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
         if len(dataset.shape(dataset.subjects[0], "images")) != 4:
             raise NotImplementedError("native-2D datasets are not ported yet")
         strategy = _detect_strategy(config, dataset, strategy)
-        models = _load_models(config, strategy, device)
+        if fold_bn and strategy == "mc" and int(mc) != 0:
+            raise ValueError(
+                "fold_bn covers the deterministic single-forward protocols "
+                "(deterministic/ensemble/aleatoric/auxiliary_*); the mc "
+                "protocol samples dropout, which the load-time BN fold "
+                "cannot commute with")
+        models = _load_models(config, strategy, device, dict(
+            dtype=dtype, fast_decoder=fast_decoder, fold_bn=fold_bn))
         is_log_sigma = cfg_lib.require_log_sigma(config) \
             if strategy == "aleatoric" else False
         return evaluate_subjects(models, dataset, out_dir, strategy=strategy,
@@ -360,11 +408,23 @@ def _check_models(strategy, models):
         raise ValueError("strategy 'aleatoric' needs a sigma-headed model")
 
 
-def _read_images(dataset, subject, device):
+def _input_dtype(strategy, models) -> torch.dtype:
+    """The dtype the images travel in: the compute dtype of the models that
+    read them where they share one, else float32. A model's first op casts
+    its input to its compute dtype, so casting on the host first is the
+    same rounding and halves the bytes of the host-to-device copy under
+    bf16."""
+    readers = models if strategy == "ensemble" else \
+        models[:1] if strategy == "auxiliary_feat" else [models]
+    dtypes = {getattr(m, "dtype", torch.float32) for m in readers}
+    return dtypes.pop() if len(dtypes) == 1 else torch.float32
+
+
+def _read_images(dataset, subject, device, dtype=torch.float32):
     volume = np.asarray(dataset.read_volume(subject, "images"), np.float32)
     if volume.ndim != 4:
         raise NotImplementedError("native-2D datasets are not ported yet")
-    return torch.from_numpy(volume).to(device)
+    return torch.from_numpy(volume).to(dtype).to(device)
 
 
 def _split_labels(labels, needs_baseline: bool):
@@ -392,23 +452,28 @@ def evaluate_subjects(models, dataset, out_dir: str, *, strategy: str = "mc",
     ``models``: one model for mc, deterministic, aleatoric (sigma head)
     and auxiliary_segm (5 input channels); the list of members for
     ensemble; the (segmenter with ``provide_features``, PostNet) pair for
-    auxiliary_feat. ``mc=0`` runs the mc strategy as deterministic, and
-    subject ``i``'s MC stream is ``(seed, i)`` (``eval.pipeline``).
-    aleatoric runs two passes: the subjects' sigma bounds, then the eval
-    with the run's global bounds (a constant range raises in between).
+    auxiliary_feat; in float32 or any variant (``model_from_flax``). The
+    volumes are cast to the models' compute dtype on the host. ``mc=0``
+    runs the mc strategy as deterministic, and subject ``i``'s MC stream
+    is ``(seed, i)`` (``eval.pipeline``). aleatoric runs two passes: the
+    subjects' sigma bounds, then the eval with the run's global bounds (a
+    constant range raises in between).
 
-    The f32 models are held to the f32 bar, so cuDNN and matmul TF32 are
-    off while they run (torch's default lets cuDNN use TF32, which misses
-    that bar); the caller's flags are restored afterwards, also on error."""
+    The f32 models and the f32 heads of the others are held to the f32
+    bar, so cuDNN and matmul TF32 are off while they run (torch's default
+    lets cuDNN use TF32, which misses that bar); the caller's flags are
+    restored afterwards, also on error."""
     _check_models(strategy, models)
     device = resolve_device(device)
+    dtype = _input_dtype(strategy, models)
     with _full_float32():
         sinks = _EvalSinks(out_dir, run_id, thresholds, strategy)
         bounds = None
         if strategy == "aleatoric":
             for subject in dataset.subjects:
                 sinks.add_bounds(*pipeline.volume_sigma_minmax(
-                    models, batch_size, _read_images(dataset, subject, device),
+                    models, batch_size,
+                    _read_images(dataset, subject, device, dtype),
                     is_log_sigma))
             bounds = _global_bounds(sinks.bounds)
             logging.info("direct aleatoric: global sigma range [%.6f, %.6f]",
@@ -416,7 +481,7 @@ def evaluate_subjects(models, dataset, out_dir: str, *, strategy: str = "mc",
         eces = {}
         for si, subject in enumerate(dataset.subjects):
             t0 = time.time()
-            volume = _read_images(dataset, subject, device)
+            volume = _read_images(dataset, subject, device, dtype)
             target, baseline = _split_labels(
                 dataset.read_volume(subject, "labels"),
                 strategy == "auxiliary_segm")

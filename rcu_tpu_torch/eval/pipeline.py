@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from rcu_tpu_torch.engine.steps import (aleatoric_forward, mc_forward,
-                                        multi_prediction_summary, predict)
+                                        multi_prediction_summary, predict,
+                                        to_model_layout)
 from rcu_tpu_torch.ops import metrics, prepare
 from rcu_tpu_torch.ops.cuda.evalstats import fused_subject_eval
 
@@ -97,7 +98,13 @@ def _as_u8(x):
 
 def _eval_row(fg, uncertainty, prediction, target, mask, thresholds):
     """One kernel pass: ECE bins on ``fg`` (masked), the threshold
-    correction on ``uncertainty`` and the confusion row (both unmasked)."""
+    correction on ``uncertainty`` and the confusion row (both unmasked).
+    The planes are float32 whatever the models' compute dtype: the logits,
+    sigma and confidence heads give f32."""
+    for name, plane in (("fg", fg), ("uncertainty", uncertainty)):
+        if plane.dtype != torch.float32:
+            raise TypeError(f"the eval's {name} plane must be float32, got "
+                            f"{plane.dtype}")
     bins, confusion, correction = fused_subject_eval(
         fg.contiguous(), _as_u8(target), _as_u8(prediction),
         uncertainty.contiguous(), None if mask is None else _as_u8(mask),
@@ -136,8 +143,9 @@ def volume_mc_eval(model, mc_steps: int, batch_size: int, volume, target,
                    mask, thresholds, rng):
     """MC inference + eval reductions of one volume -> the eval dict.
 
-    ``volume`` (Z, H, W, C) float32, ``target``/``mask`` (Z, H, W) bool or
-    uint8, all on the model's device; ``rng`` names the volume's MC stream."""
+    ``volume`` (Z, H, W, C) float32 or the model's compute dtype,
+    ``target``/``mask`` (Z, H, W) bool or uint8, all on the model's device;
+    ``rng`` names the volume's MC stream."""
     fg, ent, _ = _mc_scan(model, mc_steps, volume, batch_size, rng)
     return _entropy_eval(fg, _normalize_entropy(ent), target, mask, thresholds)
 
@@ -210,7 +218,7 @@ def volume_aux_feat_eval(segmenter, postnet, batch_size: int, volume, target,
     PostNet's softmax fg on the segmenter's features the confidence."""
     conf, pred = [], []
     for images in _slice_batches(volume, batch_size):
-        out = segmenter(images.permute(0, 3, 1, 2).contiguous())
+        out = segmenter(to_model_layout(images, segmenter))
         pred.append(torch.argmax(out.logits, dim=1).to(torch.uint8))
         conf.append(torch.softmax(postnet(out.features).logits, dim=1)[:, 1])
     return _confidence_eval(torch.cat(conf), torch.cat(pred), target, mask,
@@ -221,11 +229,12 @@ def volume_aux_feat_eval(segmenter, postnet, batch_size: int, volume, target,
 def volume_aux_segm_eval(model, batch_size: int, volume, baseline, target,
                          mask, thresholds):
     """The error net reads the images and the baseline prediction as a 5th
-    channel; the baseline itself (uint8, (Z, H, W)) is the prediction."""
+    channel (0/1, exact in the images' dtype); the baseline itself (uint8,
+    (Z, H, W)) is the prediction."""
     conf = []
     for images, base in zip(_slice_batches(volume, batch_size),
                             _slice_batches(baseline, batch_size)):
-        inputs = torch.cat([images, base[..., None].to(torch.float32)], dim=-1)
+        inputs = torch.cat([images, base[..., None].to(images.dtype)], dim=-1)
         conf.append(predict(model, inputs)[..., 1])
     return _confidence_eval(torch.cat(conf), baseline, target, mask,
                             thresholds)

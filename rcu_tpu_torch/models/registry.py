@@ -2,29 +2,33 @@
 (``model: {unet: {...}}``, ``model: {postnet: {...}}``)."""
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from rcu_tpu_torch.models.unet import PostNet, UNet
 
 _KEYS = {"unet": {"nb_classes", "in_channels", "depth", "start_filters",
                   "dropout", "dropout_center", "sigma_out",
-                  "provide_features"},
-         "postnet": {"nb_classes", "in_channels", "nb_convs", "dropout"}}
+                  "provide_features", "dtype", "split_decoder_concat",
+                  "fused_upsample", "fold_bn"},
+         "postnet": {"nb_classes", "in_channels", "nb_convs", "dropout",
+                     "dtype", "fold_bn"}}
 _BUILD = {"unet": UNet, "postnet": PostNet}
-# model.json records that the plain f32 port reproduces as they are
-_NEUTRAL = {"residual": False, "bn": True, "dtype": (None, "float32"),
-            "split_decoder_concat": False, "fused_upsample": False,
-            "quant_scales": None, "quant_skip_levels": 0, "fold_bn": False}
+_DTYPES = {None: torch.float32, "float32": torch.float32,
+           "bfloat16": torch.bfloat16}
+# model.json records that the port reproduces only at these values
+_NEUTRAL = {"residual": False, "bn": True, "quant_scales": None,
+            "quant_skip_levels": 0}
 
 
 def get_model(model_type: str, params: dict) -> nn.Module:
     """Build the port's model from a config/model.json node.
 
-    Options of later slices (residual blocks, bf16, fast decoder, int8, BN
-    fold, bn=False) raise ``NotImplementedError`` instead of being silently
-    ignored. A PostNet needs ``in_channels``, which flax infers and a
-    model.json may leave out (``eval.direct.load_model`` reads it from the
-    checkpoint)."""
+    ``dtype`` is None, ``"float32"`` or ``"bfloat16"``. Options of later
+    slices (residual blocks, bn=False, int8 ``quant_scales``) raise
+    ``NotImplementedError`` instead of being silently ignored. A PostNet
+    needs ``in_channels``, which flax infers and a model.json may leave out
+    (``eval.direct.load_model`` reads it from the checkpoint)."""
     if model_type not in _BUILD:
         raise NotImplementedError(
             f'model type "{model_type}" is not ported to rcu_tpu_torch yet')
@@ -35,10 +39,17 @@ def get_model(model_type: str, params: dict) -> nn.Module:
             continue
         if key not in _NEUTRAL:
             raise ValueError(f'unknown {model_type} param "{key}"')
-        neutral = _NEUTRAL[key]
-        if value not in (neutral if isinstance(neutral, tuple) else (neutral,)):
+        if value != _NEUTRAL[key]:
+            slice_name = " (the int8 PTQ slice of the port, next in " \
+                "ROADMAP.md)" if key.startswith("quant") else ""
             raise NotImplementedError(
-                f"{model_type} {key}={value!r} is not ported to rcu_tpu_torch yet")
+                f"{model_type} {key}={value!r} is not ported to "
+                f"rcu_tpu_torch yet{slice_name}")
+    if kwargs.get("dtype") not in _DTYPES:
+        raise NotImplementedError(
+            f"{model_type} dtype={kwargs['dtype']!r} is not ported to "
+            f"rcu_tpu_torch: the compute dtype is float32 or bfloat16")
+    kwargs["dtype"] = _DTYPES[kwargs.get("dtype")]
     if model_type == "postnet" and not kwargs.get("in_channels"):
         raise ValueError("postnet needs in_channels > 0 (flax infers it; take "
                          "it from the checkpoint's first kernel)")

@@ -1,5 +1,5 @@
-"""The 2D U-Net and PostNet of ``rcu_tpu.models.unet`` as PyTorch modules
-(plain f32).
+"""The 2D U-Net and PostNet of ``rcu_tpu.models.unet`` as PyTorch modules,
+in float32 and in the JAX package's inference variants.
 
 Modules are NCHW inside, as PyTorch's convolutions want; the public
 functions around them (``engine.steps``, ``eval.pipeline``) take NHWC like
@@ -19,6 +19,32 @@ every dropout site draws sample ``t``'s ``(B, C)`` mask from
 other samples ride the same forward. BatchNorm always uses its running
 statistics (eps 1e-5): under MC dropout as in flax, and because training
 is not ported yet.
+
+The inference variants keep flax's dtype islands and rewrites:
+- ``dtype`` (compute dtype, ``torch.bfloat16`` or float32): the input is
+  cast to it; convs run in it; BatchNorm normalizes in f32 against its f32
+  statistics and returns the compute dtype; dropout runs in it; the class
+  conv runs in it and only its output is cast to f32. The sigma head and
+  the PostNet's ``Conv_0`` always run in f32, on their input cast to f32.
+  Weights may stay f32 and are cast at each call, or be cast once at load
+  (:func:`precast_params`) with bitwise the same outputs;
+- ``split_decoder_concat``: a decoder block's first conv runs over the
+  up-conv output and the skip as two convs over the kernel's input-channel
+  halves, added, with no concatenation;
+- ``fused_upsample``: ``conv3x3(nearest_up_2x(x))`` as one transposed conv
+  with the 3x3 kernel folded into 4x4 (:func:`upsample_conv`): the
+  upsample equals a 2x zero-stuffing followed by a 2x2 box filter, and
+  the box folds into the kernel;
+- ``fold_bn``: the BatchNorms were folded into their convs at load
+  (``models.convert.fold_bn_params``), so no ConvBnRelu has a
+  ``BatchNorm_0``; a folded conv's bias carries the BN centering term and
+  is added with f32 precision as two terms (:func:`bias_terms`). Valid
+  only without active dropout, so a folded model given generators raises.
+
+The modules keep the memory format of their input; ``engine.steps`` hands
+a bf16 model channels-last tensors (cuDNN's tensor-core convolutions
+read NHWC, and an NCHW tensor costs a transpose on each side of each
+conv) and an f32 model NCHW ones.
 """
 from __future__ import annotations
 
@@ -27,6 +53,10 @@ import typing
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+# the production bundle of checkpoint-compatible decoder rewrites
+# (``rcu_tpu`` unet.py:483)
+FAST_DECODER_KWARGS = {"split_decoder_concat": True, "fused_upsample": True}
 
 
 class UNetOutput(typing.NamedTuple):
@@ -51,30 +81,80 @@ class ChannelDropout(nn.Module):
         n, c = x.shape[0] // len(generators), x.shape[1]
         masks = [torch.rand((n, c), generator=g, device=x.device) < keep
                  for g in generators]
-        mask = torch.cat(masks).to(x.dtype)[:, :, None, None]
-        # where(keep, x / keep_prob, 0) as flax computes it, in place
-        return x.div_(keep).mul_(mask)
+        # where(keep, x / keep_prob, 0) as flax computes it, with keep_prob
+        # rounded to x's dtype as flax rounds it, in one in-place pass: a
+        # dropped channel divides by inf (x is finite)
+        divisor = torch.where(torch.cat(masks), keep, float("inf"))
+        return x.div_(divisor.to(x.dtype)[:, :, None, None])
+
+
+def bias_terms(bias, dtype):
+    """(hi, lo): a folded conv's f32 ``bias`` in ``dtype`` and what that
+    rounding lost (``rcu_tpu`` ``_compensated_bias_add``'s two terms). The
+    conv adds ``hi`` in its accumulator and ``lo`` after, so the BN
+    centering term that the bias carries keeps its f32 precision."""
+    hi = bias.to(dtype)
+    return hi, (bias - hi.float()).to(dtype)
+
+
+def _fold3to4(w, dim):
+    """``A w`` along ``dim``, a size-3 axis of ``w``: the rows w0, w0+w1,
+    w1+w2, w2 (``rcu_tpu`` unet.py:441-444's ``_UPSAMPLE_FOLD``)."""
+    a, b, c = w.unbind(dim)
+    return torch.stack([a, a + b, b + c, c], dim)
+
+
+def upsample_conv(x, weight, bias):
+    """``conv3x3(nearest_up_2x(x)) + bias`` as one transposed conv: the
+    (O, I, 3, 3) ``weight`` folded into 4x4 as ``A w A^T`` (in f32, then
+    x's dtype), flipped in both spatial axes and laid out (I, O, 4, 4).
+    The 2h x 2w upsampled input is never written."""
+    w4 = _fold3to4(_fold3to4(weight.float(), 2), 3).to(x.dtype)
+    return F.conv_transpose2d(x, w4.flip(2, 3).transpose(0, 1), bias,
+                              stride=2, padding=1)
 
 
 class ConvBnRelu(nn.Module):
     """conv (3x3, or 1x1 in the PostNet) -> [channel dropout] -> batch norm
-    -> relu."""
+    -> relu, in the dtype of its input. With ``fold_bn`` the batch norm is
+    in the conv's weights (no ``BatchNorm_0``)."""
 
     def __init__(self, in_ch: int, out_ch: int, dropout: float | None = None,
-                 kernel: int = 3):
+                 kernel: int = 3, fold_bn: bool = False):
         super().__init__()
         self.Conv_0 = nn.Conv2d(in_ch, out_ch, kernel, padding=kernel // 2)
         self.dropout = ChannelDropout(dropout) if dropout is not None else None
-        self.BatchNorm_0 = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.fold_bn = fold_bn
+        if not fold_bn:
+            self.BatchNorm_0 = nn.BatchNorm2d(out_ch, eps=1e-5)
 
     def forward(self, x, generators=None):
-        x = self.Conv_0(x)
+        """``x`` a tensor, or a pair ``(a, b)`` that stands for their
+        channel concatenation: the conv then runs over the kernel's
+        input-channel halves and adds (``split_decoder_concat``)."""
+        conv = self.Conv_0
+        dtype = (x[0] if isinstance(x, tuple) else x).dtype
+        weight = conv.weight.to(dtype)
+        lo = None
+        if self.fold_bn and dtype != torch.float32:
+            bias, lo = bias_terms(conv.bias, dtype)
+        else:
+            bias = conv.bias.to(dtype)
+        if isinstance(x, tuple):
+            a, b = x
+            y = F.conv2d(a, weight[:, :a.shape[1]], None, padding=conv.padding)
+            y += F.conv2d(b, weight[:, a.shape[1]:], bias, padding=conv.padding)
+        else:
+            y = F.conv2d(x, weight, bias, padding=conv.padding)
+        if lo is not None:
+            y += lo[:, None, None]
         if self.dropout is not None:
-            x = self.dropout(x, generators)
-        bn = self.BatchNorm_0
-        x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                         bn.bias, False, 0.0, bn.eps)
-        return F.relu_(x)
+            y = self.dropout(y, generators)
+        if not self.fold_bn:
+            bn = self.BatchNorm_0
+            y = F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight,
+                             bn.bias, False, 0.0, bn.eps)
+        return F.relu_(y)
 
 
 def _conv_dropout(dropout, dropout_mode, i, repetitions):
@@ -103,13 +183,14 @@ class ConvBlock(nn.Module):
     """``repetitions`` stacked ConvBnRelu."""
 
     def __init__(self, in_ch: int, out_ch: int, dropout=None,
-                 dropout_mode: str = "all", repetitions: int = 2):
+                 dropout_mode: str = "all", repetitions: int = 2,
+                 fold_bn: bool = False):
         super().__init__()
         self.layers = []
         for i in range(repetitions):
             layer = ConvBnRelu(in_ch if i == 0 else out_ch, out_ch,
                                _conv_dropout(dropout, dropout_mode, i,
-                                             repetitions))
+                                             repetitions), fold_bn=fold_bn)
             self.add_module(f"ConvBnRelu_{i}", layer)
             self.layers.append(layer)
 
@@ -129,6 +210,12 @@ def _pad_to(up, target_hw):
                       h_diff // 2, h_diff - h_diff // 2))
 
 
+def _conv(x, conv):
+    """``conv`` applied in x's dtype, its weights cast where not precast."""
+    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                    padding=conv.padding)
+
+
 class _EvalOnly(nn.Module):
     """Training is not ported: the module stays in eval mode and
     ``train(True)`` raises."""
@@ -138,92 +225,158 @@ class _EvalOnly(nn.Module):
             raise NotImplementedError("training is not ported to rcu_tpu_torch yet")
         return super().train(False)
 
+    def _check_fold_bn(self, generators):
+        if self.fold_bn and generators is not None:
+            raise ValueError(
+                "fold_bn is a deterministic-inference rewrite: the BN fold "
+                "does not commute with an active dropout between conv and "
+                "BN (a dropped channel must still receive the BN shift); "
+                "run MC-dropout protocols on the unfolded model")
+
 
 class UNet(_EvalOnly):
     """Configurable 2D encoder-decoder; NCHW in, :class:`UNetOutput` out.
 
     ``sigma_out`` adds the aleatoric sigma head, ``provide_features``
-    returns the decoder output that the heads read. The residual blocks,
-    the fast decoder, int8, the BN fold and bf16 compute are later slices
-    and rejected by ``models.registry.get_model``.
+    returns the decoder output that the heads read; ``dtype``,
+    ``split_decoder_concat``, ``fused_upsample`` and ``fold_bn`` are the
+    inference variants of the module doc. Residual blocks and int8 are
+    later slices and rejected by ``models.registry.get_model``.
     """
 
     def __init__(self, nb_classes: int, in_channels: int, depth: int = 4,
                  start_filters: int = 16, dropout: float | None = 0.2,
                  dropout_center: int | None = None, sigma_out: bool = False,
-                 provide_features: bool = False):
+                 provide_features: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 split_decoder_concat: bool = False,
+                 fused_upsample: bool = False, fold_bn: bool = False):
         super().__init__()
         self.depth = depth
+        self.dropout = dropout
+        self.dropout_center = dropout_center
         self.sigma_out = sigma_out
         self.provide_features = provide_features
+        self.dtype = dtype
+        self.split_decoder_concat = split_decoder_concat
+        self.fused_upsample = fused_upsample
+        self.fold_bn = fold_bn
         self.down_blocks, self.up_convs, self.up_blocks = [], [], []
         ch_in, ch = in_channels, start_filters
         for i in range(depth):
             mode = _block_dropout_mode(dropout_center, i, depth, True)
-            block = ConvBlock(ch_in, ch, dropout, mode)
+            block = ConvBlock(ch_in, ch, dropout, mode, fold_bn=fold_bn)
             self.add_module(f"ConvBlock_{i}", block)
             self.down_blocks.append(block)
             ch_in, ch = ch, ch * 2
         mode = _block_dropout_mode(dropout_center, depth, depth, True)
-        self.add_module(f"ConvBlock_{depth}", ConvBlock(ch_in, ch, dropout, mode))
+        self.add_module(f"ConvBlock_{depth}",
+                        ConvBlock(ch_in, ch, dropout, mode, fold_bn=fold_bn))
         for k in range(depth):
             up_conv = nn.Conv2d(ch, ch // 2, 3, padding=1)
             self.add_module(f"Conv_{k}", up_conv)
             self.up_convs.append(up_conv)
             mode = _block_dropout_mode(dropout_center, depth - 1 - k, depth,
                                        False)
-            block = ConvBlock(ch, ch // 2, dropout, mode)
+            block = ConvBlock(ch, ch // 2, dropout, mode, fold_bn=fold_bn)
             self.add_module(f"ConvBlock_{depth + 1 + k}", block)
             self.up_blocks.append(block)
             ch //= 2
-        self.ConvBnRelu_0 = ConvBnRelu(ch, ch, dropout)
+        self.ConvBnRelu_0 = ConvBnRelu(ch, ch, dropout, fold_bn=fold_bn)
         self.add_module(f"Conv_{depth}", nn.Conv2d(ch, nb_classes, 1))
         if sigma_out:
-            self.ConvBnRelu_1 = ConvBnRelu(ch, ch, dropout)
+            self.ConvBnRelu_1 = ConvBnRelu(ch, ch, dropout, fold_bn=fold_bn)
             self.add_module(f"Conv_{depth + 1}", nn.Conv2d(ch, nb_classes, 1))
         _zero_biases(self)
         self.train(False)
 
+    @property
+    def mc_shared_blocks(self) -> int:
+        """Leading encoder blocks with no dropout site (``dropout_center``
+        leaves the outer ``depth - dropout_center`` down blocks
+        dropout-free); 0 when every block is stochastic."""
+        if self.dropout is None or not self.dropout_center:
+            return 0
+        return max(0, self.depth - self.dropout_center)
+
     def forward(self, x, generators=None):
         """``generators``: one per MC sample riding the batch (sample-major),
         or None for the deterministic forward."""
-        skips = []
-        for block in self.down_blocks:
+        self._check_fold_bn(generators)
+        x, skips = self._down(x.to(self.dtype), [], 0, generators)
+        return self._finish(x, skips, generators)
+
+    def encode_shared(self, x):
+        """The dropout-free encoder prefix (``mc_shared_blocks`` down
+        blocks), run once on the images before :meth:`decode_rest` fans
+        out over the MC samples. Returns (pooled, skips)."""
+        return self._down(x.to(self.dtype), [], 0, None,
+                          stop=self.mc_shared_blocks)
+
+    def decode_rest(self, x, skips, generators=None):
+        """Continue from :meth:`encode_shared` (its outputs repeated per
+        sample): the remaining down blocks, bottom, decoder and heads. The
+        prefix has no dropout site, so every generator draws at the same
+        sites as in the full forward, and the outputs equal it."""
+        self._check_fold_bn(generators)
+        x, skips = self._down(x, skips, len(skips), generators)
+        return self._finish(x, skips, generators)
+
+    def _down(self, x, skips, start, generators, stop=None):
+        """Down blocks ``start..stop-1`` (to the bottom by default),
+        appending their outputs to ``skips``."""
+        skips = list(skips)
+        for block in self.down_blocks[start:stop]:
             x = block(x, generators)
             skips.append(x)
             x = F.max_pool2d(x, 2)
+        return x, skips
+
+    def _finish(self, x, skips, generators):
+        """Bottom, decoder and heads from the pooled features and skips."""
         x = getattr(self, f"ConvBlock_{self.depth}")(x, generators)
         for up_conv, block in zip(self.up_convs, self.up_blocks):
             skip = skips.pop()  # drop each skip as soon as it is consumed
-            up = up_conv(F.interpolate(x, scale_factor=2, mode="nearest"))
-            x = block(torch.cat([_pad_to(up, skip.shape[2:]), skip], dim=1),
-                      generators)
+            if self.fused_upsample:
+                up = upsample_conv(x, up_conv.weight.to(x.dtype),
+                                   up_conv.bias.to(x.dtype))
+            else:
+                up = _conv(F.interpolate(x, scale_factor=2, mode="nearest"),
+                           up_conv)
+            up = _pad_to(up, skip.shape[2:])
+            x = block((up, skip) if self.split_decoder_concat
+                      else torch.cat([up, skip], dim=1), generators)
             del up, skip
         # both heads read the decoder output x, and the sigma head does not
         # read the class head's; no op after this point writes into x in
         # place (each ConvBnRelu's in-place ops act on its conv's output),
-        # so the features returned are the tensor the heads saw
-        logits = getattr(self, f"Conv_{self.depth}")(
-            self.ConvBnRelu_0(x, generators))
+        # so the features returned are the tensor the heads saw. The class
+        # conv runs in the compute dtype and casts its narrow output to f32
+        logits = _conv(self.ConvBnRelu_0(x, generators),
+                       getattr(self, f"Conv_{self.depth}")).float()
         sigma = None
-        if self.sigma_out:
-            sigma = getattr(self, f"Conv_{self.depth + 1}")(
-                self.ConvBnRelu_1(x, generators))
+        if self.sigma_out:  # in f32 whatever the compute dtype
+            sigma = _conv(self.ConvBnRelu_1(x.float(), generators),
+                          getattr(self, f"Conv_{self.depth + 1}"))
         return UNetOutput(logits, sigma, x if self.provide_features else None)
 
 
 class PostNet(_EvalOnly):
     """The auxiliary confidence net on a segmenter's features
     (``rcu_tpu.models.unet.PostNet``): ``nb_convs`` 1x1 ConvBnRelu at the
-    input width, then the 1x1 class conv ``Conv_0``. flax infers the input
-    width; here it is ``in_channels``."""
+    input width in the compute dtype, then the 1x1 class conv ``Conv_0``
+    in f32. flax infers the input width; here it is ``in_channels``."""
 
     def __init__(self, nb_classes: int, in_channels: int, nb_convs: int = 3,
-                 dropout: float | None = None):
+                 dropout: float | None = None,
+                 dtype: torch.dtype = torch.float32, fold_bn: bool = False):
         super().__init__()
+        self.dtype = dtype
+        self.fold_bn = fold_bn
         self.layers = []
         for i in range(nb_convs):
-            layer = ConvBnRelu(in_channels, in_channels, dropout, kernel=1)
+            layer = ConvBnRelu(in_channels, in_channels, dropout, kernel=1,
+                               fold_bn=fold_bn)
             self.add_module(f"ConvBnRelu_{i}", layer)
             self.layers.append(layer)
         self.Conv_0 = nn.Conv2d(in_channels, nb_classes, 1)
@@ -231,9 +384,41 @@ class PostNet(_EvalOnly):
         self.train(False)
 
     def forward(self, x, generators=None):
+        self._check_fold_bn(generators)
+        x = x.to(self.dtype)
         for layer in self.layers:
             x = layer(x, generators)
-        return UNetOutput(self.Conv_0(x))
+        return UNetOutput(_conv(x.float(), self.Conv_0))
+
+
+def f32_head_keys(model) -> frozenset:
+    """Top-level modules that compute in f32 whatever the compute dtype:
+    the U-Net's sigma head and the PostNet's confidence head."""
+    if isinstance(model, UNet) and model.sigma_out:
+        return frozenset({"ConvBnRelu_1", f"Conv_{model.depth + 1}"})
+    if isinstance(model, PostNet):
+        return frozenset({"Conv_0"})
+    return frozenset()
+
+
+def precast_params(model):
+    """Cast the conv weights and biases of a non-f32 model to its compute
+    dtype once, in place (``rcu_tpu`` ``precast_params``); returns the model.
+
+    Kept f32: every BatchNorm tensor (it normalizes in f32), the modules of
+    :func:`f32_head_keys`, and in a folded model every conv bias (the BN
+    centering term, see :func:`bias_terms`). The outputs
+    are bitwise those of casting the same weights at every call."""
+    if model.dtype == torch.float32:
+        return model
+    keep = f32_head_keys(model)
+    for name, module in model.named_modules():
+        if not isinstance(module, nn.Conv2d) or name.split(".")[0] in keep:
+            continue
+        module.weight.data = module.weight.data.to(model.dtype)
+        if not model.fold_bn:
+            module.bias.data = module.bias.data.to(model.dtype)
+    return model
 
 
 def _zero_biases(module):

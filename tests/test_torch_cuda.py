@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from rcu_tpu_torch.eval.direct import evaluate_subjects
+from rcu_tpu_torch.eval.direct import evaluate_subjects, model_from_flax
 from rcu_tpu_torch.models import get_model
+from rcu_tpu_torch.models.convert import flax_from_state_dict
 from rcu_tpu_torch.ops.cuda import evalstats
 
 THRESHOLDS = (0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95)
@@ -264,3 +265,35 @@ def test_cuda_families_launch_the_kernel_once_per_subject(cuda_device,
     assert evalstats.fused_eval_stats.plain_calls == plain
     for subject, ece in cpu.items():  # a voxel at a bin edge may flip
         assert gpu[subject] == pytest.approx(ece, rel=1e-3, abs=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [
+    dict(dtype="bfloat16"),
+    dict(dtype="bfloat16", fast_decoder=True),
+    dict(dtype="bfloat16", fast_decoder=True, fold_bn=True)])
+def test_cuda_variants_launch_the_kernel_once_per_subject(cuda_device,
+                                                          tmp_path, flags):
+    """The bf16 variants on the card: the kernel once per subject on f32
+    planes, ECEs near the same variant's on the CPU (bf16 may move a voxel
+    across a bin edge in these 2,400-voxel volumes)."""
+    params = dict(nb_classes=2, in_channels=4, depth=2, start_filters=8,
+                  dropout=0.1)
+    torch.manual_seed(0)
+    model = get_model("unet", params)
+    with torch.no_grad():
+        model.Conv_2.weight.mul_(50.0)
+    tree = flax_from_state_dict(model.state_dict())
+    options = dict(mc=0, batch_size=2, masked=False)
+    cpu = evaluate_subjects(model_from_flax("unet", params, *tree, "cpu",
+                                            **flags),
+                            TinyVolumes(), str(tmp_path / "cpu"),
+                            device="cpu", **options)
+    before = evalstats.fused_eval_stats.launches
+    gpu = evaluate_subjects(model_from_flax("unet", params, *tree, cuda_device,
+                                            **flags),
+                            TinyVolumes(), str(tmp_path / "gpu"),
+                            device=cuda_device, **options)
+    assert evalstats.fused_eval_stats.launches == before + 2
+    for subject, ece in cpu.items():
+        assert gpu[subject] == pytest.approx(ece, abs=2e-2)

@@ -34,22 +34,22 @@ EDGES = np.arange(1, 10) / 10.0  # the bin edges fg can fall near (0.5 too)
 MARGIN = 1e-4
 
 
-def make_store(tmp_path):
+def make_store(tmp_path, shape=SHAPE):
     rng = np.random.RandomState(3)
     path = str(tmp_path / "ds.h5")
     with h5.DatasetWriter(path) as w:
         for i in range(4):
             name = f"s{i:02d}"
-            gt = np.zeros(SHAPE, np.uint8)
+            gt = np.zeros(shape, np.uint8)
             gt[:, 4:12, 5:13] = 1
-            images = rng.rand(*SHAPE, 4).astype(np.float32) * 0.5
+            images = rng.rand(*shape, 4).astype(np.float32) * 0.5
             images[..., 0] += gt
-            t2 = rng.rand(*SHAPE).astype(np.float32)
+            t2 = rng.rand(*shape).astype(np.float32)
             t2[t2 < 0.3] = 0.0  # zero background support
             t2_path = str(tmp_path / f"{name}_t2.nii.gz")
             nifti.write(t2, t2_path)
             w.add_subject(name, {"images": images, "labels": gt},
-                          props=ImageProperties(size=SHAPE[::-1]),
+                          props=ImageProperties(size=shape[::-1]),
                           files={"images": {"t2": t2_path}})
     return path
 

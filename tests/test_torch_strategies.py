@@ -75,7 +75,7 @@ def make_wpred_store(tmp_path, store):
             baseline[:, 12:14, 14:17] = 1
             w.add_subject(s, {"images": np.asarray(src.read_volume(s, "images")),
                               "labels": np.stack([gt, baseline], axis=-1)},
-                          props=ImageProperties(size=SHAPE[::-1]),
+                          props=ImageProperties(size=gt.shape[::-1]),
                           files=src.files(s))
     src.close()
     return path

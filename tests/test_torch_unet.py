@@ -138,8 +138,17 @@ def test_mc_stream_is_seeded_and_per_sample():
     ("dtype", "float32", "bfloat16"), ("fused_upsample", False, True),
     ("fold_bn", False, True), ("bn", True, False)])
 def test_unported_model_options_raise(option, neutral, value):
+    """Options of later slices raise; the inference variants among them
+    (bf16, the fast decoder, the BN fold) are ported now and build with
+    the option set (tests/test_torch_variants.py holds them to flax)."""
     params = dict(nb_classes=2, in_channels=2, depth=2, start_filters=4)
     get_model("unet", {**params, option: neutral})  # model.json records these
+    if option in ("dtype", "split_decoder_concat", "fused_upsample",
+                  "fold_bn"):
+        model = get_model("unet", {**params, option: value})
+        assert getattr(model, option) == \
+            (torch.bfloat16 if option == "dtype" else value)
+        return
     with pytest.raises(NotImplementedError):
         get_model("unet", {**params, option: value})
 
