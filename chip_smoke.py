@@ -1,7 +1,9 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the hand-written
-kernels, holds each against its plain PyTorch version, then drives the
-main path, the BraTS MC-dropout direct eval, the four other strategy
-families of the direct eval and the inference variants at full width.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the two
+hand-written kernels (``csrc/evalstats.cu``, the fused eval statistics;
+``csrc/int8conv.cu``, the int8 convolution), holds each against its plain
+PyTorch version, then drives the main path, the BraTS MC-dropout direct
+eval, the four other strategy families of the direct eval and the
+inference variants, int8 included, at full width.
 
   python3 chip_smoke.py
 
@@ -65,13 +67,35 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    bar of tests/test_torch_variants.py; one MC batch's forward is timed in
    f32 and bf16 with each decoder rewrite, bf16 in both memory formats
    (TFLOP/s of each variant's own convolutions); a dropout_center=2 MC
-   batch with the shared encoder prefix is held against the full forward.
+   batch with the shared encoder prefix is held against the full forward;
+8. int8 (``-quantize``, skip 1): the int8 conv kernel against its plain
+   version (float64 conv, exact) at every distinct quantized site shape of
+   the flagship MC batch (640 images: each level's two 3x3 shapes, which
+   the split halves share, and its fused 4x4 up-conv) and at Cin 4, 45x53
+   and Cout 29: int32 equal, reruns bit-identical; each shape's kernel
+   time (torch.profiler), TOPS, bound (int8 in, weights, int32 out at the
+   memory rate, or its operations at 1979 TOPS) and cuDNN's bf16 conv of
+   the same shape; at the level-1 64->64 shape ``F.unfold`` +
+   ``torch._int_mm`` (the library figure). Then, through
+   ``evaluate_subjects`` after ``_calibrated_quant_model``: MC20 in bf16
+   with the fast decoder, deterministic and the 10-member ensemble in bf16
+   with the fast decoder and the fold, on briefly trained weights
+   (:func:`trained_unet`) against their own f32 runs, and MC20 on the
+   seeded weights of the earlier phases (information, not gated): s/subject,
+   M voxels/s, peak memory, both kernels' launches, ECE/Dice deltas; a
+   path beyond 5e-3 fails the phase once all have run (each says whether
+   it meets 1e-3), and the int8 MC model on the card is held against the
+   CPU on 2 slices. One int8
+   MC20 subject is profiled.
 
-Every path runs with the kernel's launch count set to 0 before it and
-read after it, and fails unless it launched once per subject. The last
-two lines are the kernels' JSON record (``launches``: the sum over the
-paths, ``by_path``: each path's launches and the kernel's numbers on its
-planes) and ``{"ok": true, "device": {...}}``.
+Every path runs with both kernels' launch counts set to 0 before it and
+read after it, and fails unless it launched the eval kernel once per
+subject and the int8 conv once per quantized site and forward (never on a
+path that quantizes nothing, never its plain version). The last two lines
+are the kernels' JSON records (``fused_eval_stats`` and ``int8_conv``;
+``launches``: the sum over the paths, ``by_path``: each path's launches
+and numbers; the int8 record's ``sites``: each site shape's numbers) and
+``{"ok": true, "device": {...}}``.
 """
 import copy
 import csv
@@ -87,15 +111,16 @@ import torch
 
 from rcu_tpu_torch.data import nifti
 from rcu_tpu_torch.engine import steps
-from rcu_tpu_torch.eval.direct import (DEFAULT_THRESHOLDS, evaluate_subjects,
-                                       model_from_flax)
+from rcu_tpu_torch.eval.direct import (DEFAULT_THRESHOLDS,
+                                       _calibrated_quant_model,
+                                       evaluate_subjects, model_from_flax)
 from rcu_tpu_torch.models import FAST_DECODER_KWARGS, get_model
 from rcu_tpu_torch.models.convert import flax_from_state_dict
-from rcu_tpu_torch.models.unet import ConvBnRelu
+from rcu_tpu_torch.models.unet import ConvBnRelu, upsample_conv
 from rcu_tpu_torch.eval import pipeline
 from rcu_tpu_torch.eval.pipeline import sample_generators
 from rcu_tpu_torch.ops import prepare
-from rcu_tpu_torch.ops.cuda import build, evalstats
+from rcu_tpu_torch.ops.cuda import build, evalstats, int8conv
 
 SEED = 20
 FLAGSHIP = dict(nb_classes=2, in_channels=4, depth=4, start_filters=32,
@@ -103,7 +128,7 @@ FLAGSHIP = dict(nb_classes=2, in_channels=4, depth=4, start_filters=32,
 BRATS = (155, 240, 240)
 MC_STEPS, BATCH = 20, 32
 MEMBERS = 10  # config/train_ensemble/train_brats_ensemble_{0..9}.yaml
-KERNELS = ("evalstats",)
+KERNELS = ("evalstats", "int8conv")
 DEVICE = "cuda"
 # H100 memory rates and the SXM part's 67 TFLOP/s f32 peak outside the
 # tensor cores (NVIDIA data sheets); the latter bounds the kernel's
@@ -444,12 +469,13 @@ def gpu_vs_cpu_check(model, dataset):
     return x, want
 
 
-def run_path(dataset, out_dir, models, run_id, **kwargs):
-    """``evaluate_subjects`` with the kernel's launch count set to 0 before
-    it and read after it; the path fails unless it launched the kernel once
-    per subject and every ECE is finite. Returns (launches, seconds, eces,
-    the first subject's eval planes (ECE plane, target, prediction,
-    uncertainty, mask))."""
+def run_path(dataset, out_dir, models, run_id, int8_launches=0, **kwargs):
+    """``evaluate_subjects`` with both kernels' launch counts set to 0
+    before it and read after it; the path fails unless it launched the
+    eval kernel once per subject and the int8 conv ``int8_launches`` times
+    (never its plain version), and every ECE is finite. Returns (launches,
+    seconds, eces, the first subject's eval planes (ECE plane, target,
+    prediction, uncertainty, mask))."""
     planes = []
     subject_eval = pipeline.fused_subject_eval
 
@@ -460,6 +486,8 @@ def run_path(dataset, out_dir, models, run_id, **kwargs):
 
     pipeline.fused_subject_eval = keep_planes
     evalstats.fused_eval_stats.launches = 0
+    int8conv.int8_conv.launches = 0
+    plain_int8 = int8conv.int8_conv.plain_calls
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -476,6 +504,12 @@ def run_path(dataset, out_dir, models, run_id, **kwargs):
     if launches != n:
         raise AssertionError(f"{run_id}: fused_eval_stats launched {launches} "
                              f"times for {n} subjects")
+    if (int8conv.int8_conv.launches != int8_launches
+            or int8conv.int8_conv.plain_calls != plain_int8):
+        raise AssertionError(
+            f"{run_id}: int8_conv launched {int8conv.int8_conv.launches} "
+            f"times (expected {int8_launches}), its plain version "
+            f"{int8conv.int8_conv.plain_calls - plain_int8} times")
     if not all(math.isfinite(e) for e in eces.values()):
         raise AssertionError(f"{run_id}: non-finite ECE: {eces}")
     return launches, seconds, eces, planes
@@ -1019,9 +1053,369 @@ def variants_phase(flagship, families, dataset, tmp, hbm_rate, ptxas):
     return by_path, err
 
 
+# int8 PTQ (``ops/quant.py``): the JAX package's default skip, and the
+# H100 SXM's dense int8 tensor-core rate (NVIDIA data sheet)
+INT8_SKIP = 1
+INT8_OPS_PER_S = 1979e12
+# int8 against f32, ECE/Dice: the JAX package's 1e-3 gate holds for the
+# deterministic protocol on the trained weights here, not for MC or the
+# ensemble (measured on an H100: PERF.md), and the JAX package's own int8 runs
+# miss it too on weights that are not its trained ones, by up to 2.3e-3
+# (tests/test_torch_quant_e2e.py prints JAX's deviation per run). Each
+# path prints whether it meets the gate; beyond this envelope it fails.
+INT8_ENVELOPE = 5e-3
+
+
+def flagship_sites():
+    """The distinct int8 conv shapes of the flagship MC batch (T x B
+    images) at skip 1 with the fast decoder, and the odd shapes: (label,
+    NHWC input shape, Cout, kernel side, padding, lhs dilation)."""
+    n, depth, ch = MC_STEPS * BATCH, FLAGSHIP["depth"], FLAGSHIP["start_filters"]
+    sites = []
+    for level in range(INT8_SKIP, depth + 1):
+        side, cout = BRATS[1] >> level, ch << level
+        where = "bottom" if level == depth else f"level {level}"
+        sites.append((f"{where} down conv 1", (n, side, side, cout // 2), cout,
+                      3, 1, 1))
+        sites.append((f"{where} {cout}->{cout} (down conv 2" + (
+            ")" if level == depth else ", split halves a and b, up conv 2)"),
+            (n, side, side, cout), cout, 3, 1, 1))
+        if level < depth:
+            sites.append((f"{where} fused up-conv", (n, side // 2, side // 2,
+                                                     2 * cout), cout, 4, 2, 2))
+    sites += [("Cin 4 (first conv at quantize_skip=0)",
+               (BATCH, BRATS[1], BRATS[2], FLAGSHIP["in_channels"]), ch, 3, 1, 1),
+              ("odd 45x53", (BATCH, 45, 53, 2 * ch), 2 * ch, 3, 1, 1),
+              ("odd 45x53 fused up-conv", (BATCH, 23, 27, 4 * ch), 2 * ch, 4, 2, 2),
+              ("Cout 29", (BATCH, 60, 60, 4 * ch), 29, 3, 1, 1)]
+    return sites
+
+
+def int8_sites_per_forward():
+    """Launches of one quantized forward at skip 1 with the fast decoder:
+    6 sites a level above the bottom (the down pair, the up-conv, the split
+    pair, the second up conv), 2 at the bottom."""
+    return (FLAGSHIP["depth"] - INT8_SKIP) * 6 + 2
+
+
+def int8_work(x_shape, cout, k, pad, dilation):
+    """(bytes, operations) of one int8 conv: int8 in, weights and int32
+    out, each once; 2 x the multiply-adds that the data needs (the fused
+    up-conv's 4x4 kernel meets 2x2 non-zero inputs an output)."""
+    n, h, w, cin = x_shape
+    ho = int8conv.output_size(h, k, pad, dilation)
+    wo = int8conv.output_size(w, k, pad, dilation)
+    taps = 4 if dilation == 2 else k * k
+    ops = 2 * n * ho * wo * cout * taps * cin
+    bytes_moved = n * h * w * cin + cout * k * k * cin + n * ho * wo * cout * 4
+    return bytes_moved, ops
+
+
+def library_int8_ms(x, w_q, want):
+    """``F.unfold`` (in bf16, exact for int8 values; it takes no int8) then
+    ``torch._int_mm`` over the im2col matrix: a library route to the same
+    3x3 int32 conv, timed for comparison only (the port never calls it).
+    Returns its ms, or None where it does not run."""
+    n, h, w, cin = x.shape
+    cout = w_q.shape[0]
+    b = w_q.permute(0, 3, 1, 2).reshape(cout, -1).t()  # (Cin*9, Cout)
+
+    def call():
+        cols = torch.nn.functional.unfold(
+            x.permute(0, 3, 1, 2).to(torch.bfloat16), 3, padding=1)
+        a = cols.transpose(1, 2).reshape(-1, cin * 9).to(torch.int8)
+        del cols
+        return torch._int_mm(a, b)
+
+    try:
+        got = call().view(n, h, w, cout)
+        if not torch.equal(got, want):
+            raise AssertionError("F.unfold + torch._int_mm differs from the "
+                                 "plain version")
+        del got
+        return cuda_ms(call, 3)
+    except (RuntimeError, torch.cuda.OutOfMemoryError) as err:
+        log(f"int8 library route: not measured ({str(err)[:120]})")
+        return None
+
+
+def int8_kernel_phase(hbm_rate):
+    """int8_conv against its plain version (float64 conv, exact) at every
+    distinct site shape of the flagship MC batch and the odd shapes: int32
+    equal, two runs bit-identical; each shape's kernel time
+    (torch.profiler), TOPS, bound and the cuDNN bf16 conv it replaces
+    (``F.conv2d``, or the fused up-conv's transposed conv); at the first
+    level-1 shape the library route. Returns the JSON record."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED)
+    record = {"name": "int8_conv", "route": "cuda",
+              "source": "rcu_tpu_torch/csrc/int8conv.cu",
+              "replaces": "rcu_tpu/ops/quant.py:106", "launches": None,
+              "max_abs_err": 0, "sites": []}
+    for i, (label, shape, cout, k, pad, dil) in enumerate(flagship_sites()):
+        x = torch.randint(-127, 128, shape, generator=g, device=DEVICE,
+                          dtype=torch.int8)
+        w_q = torch.randint(-127, 128, (cout, k, k, shape[3]), generator=g,
+                            device=DEVICE, dtype=torch.int8)
+        got = int8conv.int8_conv(x, w_q, pad, dil)
+        again = int8conv.int8_conv(x, w_q, pad, dil)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = int8conv.int8_conv_reference(x, w_q, pad, dil)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        if not torch.equal(got, again):
+            raise AssertionError(f"int8_conv {label}: reruns differ")
+        if not torch.equal(got, want):
+            err = int((got.long() - want.long()).abs().max())
+            raise AssertionError(f"int8_conv {label} {shape}: differs from "
+                                 f"the plain version by up to {err}")
+        del again
+        kernel = kernel_ms(profiled_ms(
+            lambda: int8conv.int8_conv(x, w_q, pad, dil)), "int8_conv_kernel")
+        wrapper_ms = cuda_ms(lambda: int8conv.int8_conv(x, w_q, pad, dil), 5)
+        bytes_moved, ops = int8_work(shape, cout, k, pad, dil)
+        bytes_ms = bytes_moved / hbm_rate * 1e3
+        ops_ms = ops / INT8_OPS_PER_S * 1e3
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        w3 = torch.randn(cout, shape[3], 3, 3, device=DEVICE,
+                         dtype=torch.bfloat16)
+        bf16_ms = cuda_ms(lambda: upsample_conv(xb, w3, None) if dil == 2
+                          else torch.nn.functional.conv2d(xb, w3, padding=1),
+                          5)
+        site = {"site": label, "x": list(shape), "cout": cout, "k": k,
+                "lhs_dilation": dil, "kernel_ms": kernel, "ms": wrapper_ms,
+                "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "tops": None if kernel is None else ops / kernel / 1e9,
+                "cudnn_bf16_ms": bf16_ms}
+        if i == 1:  # the level-1 64->64 conv: the library route
+            site["library_ms"] = library_int8_ms(x, w_q, want)
+            record.update({k_: site[k_] for k_ in (
+                "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")})
+            record["library_ms"] = site["library_ms"]
+        del x, w_q, got, want, xb, w3
+        record["sites"].append(site)
+        tops = "not measured" if kernel is None else f"{site['tops']:.1f}"
+        log(f"int8_conv {label} {shape} -> {cout}, {k}x{k} lhs dilation "
+            f"{dil}: int32 equal to the plain version, reruns bit-identical; "
+            f"kernel {kernel} ms (torch.profiler), wrapper {wrapper_ms:.4f} ms, "
+            f"{tops} TOPS, bound {site['bound_ms']:.4f} ms "
+            f"({site['bound_by']}), cuDNN bf16 conv {bf16_ms:.4f} ms, plain "
+            f"{plain_ms:.2f} ms" + (f", library (F.unfold + torch._int_mm) "
+                                   f"{site['library_ms']} ms"
+                                   if "library_ms" in site else ""))
+    return record
+
+
+INT8_TRAIN_STEPS = (100, 400)  # at least, at most
+INT8_TRAIN_LOSS = 0.02  # stop once the last 10 steps average below it
+INT8_LESION_WEIGHT = 3.0
+
+
+def trained_unet(seed, dataset):
+    """A flagship U-Net as :func:`seeded_unet` starts it (BatchNorm
+    statistics of the data), whose conv and BatchNorm affine weights then
+    take Adam steps of class-weighted cross-entropy (lesion x
+    :data:`INT8_LESION_WEIGHT`) on 8-slice batches of the synthetic
+    subjects, half of them slices through the lesion, with channel dropout
+    as the MC protocol samples it (BatchNorm on its fixed statistics, as
+    the port has no training mode; TF32 on, since only the weights come
+    out), until the loss of the last 10 steps averages below
+    :data:`INT8_TRAIN_LOSS` (between the bounds of
+    :data:`INT8_TRAIN_STEPS`). Its predictions follow the lesion, as a
+    trained model's do (Dice ~0.9 where a seeded model's is ~0.02): the JAX
+    package set its int8 gate on trained models, and on seeded weights
+    int8 misses that gate in the JAX package too
+    (``tests/test_torch_quant_e2e.py``; PERF.md)."""
+    torch.manual_seed(seed)
+    model = get_model("unet", FLAGSHIP).to(DEVICE)
+    calibrate_bn(model, middle_batch(dataset).to(DEVICE))
+    volumes = []
+    for subject in dataset.subjects:
+        labels = torch.from_numpy(dataset.read_volume(subject, "labels"))
+        volumes.append((
+            torch.from_numpy(dataset.read_volume(subject, "images")).to(DEVICE),
+            labels.to(DEVICE), torch.nonzero(labels.flatten(1).any(1))[:, 0]))
+    g = torch.Generator().manual_seed(seed)
+    dropout = torch.Generator(device=DEVICE)
+    dropout.manual_seed(seed)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    weight = torch.tensor([1.0, INT8_LESION_WEIGHT], device=DEVICE)
+    flags = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    losses = []
+    try:
+        while len(losses) < INT8_TRAIN_STEPS[1]:
+            images, labels, lesion = volumes[len(losses) % len(volumes)]
+            z = torch.cat([torch.randint(0, images.shape[0], (4,), generator=g),
+                           lesion[torch.randint(len(lesion), (4,), generator=g)]])
+            z = z.to(DEVICE)
+            loss = torch.nn.functional.cross_entropy(
+                model(images[z].permute(0, 3, 1, 2), [dropout]).logits,
+                labels[z].long(),
+                weight=weight)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+            if len(losses) >= INT8_TRAIN_STEPS[0] \
+                    and np.mean(losses[-10:]) < INT8_TRAIN_LOSS:
+                break
+    finally:
+        torch.backends.cudnn.allow_tf32 = flags
+    log(f"trained_unet({seed}): cross-entropy {np.mean(losses[-10:]):.4f} "
+        f"(mean of the last 10) after {len(losses)} steps")
+    return model.requires_grad_(False)
+
+
+def int8_card_vs_cpu(model, plain, x):
+    """A quantized model's logits for a 2-slice batch on the card (the
+    kernel) against the same model on the CPU (the plain version). The
+    int32 sums are exact on both; the bf16 ops around them are cuDNN's and
+    oneDNN's, and an input that they round apart may land on the other
+    side of a rounding point of the int8 grid, one step away. So the bar
+    is the int8 model's own distance from the unquantized bf16 model
+    ``plain`` on the card, where every value moves by up to half a step: a
+    fault of the card's path (a layout, a scale) lands far beyond it.
+    Returns the max abs error against the CPU."""
+    xb = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    cpu = copy.deepcopy(model).cpu()
+    with torch.inference_mode():
+        want = cpu(xb).logits
+        got = model(xb.to(DEVICE)).logits.cpu()
+        unquantized = plain(xb.to(DEVICE)).logits.cpu()
+    err = float((got - want).abs().max())
+    bar = float((got - unquantized).abs().max())
+    if not err <= bar:
+        raise AssertionError(f"int8 card vs CPU logits {err} > the int8 "
+                             f"model's distance {bar} from bf16")
+    log(f"int8 card vs CPU on {tuple(x.shape)}: logits max abs err "
+        f"{err:.3e}, the int8 model's distance from the unquantized bf16 "
+        f"model {bar:.3e} (the bar; |logits| max {float(want.abs().max()):.3f})")
+    return err
+
+
+def int8_phase(flagship, families, dataset, tmp, hbm_rate, evalstats_ptxas):
+    """The int8 PTQ paths through ``evaluate_subjects`` after
+    ``_calibrated_quant_model`` (skip 1): MC20 in bf16 with the fast
+    decoder, deterministic and a 10-member ensemble in bf16 with the fast
+    decoder and the fold, on briefly trained flagship weights
+    (:func:`trained_unet`) after their f32 runs; and, for information, not
+    gated, MC20 on the seeded weights of the earlier phases. Each prints
+    s/subject, M voxels/s, peak GB, both kernels' launches and the ECE/Dice
+    deltas against the f32 run of the same weights, and whether they meet
+    :data:`GATE`; a held path beyond :data:`INT8_ENVELOPE` fails once all
+    have run. The int8 MC model on the card is held against the CPU.
+    Returns (the int8 kernel's record, {path: the eval
+    kernel's by_path record})."""
+    record = int8_kernel_phase(hbm_rate)
+    n = len(dataset.subjects)
+    forwards = -(-BRATS[0] // BATCH) * n
+    by_path, eval_paths = {}, {}
+    t0 = time.perf_counter()
+    trained = trained_unet(SEED + 50, dataset)
+    members = [trained_unet(SEED + 60 + k, dataset) for k in range(MEMBERS)]
+    log(f"int8 trained weights: {MEMBERS + 1} models, "
+        f"{time.perf_counter() - t0:.1f} s")
+    for label, models, kwargs in (
+            ("trained_mc", trained, dict(mc=MC_STEPS)),
+            ("trained_deterministic", trained, dict(mc=0)),
+            ("trained_ensemble", members, dict(strategy="ensemble"))):
+        launches, seconds, eces, _ = run_path(
+            dataset, os.path.join(tmp, label), models, label, **kwargs)
+        dice = {k: v[1] for k, v in ece_dice(os.path.join(tmp, label),
+                                             label).items()}
+        eval_paths[label] = {"launches": launches, "s_per_subject": seconds / n,
+                             "first_ece": eces[dataset.subjects[0]]}
+        log(f"int8 reference {label} (f32): {seconds / n:.3f} s/subject, "
+            f"ECE {eces}, Dice {dice}")
+    paths = [
+        ("mc_bf16_fast_int8", trained, BF16_FAST, dict(mc=MC_STEPS),
+         "trained_mc", True),
+        ("deterministic_bf16_fast_fold_int8", trained, BF16_FAST_FOLD,
+         dict(mc=0), "trained_deterministic", True),
+        ("ensemble_bf16_fast_fold_int8", members, BF16_FAST_FOLD,
+         dict(strategy="ensemble"), "trained_ensemble", True),
+        ("mc_bf16_fast_int8_seeded", flagship, BF16_FAST, dict(mc=MC_STEPS),
+         "smoke", False)]
+    beyond = []  # gated paths past the gate: the phase fails after all ran
+    for label, weights, flags, kwargs, f32_id, gated in paths:
+        f32 = (os.path.join(tmp, "eval" if f32_id == "smoke" else f32_id),
+               f32_id)
+        ensemble = isinstance(weights, list)
+        if ensemble:
+            models = [variant_of(m, "unet", FLAGSHIP, **flags)
+                      for m in weights]
+        else:
+            models = variant_of(weights, "unet", FLAGSHIP, **flags)
+        t0 = time.perf_counter()
+        models = _calibrated_quant_model(models, dataset, BATCH, SEED,
+                                         ensemble=ensemble,
+                                         skip_levels=INT8_SKIP)
+        calib_s = time.perf_counter() - t0
+        expected = int8_sites_per_forward() * forwards * (
+            len(models) if ensemble else 1)
+        out_dir = os.path.join(tmp, label)
+        launches, seconds, eces, planes = run_path(
+            dataset, out_dir, models, label, int8_launches=expected, **kwargs)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check_csvs(out_dir, label, label, n)
+        if any(p.is_floating_point() and p.dtype != torch.float32
+               for p in planes):
+            raise AssertionError(f"{label}: the eval planes are not float32")
+        got, want = ece_dice(out_dir, label), ece_dice(*f32)
+        ece_delta = max(abs(got[k][0] - want[k][0]) for k in want)
+        dice_delta = max(abs(got[k][1] - want[k][1]) for k in want)
+        common = {"s_per_subject": seconds / n,
+                  "m_voxels_per_s": n * int(np.prod(BRATS)) / seconds / 1e6,
+                  "peak_gb": peak_gb, "first_ece": eces[dataset.subjects[0]],
+                  "ece_delta": ece_delta, "dice_delta": dice_delta,
+                  "calibration_s": calib_s, "gated": gated,
+                  "meets_gate": max(ece_delta, dice_delta) <= GATE}
+        eval_paths[label] = {"launches": launches, **common}
+        by_path[label] = {"launches": expected, **common}
+        log(f"int8 {label}: calibration {calib_s:.2f} s; {n} subjects {BRATS} "
+            f"in {seconds:.2f} s = {seconds / n:.3f} s/subject (CUDA-synced), "
+            f"M voxels/s {common['m_voxels_per_s']:.3f}, peak memory "
+            f"{peak_gb:.2f} GB, fused_eval_stats launches {launches}, "
+            f"int8_conv launches {expected} ({int8_sites_per_forward()} a "
+            f"forward), first subject's ECE {common['first_ece']:.6f}, "
+            f"against f32: ECE delta {ece_delta:.2e}, Dice delta "
+            f"{dice_delta:.2e}, {'within' if common['meets_gate'] else 'beyond'}"
+            f" the {GATE} gate" + (f", held to {INT8_ENVELOPE}" if gated
+                                   else " (information, not held)"))
+        if gated and max(ece_delta, dice_delta) > INT8_ENVELOPE:
+            beyond.append(f"{label}: {common}")
+        if label == "mc_bf16_fast_int8":
+            plane_label = f"{label} planes of {dataset.subjects[0]} {BRATS}"
+            check_kernel(planes, DEFAULT_THRESHOLDS, plane_label)
+            timed = time_kernel(planes, plane_label, hbm_rate, evalstats_ptxas)
+            eval_paths[label].update({k: timed[k] for k in (
+                "ms", "kernel_ms", "plain_ms", "bound_share")})
+            del planes
+            profile_phase(models, dataset, os.path.join(tmp, "profile_int8"),
+                          label=f"MC{MC_STEPS} bf16 fast decoder int8",
+                          mc=MC_STEPS)
+            eval_paths[label]["card_vs_cpu_max_abs_err"] = int8_card_vs_cpu(
+                models, variant_of(weights, "unet", FLAGSHIP, **flags),
+                middle_batch(dataset)[3:5])
+        del models
+    if beyond:
+        raise AssertionError(f"ECE/Dice against f32 beyond {INT8_ENVELOPE}: "
+                             f"{beyond}")
+    record["by_path"] = by_path
+    record["launches"] = sum(p["launches"] for p in by_path.values())
+    return record, eval_paths
+
+
 def main():
+    t_start = time.perf_counter()
     hbm_rate = device_phase()
-    ptxas = build_phase()["evalstats"]
+    summaries = build_phase()
+    ptxas = summaries["evalstats"]
     record = kernel_phase(hbm_rate, ptxas)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -1044,11 +1438,16 @@ def main():
                                                   ptxas)
         variants, variant_err = variants_phase(model, families, dataset, tmp,
                                                hbm_rate, ptxas)
+        t0 = time.perf_counter()
+        int8_record, int8_paths = int8_phase(model, families, dataset, tmp,
+                                             hbm_rate, ptxas)
+        log(f"int8 phase: {time.perf_counter() - t0:.1f} s")
     record["by_path"] = {"mc": {"launches": record["launches"]}, **by_path,
-                         **variants}
+                         **variants, **int8_paths}
     record["launches"] = sum(p["launches"] for p in record["by_path"].values())
     record["max_abs_err"] = max(record["max_abs_err"], err, variant_err)
-    log(json.dumps({"kernels": [record]}))
+    log(f"smoke run: {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"kernels": [record, int8_record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

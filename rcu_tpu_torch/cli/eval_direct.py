@@ -16,14 +16,17 @@ off), as the parity bar of the f32 path needs, unless the JAX CLI's
 inference variants ask for more speed: ``-dtype bfloat16`` (the compute
 dtype; weights and BatchNorm stay f32, the sigma and PostNet heads run in
 f32), ``-fast_decoder`` (concat-free decoder and fused upsample, U-Nets
-only) and ``-fold_bn`` (BatchNorms folded into the convs at load; not
-with the mc protocol).
+only), ``-fold_bn`` (BatchNorms folded into the convs at load; not
+with the mc protocol), ``-quantize`` (int8 trunk convs after a one-batch
+calibration; mc, deterministic and ensemble) and ``-quantize_skip N``
+(with ``-quantize``: the N finest resolution levels stay in the compute
+dtype; default 1).
 
 Usage:
   python -m rcu_tpu_torch.cli.eval_direct -config_file config/test_brats_baseline_mc.yaml \
       [-run_id baseline_mc] [-out_dir out/eval/brats/direct] [-mc 20] \
       [-strategy ensemble] [-unmasked] [-device cpu] \
-      [-dtype bfloat16] [-fast_decoder] [-fold_bn]
+      [-dtype bfloat16] [-fast_decoder] [-fold_bn] [-quantize [-quantize_skip 1]]
 """
 import argparse
 import logging
@@ -32,7 +35,7 @@ import os
 
 def main(config_file, run_id=None, out_dir=None, mc=None, unmasked=False,
          device=None, strategy=None, dtype=None, fast_decoder=False,
-         fold_bn=False):
+         fold_bn=False, quantize=False, quantize_skip=None):
     from rcu_tpu_torch.engine import config as cfg_lib
     from rcu_tpu_torch.eval.direct import evaluate_direct
 
@@ -43,7 +46,9 @@ def main(config_file, run_id=None, out_dir=None, mc=None, unmasked=False,
     eces = evaluate_direct(config, out_dir, run_id=run_id, mc=mc,
                            masked=not unmasked, strategy=strategy,
                            device=device, dtype=dtype,
-                           fast_decoder=fast_decoder, fold_bn=fold_bn)
+                           fast_decoder=fast_decoder, fold_bn=fold_bn,
+                           quantize=quantize,
+                           quantize_skip_levels=quantize_skip)
     for subject, ece in eces.items():
         print(f"{subject}: ece={ece:.5f}")
     print(f"wrote eval CSVs to {out_dir}")
@@ -79,11 +84,21 @@ def cli():
                         help="fold BatchNorms into their convs at load "
                              "(deterministic single-forward protocols "
                              "only, not mc)")
+    parser.add_argument("-quantize", action="store_true",
+                        help="int8 PTQ trunk (mc/deterministic/ensemble): "
+                             "calibrates activation scales on the first "
+                             "test subject's centre slices, runs the trunk "
+                             "convs in int8 (same checkpoints)")
+    parser.add_argument("-quantize_skip", type=int, default=None,
+                        help="with -quantize: keep the N finest resolution "
+                             "levels in the compute dtype (default 1)")
     args = parser.parse_args()
+    if args.quantize_skip is not None and not args.quantize:
+        parser.error("-quantize_skip only applies with -quantize")
     logging.basicConfig(level=logging.INFO)
     main(args.config_file, args.run_id, args.out_dir, args.mc, args.unmasked,
          args.device, args.strategy, args.dtype, args.fast_decoder,
-         args.fold_bn)
+         args.fold_bn, args.quantize, args.quantize_skip)
 
 
 if __name__ == "__main__":

@@ -6,8 +6,9 @@ Ported: the six protocols of :data:`STRATEGIES`, which cover the paper's
 eight strategies (baseline and center run ``deterministic``, their MC
 variants ``mc``), on volume stores, one device, the flat CSV layout, in
 float32 and in the inference variants of the JAX package: the bf16
-compute dtype, the fast decoder and the BN fold (``models.unet``).
-Native-2D datasets, meshes and int8 are later slices and raise
+compute dtype, the fast decoder, the BN fold (``models.unet``) and int8
+PTQ of the mc, deterministic and ensemble protocols (``ops.quant``).
+Native-2D datasets and meshes are later slices and raise
 ``NotImplementedError``.
 
 :func:`evaluate_direct` detects the strategy as ``rcu_tpu.eval.direct`` does and
@@ -36,6 +37,7 @@ from rcu_tpu_torch.eval import pipeline
 from rcu_tpu_torch.models import (FAST_DECODER_KWARGS, fold_bn_params,
                                   get_model, precast_params)
 from rcu_tpu_torch.models.convert import state_dict_from_flax
+from rcu_tpu_torch.ops import quant as quant_ops
 
 DEFAULT_THRESHOLDS = (0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95)
 STRATEGIES = ("mc", "deterministic", "aleatoric", "ensemble",
@@ -154,8 +156,9 @@ def model_from_flax(model_type: str, record: dict, params: dict,
     dtype (``"bfloat16"``; the weights stay f32 in the tree),
     ``fast_decoder`` the decoder rewrites (U-Nets only), ``fold_bn`` the
     BatchNorms folded into the convs in numpy f32 before the conversion.
-    The conv weights are then cast once to the compute dtype
-    (``precast_params``)."""
+    The conv weights are then cast once to the compute dtype and, where
+    the record has ``quant_scales``, the int8 sites' weights quantized
+    from the cast ones (``precast_params``)."""
     record = dict(record)
     if dtype:
         record["dtype"] = dtype
@@ -193,6 +196,99 @@ def load_model(model_dir: str, test_at, device,
 
 def _primary_test_at(config):
     return "best" if config.test_at in (None, "") else config.test_at
+
+
+def _centre_batch(dataset, subject, batch_size, dtype, device):
+    """The centre ``min(len, batch_size)`` slices of a subject (BraTS edge
+    slices are often empty and would under-estimate every site's range),
+    NHWC in ``dtype`` on ``device``."""
+    volume = np.asarray(dataset.read_volume(subject, "images"), np.float32)
+    n = min(len(volume), max(1, batch_size))
+    lo = max(0, (len(volume) - n) // 2)
+    return torch.from_numpy(volume[lo:lo + n]).to(dtype).to(device)
+
+
+def _seeded_generator(seed, device):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+def _calibrated_quant_model(models, dataset, batch_size: int, seed: int,
+                            ensemble: bool = False, skip_levels=None):
+    """Make ``models`` (one U-Net, or with ``ensemble`` the list of
+    members) the int8 models of a direct run, in place, and return them
+    (``rcu_tpu.eval.direct._calibrated_quant_model``).
+
+    The calibration batch is the centre slices of the first subject,
+    through the plain model as loaded (dtype, decoder, fold). One model
+    calibrates under one dropout sample drawn from a generator seeded with
+    ``seed`` (a folded model deterministically); the ensemble
+    union-calibrates: each member runs its own deterministic pass, the
+    scales merge by max, and every member keeps its own int8 weights.
+    ``skip_levels`` (None: ``ops.quant.DEFAULT_SKIP_LEVELS``) is clamped to
+    the model's levels. With ``RCU_QUANT_CLIP_DEBUG`` set, the quantized
+    model (member 0) runs the centre slices of the last subject and logs
+    every site's clipped fraction, as a warning above 0.001."""
+    members = list(models) if ensemble else [models]
+    first = members[0]
+    device = next(first.parameters()).device
+    subjects = dataset.subjects
+    batch = _centre_batch(dataset, subjects[0], batch_size, first.dtype,
+                          device)
+    if ensemble:
+        scales = {}
+        for member in members:
+            member_scales = quant_ops.calibrate_scales(member, [batch],
+                                                       mc_dropout=False)
+            if scales and set(member_scales) != set(scales):
+                raise ValueError(
+                    "ensemble members sowed different quant sites — the "
+                    "stacked members must share one architecture")
+            for key, val in member_scales.items():
+                scales[key] = max(scales.get(key, 0.0), val)
+        logging.info("int8 union calibration: %d conv sites over %d members "
+                     "from subject '%s' (%d items)", len(scales),
+                     len(members), subjects[0], len(batch))
+    else:
+        scales = quant_ops.calibrate_scales(
+            first, [batch], [_seeded_generator(seed, device)],
+            mc_dropout=not first.fold_bn)
+        logging.info("int8 calibration: %d conv sites from subject '%s' "
+                     "(%d items)", len(scales), subjects[0], len(batch))
+    skip_levels = quant_ops.clamp_skip_levels(first, skip_levels)
+    for member in members:
+        member.quantize(scales, skip_levels)
+    if os.environ.get("RCU_QUANT_CLIP_DEBUG"):
+        _clip_debug(first, dataset, batch_size, seed, ensemble, skip_levels)
+    return members if ensemble else first
+
+
+def _clip_debug(model, dataset, batch_size, seed, ensemble, skip_levels):
+    """The clip report of the quantized ``model`` on the centre slices of
+    the last subject, one the calibration never saw where there are two."""
+    if skip_levels > model.depth:
+        logging.info("int8 clip report skipped: quantize_skip=%d covers all "
+                     "%d levels, no quantized sites", skip_levels,
+                     model.depth + 1)
+        return
+    subjects = dataset.subjects
+    if subjects[0] == subjects[-1]:
+        logging.warning(
+            "int8 clip report: dataset too small to hold out a "
+            "never-calibrated subject — the probe batch overlaps the "
+            "calibration batch and measures no distribution shift")
+    device = next(model.parameters()).device
+    shift = _centre_batch(dataset, subjects[-1], batch_size, model.dtype,
+                          device)
+    report = quant_ops.clip_report(
+        model, [shift], mc_dropout=not ensemble and not model.fold_bn,
+        generators=[_seeded_generator(seed + 1, device)])
+    worst = sorted(report.items(), key=lambda kv: -kv[1])[:5]
+    log = logging.warning if worst and worst[0][1] > 0.001 else logging.info
+    log("int8 clip report (%d subject(s) '%s'%s): worst sites %s", 1,
+        subjects[-1], " member 0" if ensemble else "",
+        ", ".join(f"{k}={v:.2e}" for k, v in worst))
 
 
 def _load_ensemble(config, device, variant) -> list:
@@ -307,7 +403,8 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
                     masked: bool = True, strategy: str = None,
                     device=None, dtype: str = None,
                     fast_decoder: bool = False, fold_bn: bool = False,
-                    quantize: bool = False) -> dict:
+                    quantize: bool = False,
+                    quantize_skip_levels: int = None) -> dict:
     """Fused inference + eval for every test-split subject of ``config``;
     writes the ``eval_calibration_*``, ``eval_ece_*``,
     ``eval_uncertainty_*_th*`` and ``eval_summary_minmax_*`` CSVs into
@@ -324,14 +421,15 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
     ``fast_decoder`` and ``fold_bn`` load every model of the run in that
     variant (:func:`model_from_flax`); ``fold_bn`` covers the
     deterministic single-forward protocols, not ``mc``, and raises
-    ``ValueError`` there. ``quantize`` (int8) is not ported yet. By
+    ``ValueError`` there. ``quantize=True`` (``mc``, ``deterministic`` and
+    ``ensemble``; ``ValueError`` for the other families) runs the trunk
+    convs in int8 after a one-batch calibration
+    (:func:`_calibrated_quant_model`); ``quantize_skip_levels`` keeps the
+    N finest resolution levels in the compute dtype (None:
+    ``ops.quant.DEFAULT_SKIP_LEVELS``). By
     default the models run in full float32, held to the f32 parity bar:
     :func:`evaluate_subjects` switches TF32 off for its work and restores
     the caller's setting."""
-    if quantize:
-        raise NotImplementedError(
-            "quantize=True (int8 PTQ) is not ported to rcu_tpu_torch yet: it "
-            "is the next slice of the port in ROADMAP.md")
     device = resolve_device(device)
     if mc is None:
         cfg_mc = config.others.get("mc")
@@ -354,8 +452,17 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
                 "(deterministic/ensemble/aleatoric/auxiliary_*); the mc "
                 "protocol samples dropout, which the load-time BN fold "
                 "cannot commute with")
+        if quantize and strategy not in ("mc", "deterministic", "ensemble"):
+            raise ValueError(
+                "quantize=True covers the mc/deterministic/ensemble "
+                f"protocols; strategy '{strategy}' keeps the f32/bf16 paths")
         models = _load_models(config, strategy, device, dict(
             dtype=dtype, fast_decoder=fast_decoder, fold_bn=fold_bn))
+        if quantize:
+            models = _calibrated_quant_model(
+                models, dataset, config.test_data.batch_size, config.seed,
+                ensemble=strategy == "ensemble",
+                skip_levels=quantize_skip_levels)
         is_log_sigma = cfg_lib.require_log_sigma(config) \
             if strategy == "aleatoric" else False
         return evaluate_subjects(models, dataset, out_dir, strategy=strategy,

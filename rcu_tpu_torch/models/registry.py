@@ -10,24 +10,25 @@ from rcu_tpu_torch.models.unet import PostNet, UNet
 _KEYS = {"unet": {"nb_classes", "in_channels", "depth", "start_filters",
                   "dropout", "dropout_center", "sigma_out",
                   "provide_features", "dtype", "split_decoder_concat",
-                  "fused_upsample", "fold_bn"},
+                  "fused_upsample", "fold_bn", "quant_scales",
+                  "quant_skip_levels"},
          "postnet": {"nb_classes", "in_channels", "nb_convs", "dropout",
                      "dtype", "fold_bn"}}
 _BUILD = {"unet": UNet, "postnet": PostNet}
 _DTYPES = {None: torch.float32, "float32": torch.float32,
            "bfloat16": torch.bfloat16}
 # model.json records that the port reproduces only at these values
-_NEUTRAL = {"residual": False, "bn": True, "quant_scales": None,
-            "quant_skip_levels": 0}
+_NEUTRAL = {"residual": False, "bn": True}
 
 
 def get_model(model_type: str, params: dict) -> nn.Module:
     """Build the port's model from a config/model.json node.
 
-    ``dtype`` is None, ``"float32"`` or ``"bfloat16"``. Options of later
-    slices (residual blocks, bn=False, int8 ``quant_scales``) raise
-    ``NotImplementedError`` instead of being silently ignored. A PostNet
-    needs ``in_channels``, which flax infers and a model.json may leave out
+    ``dtype`` is None, ``"float32"`` or ``"bfloat16"``; a U-Net takes the
+    int8 ``quant_scales`` and ``quant_skip_levels``. Options of later
+    slices (residual blocks, bn=False) raise ``NotImplementedError``
+    instead of being silently ignored. A PostNet needs ``in_channels``,
+    which flax infers and a model.json may leave out
     (``eval.direct.load_model`` reads it from the checkpoint)."""
     if model_type not in _BUILD:
         raise NotImplementedError(
@@ -40,11 +41,9 @@ def get_model(model_type: str, params: dict) -> nn.Module:
         if key not in _NEUTRAL:
             raise ValueError(f'unknown {model_type} param "{key}"')
         if value != _NEUTRAL[key]:
-            slice_name = " (the int8 PTQ slice of the port, next in " \
-                "ROADMAP.md)" if key.startswith("quant") else ""
             raise NotImplementedError(
                 f"{model_type} {key}={value!r} is not ported to "
-                f"rcu_tpu_torch yet{slice_name}")
+                "rcu_tpu_torch yet")
     if kwargs.get("dtype") not in _DTYPES:
         raise NotImplementedError(
             f"{model_type} dtype={kwargs['dtype']!r} is not ported to "

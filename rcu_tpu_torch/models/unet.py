@@ -39,12 +39,27 @@ The inference variants keep flax's dtype islands and rewrites:
   (``models.convert.fold_bn_params``), so no ConvBnRelu has a
   ``BatchNorm_0``; a folded conv's bias carries the BN centering term and
   is added with f32 precision as two terms (:func:`bias_terms`). Valid
-  only without active dropout, so a folded model given generators raises.
+  only without active dropout, so a folded model given generators raises;
+- ``quant_scales`` (int8 PTQ, ``ops.quant``): every 3x3 trunk conv of the
+  levels from ``quant_skip_levels`` on (down, bottom and up blocks, the
+  up-convs, the head's ``ConvBnRelu_0``) quantizes its input with the
+  site's calibrated scale, runs ``ops.cuda.int8conv.int8_conv`` (int32)
+  against int8 weights quantized per output channel, and dequantizes into
+  the compute dtype as flax does (:func:`dequantize`); dropout, BatchNorm
+  and ReLU follow unchanged. A split pair quantizes each kernel half and
+  each input on its own and adds the two dequantized products; a fused
+  up-conv folds its kernel to 4x4 in f32, then quantizes it, and runs the
+  lhs-dilated conv (padding 2, no flip). The 1x1 class and sigma heads and
+  the PostNet stay unquantized. The int8 weights are quantized once at
+  load from the weights as they are then (:func:`quantize_weights`, after
+  the fold and the precast, as the JAX package's direct eval orders it).
 
 The modules keep the memory format of their input; ``engine.steps`` hands
 a bf16 model channels-last tensors (cuDNN's tensor-core convolutions
 read NHWC, and an NCHW tensor costs a transpose on each side of each
-conv) and an f32 model NCHW ones.
+conv) and an f32 model NCHW ones. A forward may take a
+``ops.quant.SiteStats`` collector (``stats``): every conv site reports its
+input to it under its flax key, for a calibration or clip pass.
 """
 from __future__ import annotations
 
@@ -53,6 +68,9 @@ import typing
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from rcu_tpu_torch.ops import quant
+from rcu_tpu_torch.ops.cuda.int8conv import int8_conv
 
 # the production bundle of checkpoint-compatible decoder rewrites
 # (``rcu_tpu`` unet.py:483)
@@ -114,10 +132,105 @@ def upsample_conv(x, weight, bias):
                               stride=2, padding=1)
 
 
+def _site_scale(scales, key):
+    """A quantized site's calibrated activation scale; a missing key means
+    the calibration ran another decoder topology than this model."""
+    if key not in scales:
+        raise KeyError(
+            f"no calibrated scale for conv site '{key}' — calibrate with "
+            f"the same model flags (fast decoder, dtype) as the quantized "
+            f"model (have: {sorted(scales)[:4]}...)")
+    return scales[key]
+
+
+def _new_int8_weights(conv, parts, fold):
+    weight = conv.weight.detach().float()
+    if fold:  # in f32 before quantizing, rows first as flax's einsum adds
+        weight = _fold3to4(_fold3to4(weight, 2), 3)
+    out, lo = [], 0
+    for width in parts:
+        out.append(quant.quantize_weight(weight[:, lo:lo + width]))
+        lo += width
+    return out
+
+
+def int8_weights(conv, parts, fold=False):
+    """[(int8 (O, kh, kw, I_part), (O,) f32 scale)] of ``conv``'s kernel cut
+    into input-channel ``parts`` (folded to 4x4 first with ``fold``): the
+    buffers that :func:`quantize_weights` stored at load, or quantized now
+    from the weight as it is, as the JAX package does at trace time."""
+    key = (tuple(parts), fold)
+    if getattr(conv, "int8_key", None) != key:
+        return _new_int8_weights(conv, parts, fold)
+    return [(getattr(conv, f"int8_w{i}"), getattr(conv, f"int8_s{i}"))
+            for i in range(len(parts))]
+
+
+def _store_int8_weights(conv, parts, fold=False):
+    for i, (w_q, w_scale) in enumerate(_new_int8_weights(conv, parts, fold)):
+        conv.register_buffer(f"int8_w{i}", w_q, persistent=False)
+        conv.register_buffer(f"int8_s{i}", w_scale, persistent=False)
+    conv.int8_key = (tuple(parts), fold)
+
+
+def _memory_format(x):
+    return torch.channels_last \
+        if x.is_contiguous(memory_format=torch.channels_last) \
+        and not x.is_contiguous() else torch.contiguous_format
+
+
+def int8_site(x, w_q, a_scale: float, padding: int, lhs_dilation: int = 1):
+    """The int32 conv of ``x`` (N, C, H, W, any memory format) quantized
+    with ``a_scale``, as an (N, O, Ho, Wo) view of NHWC memory. A
+    channels-last ``x`` (bf16 models) quantizes straight into NHWC; an
+    NCHW one (f32 models) costs one int8 copy to NHWC."""
+    x_q = quant.quantize_activation(x, a_scale).permute(0, 2, 3, 1)
+    if not x_q.is_contiguous():
+        x_q = x_q.contiguous()
+    return int8_conv(x_q, w_q, padding, lhs_dilation).permute(0, 3, 1, 2)
+
+
+def dequantize(y, w_scale, a_scale: float, dtype):
+    """flax's ``y.astype(compute) * (w_scale * a_scale).astype(compute)``:
+    int32 to f32 (one rounding), then to the compute dtype (a second one,
+    as XLA and torch convert int32 to bf16 on the CPU), times the f32
+    product of the scale vector and the f32 of ``a_scale``, cast to the
+    compute dtype."""
+    scale = (w_scale * quant.f32_scalar(a_scale, w_scale.device)).to(dtype)
+    return y.float().to(dtype) * scale[:, None, None]
+
+
+def int8_conv_out(inputs, scales, conv, fold=False, folded_bias=False):
+    """An int8 conv site's output in the compute dtype of ``inputs`` (one
+    tensor, or the two of a split pair, each with its own scale and kernel
+    part; the dequantized products add in order), ``conv``'s bias added as
+    flax adds it: in the compute dtype, or with ``folded_bias`` (a BN-folded
+    site) as the two terms of :func:`bias_terms`. ``fold`` runs the fused
+    up-conv (the 4x4 folded kernel over the input spread by 2, padding 2).
+    Keeps the memory format of ``inputs[0]``."""
+    dtype = inputs[0].dtype
+    weights = int8_weights(conv, [t.shape[1] for t in inputs], fold)
+    pad, dilation = (2, 2) if fold else (conv.padding[0], 1)
+    y = None
+    for t, (w_q, w_scale), scale in zip(inputs, weights, scales):
+        term = dequantize(int8_site(t, w_q, scale, pad, dilation), w_scale,
+                          scale, dtype)
+        y = term if y is None else y + term
+    if folded_bias and dtype != torch.float32:
+        hi, lo = bias_terms(conv.bias, dtype)
+        y = (y + hi[:, None, None]) + lo[:, None, None]
+    else:
+        y = y + conv.bias.to(dtype)[:, None, None]
+    return y.contiguous(memory_format=_memory_format(inputs[0]))
+
+
 class ConvBnRelu(nn.Module):
     """conv (3x3, or 1x1 in the PostNet) -> [channel dropout] -> batch norm
     -> relu, in the dtype of its input. With ``fold_bn`` the batch norm is
-    in the conv's weights (no ``BatchNorm_0``)."""
+    in the conv's weights (no ``BatchNorm_0``). ``site`` is the module's
+    flax path and ``quant_scales`` the scale dict of a quantized site (the
+    owning U-Net sets both); ``split_input`` marks a conv that takes a
+    pair at load-time quantization."""
 
     def __init__(self, in_ch: int, out_ch: int, dropout: float | None = None,
                  kernel: int = 3, fold_bn: bool = False):
@@ -127,19 +240,43 @@ class ConvBnRelu(nn.Module):
         self.fold_bn = fold_bn
         if not fold_bn:
             self.BatchNorm_0 = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.site = ""
+        self.quant_scales = None
+        self.split_input = False
 
-    def forward(self, x, generators=None):
-        """``x`` a tensor, or a pair ``(a, b)`` that stands for their
-        channel concatenation: the conv then runs over the kernel's
-        input-channel halves and adds (``split_decoder_concat``)."""
+    def int8_parts(self):
+        """The input-channel parts of the kernel: the two halves of a split
+        pair, else the whole."""
+        width = self.Conv_0.in_channels
+        return (width // 2, width - width // 2) if self.split_input \
+            else (width,)
+
+    def conv_out(self, x, stats=None):
+        """The conv's output, before dropout. ``x`` a tensor, or a pair
+        ``(a, b)`` that stands for their channel concatenation: the conv
+        then runs over the kernel's input-channel halves and adds
+        (``split_decoder_concat``). A quantized site runs
+        :func:`int8_conv_out`."""
         conv = self.Conv_0
-        dtype = (x[0] if isinstance(x, tuple) else x).dtype
-        weight = conv.weight.to(dtype)
+        inputs = x if isinstance(x, tuple) else (x,)
+        dtype = inputs[0].dtype
+        leaves = ("Conv_0_in_absmax_a", "Conv_0_in_absmax_b") \
+            if isinstance(x, tuple) else ("Conv_0_in_absmax",)
+        keys = [quant.site_key(self.site, leaf) for leaf in leaves]
+        scales = [None] * len(keys) if self.quant_scales is None else \
+            [_site_scale(self.quant_scales, key) for key in keys]
+        if stats is not None:
+            for key, value, scale in zip(keys, inputs, scales):
+                stats.observe(key, value, scale)
+        if self.quant_scales is not None:
+            return int8_conv_out(inputs, scales, conv,
+                                 folded_bias=self.fold_bn)
         lo = None
         if self.fold_bn and dtype != torch.float32:
             bias, lo = bias_terms(conv.bias, dtype)
         else:
             bias = conv.bias.to(dtype)
+        weight = conv.weight.to(dtype)
         if isinstance(x, tuple):
             a, b = x
             y = F.conv2d(a, weight[:, :a.shape[1]], None, padding=conv.padding)
@@ -148,6 +285,10 @@ class ConvBnRelu(nn.Module):
             y = F.conv2d(x, weight, bias, padding=conv.padding)
         if lo is not None:
             y += lo[:, None, None]
+        return y
+
+    def forward(self, x, generators=None, stats=None):
+        y = self.conv_out(x, stats)
         if self.dropout is not None:
             y = self.dropout(y, generators)
         if not self.fold_bn:
@@ -194,9 +335,9 @@ class ConvBlock(nn.Module):
             self.add_module(f"ConvBnRelu_{i}", layer)
             self.layers.append(layer)
 
-    def forward(self, x, generators=None):
+    def forward(self, x, generators=None, stats=None):
         for layer in self.layers:
-            x = layer(x, generators)
+            x = layer(x, generators, stats)
         return x
 
 
@@ -239,9 +380,11 @@ class UNet(_EvalOnly):
 
     ``sigma_out`` adds the aleatoric sigma head, ``provide_features``
     returns the decoder output that the heads read; ``dtype``,
-    ``split_decoder_concat``, ``fused_upsample`` and ``fold_bn`` are the
-    inference variants of the module doc. Residual blocks and int8 are
-    later slices and rejected by ``models.registry.get_model``.
+    ``split_decoder_concat``, ``fused_upsample``, ``fold_bn`` and
+    ``quant_scales`` with ``quant_skip_levels`` (the ``quant_skip_levels``
+    finest resolution levels stay in the compute dtype) are the inference
+    variants of the module doc. Residual blocks are a later slice and
+    rejected by ``models.registry.get_model``.
     """
 
     def __init__(self, nb_classes: int, in_channels: int, depth: int = 4,
@@ -250,7 +393,9 @@ class UNet(_EvalOnly):
                  provide_features: bool = False,
                  dtype: torch.dtype = torch.float32,
                  split_decoder_concat: bool = False,
-                 fused_upsample: bool = False, fold_bn: bool = False):
+                 fused_upsample: bool = False, fold_bn: bool = False,
+                 quant_scales: dict | None = None,
+                 quant_skip_levels: int = 0):
         super().__init__()
         self.depth = depth
         self.dropout = dropout
@@ -288,7 +433,61 @@ class UNet(_EvalOnly):
             self.ConvBnRelu_1 = ConvBnRelu(ch, ch, dropout, fold_bn=fold_bn)
             self.add_module(f"Conv_{depth + 1}", nn.Conv2d(ch, nb_classes, 1))
         _zero_biases(self)
+        _name_sites(self)
+        for block in self.up_blocks:
+            block.layers[0].split_input = split_decoder_concat
+        self._set_quantization(quant_scales, quant_skip_levels)
         self.train(False)
+
+    def _set_quantization(self, scales, skip_levels):
+        if not 0 <= skip_levels <= self.depth + 1:
+            raise ValueError(f"quant_skip_levels must be in [0, depth+1="
+                             f"{self.depth + 1}], got {skip_levels}")
+        self.quant_scales = scales
+        self.quant_skip_levels = skip_levels
+        # the k-th up block (and up-conv) writes level depth-1-k, the head
+        # level 0
+        levels = [(block, i) for i, block in enumerate(self.down_blocks)]
+        levels.append((getattr(self, f"ConvBlock_{self.depth}"), self.depth))
+        levels += [(block, self.depth - 1 - k)
+                   for k, block in enumerate(self.up_blocks)]
+        for block, level in levels:
+            for layer in block.layers:
+                layer.quant_scales = self._level_scales(level)
+        self.ConvBnRelu_0.quant_scales = self._level_scales(0)
+
+    def quantize(self, scales: dict, skip_levels: int = 0):
+        """Make this model, in place, the int8 model of ``scales`` (from
+        ``ops.quant.calibrate_scales`` on it as it is, with its dtype and
+        decoder flags), keeping the ``skip_levels`` finest levels in the
+        compute dtype; quantizes the weights as they are now
+        (:func:`quantize_weights`). Returns the model."""
+        self._set_quantization(scales, skip_levels)
+        return quantize_weights(self)
+
+    def _level_scales(self, level: int):
+        """``quant_scales`` for a module at resolution level ``level`` (0 =
+        finest), None where ``quant_skip_levels`` keeps it unquantized."""
+        if self.quant_scales is None or level < self.quant_skip_levels:
+            return None
+        return self.quant_scales
+
+    def _up(self, k, x, stats):
+        """The k-th up-conv on ``x``, at the upsampled size: int8 where its
+        output level is quantized."""
+        conv, key = self.up_convs[k], f"Conv_{k}_in_absmax"
+        scales = self._level_scales(self.depth - 1 - k)
+        scale = None if scales is None else _site_scale(scales, key)
+        if not self.fused_upsample:
+            x = F.interpolate(x, scale_factor=2, mode="nearest")
+        if stats is not None:  # nearest upsampling keeps the absmax
+            stats.observe(key, x, scale)
+        if scale is not None:
+            return int8_conv_out([x], [scale], conv, fold=self.fused_upsample)
+        if self.fused_upsample:
+            return upsample_conv(x, conv.weight.to(x.dtype),
+                                 conv.bias.to(x.dtype))
+        return _conv(x, conv)
 
     @property
     def mc_shared_blocks(self) -> int:
@@ -299,12 +498,14 @@ class UNet(_EvalOnly):
             return 0
         return max(0, self.depth - self.dropout_center)
 
-    def forward(self, x, generators=None):
+    def forward(self, x, generators=None, stats=None):
         """``generators``: one per MC sample riding the batch (sample-major),
-        or None for the deterministic forward."""
+        or None for the deterministic forward; ``stats`` an
+        ``ops.quant.SiteStats`` collector for a calibration or clip pass."""
         self._check_fold_bn(generators)
-        x, skips = self._down(x.to(self.dtype), [], 0, generators)
-        return self._finish(x, skips, generators)
+        x, skips = self._down(x.to(self.dtype), [], 0, generators,
+                              stats=stats)
+        return self._finish(x, skips, generators, stats)
 
     def encode_shared(self, x):
         """The dropout-free encoder prefix (``mc_shared_blocks`` down
@@ -322,41 +523,35 @@ class UNet(_EvalOnly):
         x, skips = self._down(x, skips, len(skips), generators)
         return self._finish(x, skips, generators)
 
-    def _down(self, x, skips, start, generators, stop=None):
+    def _down(self, x, skips, start, generators, stop=None, stats=None):
         """Down blocks ``start..stop-1`` (to the bottom by default),
         appending their outputs to ``skips``."""
         skips = list(skips)
         for block in self.down_blocks[start:stop]:
-            x = block(x, generators)
+            x = block(x, generators, stats)
             skips.append(x)
             x = F.max_pool2d(x, 2)
         return x, skips
 
-    def _finish(self, x, skips, generators):
+    def _finish(self, x, skips, generators, stats=None):
         """Bottom, decoder and heads from the pooled features and skips."""
-        x = getattr(self, f"ConvBlock_{self.depth}")(x, generators)
-        for up_conv, block in zip(self.up_convs, self.up_blocks):
+        x = getattr(self, f"ConvBlock_{self.depth}")(x, generators, stats)
+        for k, block in enumerate(self.up_blocks):
             skip = skips.pop()  # drop each skip as soon as it is consumed
-            if self.fused_upsample:
-                up = upsample_conv(x, up_conv.weight.to(x.dtype),
-                                   up_conv.bias.to(x.dtype))
-            else:
-                up = _conv(F.interpolate(x, scale_factor=2, mode="nearest"),
-                           up_conv)
-            up = _pad_to(up, skip.shape[2:])
+            up = _pad_to(self._up(k, x, stats), skip.shape[2:])
             x = block((up, skip) if self.split_decoder_concat
-                      else torch.cat([up, skip], dim=1), generators)
+                      else torch.cat([up, skip], dim=1), generators, stats)
             del up, skip
         # both heads read the decoder output x, and the sigma head does not
         # read the class head's; no op after this point writes into x in
         # place (each ConvBnRelu's in-place ops act on its conv's output),
         # so the features returned are the tensor the heads saw. The class
         # conv runs in the compute dtype and casts its narrow output to f32
-        logits = _conv(self.ConvBnRelu_0(x, generators),
+        logits = _conv(self.ConvBnRelu_0(x, generators, stats),
                        getattr(self, f"Conv_{self.depth}")).float()
         sigma = None
         if self.sigma_out:  # in f32 whatever the compute dtype
-            sigma = _conv(self.ConvBnRelu_1(x.float(), generators),
+            sigma = _conv(self.ConvBnRelu_1(x.float(), generators, stats),
                           getattr(self, f"Conv_{self.depth + 1}"))
         return UNetOutput(logits, sigma, x if self.provide_features else None)
 
@@ -381,6 +576,7 @@ class PostNet(_EvalOnly):
             self.layers.append(layer)
         self.Conv_0 = nn.Conv2d(in_channels, nb_classes, 1)
         _zero_biases(self)
+        _name_sites(self)
         self.train(False)
 
     def forward(self, x, generators=None):
@@ -403,22 +599,48 @@ def f32_head_keys(model) -> frozenset:
 
 def precast_params(model):
     """Cast the conv weights and biases of a non-f32 model to its compute
-    dtype once, in place (``rcu_tpu`` ``precast_params``); returns the model.
+    dtype once, in place (``rcu_tpu`` ``precast_params``), then quantize
+    the int8 sites' weights from the cast ones (:func:`quantize_weights`);
+    returns the model.
 
     Kept f32: every BatchNorm tensor (it normalizes in f32), the modules of
     :func:`f32_head_keys`, and in a folded model every conv bias (the BN
     centering term, see :func:`bias_terms`). The outputs
     are bitwise those of casting the same weights at every call."""
-    if model.dtype == torch.float32:
+    if model.dtype != torch.float32:
+        keep = f32_head_keys(model)
+        for name, module in model.named_modules():
+            if not isinstance(module, nn.Conv2d) or name.split(".")[0] in keep:
+                continue
+            module.weight.data = module.weight.data.to(model.dtype)
+            if not model.fold_bn:
+                module.bias.data = module.bias.data.to(model.dtype)
+    return quantize_weights(model)
+
+
+def quantize_weights(model):
+    """Store the int8 weights and f32 per-channel scales of every quantized
+    site of a U-Net as buffers outside the state_dict (checkpoints are
+    unchanged), from its weights as they are now: after the BN fold and
+    the precast, so a bf16 model's int8 weights come from its
+    bf16-rounded kernels, as the JAX package's direct eval quantizes them.
+    A model without ``quant_scales`` is returned as it is."""
+    if getattr(model, "quant_scales", None) is None:
         return model
-    keep = f32_head_keys(model)
-    for name, module in model.named_modules():
-        if not isinstance(module, nn.Conv2d) or name.split(".")[0] in keep:
-            continue
-        module.weight.data = module.weight.data.to(model.dtype)
-        if not model.fold_bn:
-            module.bias.data = module.bias.data.to(model.dtype)
+    for module in model.modules():
+        if isinstance(module, ConvBnRelu) and module.quant_scales is not None:
+            _store_int8_weights(module.Conv_0, module.int8_parts())
+    for k, conv in enumerate(model.up_convs):
+        if model._level_scales(model.depth - 1 - k) is not None:
+            _store_int8_weights(conv, [conv.in_channels], model.fused_upsample)
     return model
+
+
+def _name_sites(model):
+    """Give each ConvBnRelu its flax path, the prefix of its site keys."""
+    for name, module in model.named_modules():
+        if isinstance(module, ConvBnRelu):
+            module.site = name.replace(".", "/")
 
 
 def _zero_biases(module):

@@ -12,7 +12,7 @@ import torch
 from rcu_tpu_torch.eval.direct import evaluate_subjects, model_from_flax
 from rcu_tpu_torch.models import get_model
 from rcu_tpu_torch.models.convert import flax_from_state_dict
-from rcu_tpu_torch.ops.cuda import evalstats
+from rcu_tpu_torch.ops.cuda import evalstats, int8conv
 
 THRESHOLDS = (0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95)
 EDGES = np.float32([0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0, 0.0])
@@ -297,3 +297,103 @@ def test_cuda_variants_launch_the_kernel_once_per_subject(cuda_device,
     assert evalstats.fused_eval_stats.launches == before + 2
     for subject, ece in cpu.items():
         assert gpu[subject] == pytest.approx(ece, abs=2e-2)
+
+
+def int8_operands(seed, n, h, w, cin, cout, k, extreme=False):
+    """Seeded NHWC int8 input and (Cout, k, k, Cin) int8 weights; with
+    ``extreme`` every value +-127, the largest sums the kernel can see."""
+    rng = np.random.RandomState(seed)
+    if extreme:
+        x = np.where(rng.rand(n, h, w, cin) < 0.5, -127, 127)
+        wq = np.full((cout, k, k, cin), 127)
+    else:
+        x = rng.randint(-127, 128, (n, h, w, cin))
+        wq = rng.randint(-127, 128, (cout, k, k, cin))
+    return (torch.from_numpy(x.astype(np.int8)),
+            torch.from_numpy(wq.astype(np.int8)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,k,pad,dil,extreme", [
+    (2, 12, 12, 64, 64, 3, 1, 1, False),
+    (3, 45, 53, 4, 32, 3, 1, 1, False),  # Cin 4 (quantize_skip=0), odd sides
+    (2, 9, 7, 32, 29, 3, 1, 1, False),  # Cout no multiple of 8
+    (2, 11, 13, 5, 10, 3, 1, 1, False),  # Cin no multiple of 16
+    (2, 6, 5, 128, 64, 4, 2, 2, False),  # the fused up-conv
+    (1, 15, 15, 512, 256, 4, 2, 2, True),  # the widest sums, all +-127
+    (1, 30, 30, 256, 256, 3, 1, 1, True),
+])
+def test_cuda_int8_conv_matches_plain_version(cuda_device, n, h, w, cin,
+                                              cout, k, pad, dil, extreme):
+    """The int8 kernel's int32 output equals the exact float64 plain
+    version; two runs are bit-identical; one launch a call."""
+    x, wq = int8_operands(n + cin, n, h, w, cin, cout, k, extreme)
+    before = int8conv.int8_conv.launches
+    got = int8conv.int8_conv(x.to(cuda_device), wq.to(cuda_device), pad, dil)
+    again = int8conv.int8_conv(x.to(cuda_device), wq.to(cuda_device), pad, dil)
+    torch.cuda.synchronize()
+    assert int8conv.int8_conv.launches == before + 2
+    want = int8conv.int8_conv_reference(x, wq, pad, dil)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_conv_refuses_what_it_does_not_take(cuda_device):
+    x, wq = int8_operands(1, 1, 8, 8, 16, 8, 3)
+    x, wq = x.to(cuda_device), wq.to(cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8conv.int8_conv(x.permute(0, 2, 1, 3), wq, 1)
+    with pytest.raises(TypeError):
+        int8conv.int8_conv(x.float(), wq, 1)
+    with pytest.raises(ValueError, match="lhs_dilation"):
+        int8conv.int8_conv(x, wq, 1, 3)
+    # a pointer off the 16-byte grain takes the byte loads, exactly
+    shifted = torch.empty(x.numel() + 1, dtype=torch.int8,
+                          device=cuda_device)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert torch.equal(int8conv.int8_conv(shifted, wq, 1).cpu(),
+                       int8conv.int8_conv_reference(x.cpu(), wq.cpu(), 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [
+    dict(dtype="bfloat16", fast_decoder=True),
+    dict(dtype="bfloat16", fast_decoder=True, fold_bn=True),
+    dict()])
+def test_cuda_int8_unet_runs_the_kernel_at_every_site(cuda_device, flags):
+    """A quantized U-Net on the card: one kernel launch per quantized site
+    and none of the plain version, logits near the same model's on the
+    CPU (int32 sums exact on both; the unquantized level and BatchNorm are
+    cuDNN's and oneDNN's)."""
+    from rcu_tpu_torch.ops import quant
+    torch.backends.cudnn.allow_tf32 = False
+    params = dict(nb_classes=2, in_channels=4, depth=3, start_filters=8,
+                  dropout=0.1)
+    torch.manual_seed(0)
+    tree = flax_from_state_dict(get_model("unet", params).state_dict())
+    x = torch.from_numpy(np.random.RandomState(3).randn(4, 24, 20, 4)
+                         .astype(np.float32))
+    out = {}
+    for device in ("cpu", cuda_device):
+        model = model_from_flax("unet", params, *tree, device, **flags)
+        images = x.to(device)
+        scales = quant.calibrate_scales(model, [images], mc_dropout=False)
+        model.quantize(scales, 1)
+        launches = int8conv.int8_conv.launches
+        plain = int8conv.int8_conv.plain_calls
+        with torch.no_grad():
+            layout = images.permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last if flags else
+                torch.contiguous_format).to(model.dtype)
+            out[str(device)] = model(layout).logits.cpu()
+        if device != "cpu":
+            # levels 1 and 2: 2 + 1 + 2 + 1 sites each (down pair, up-conv,
+            # split pair or concat conv, second up conv), the bottom 2
+            sites = (6 if flags.get("fast_decoder") else 5) * 2 + 2
+            assert int8conv.int8_conv.launches == launches + sites
+            assert int8conv.int8_conv.plain_calls == plain
+    scale = float(out["cpu"].abs().max())
+    assert float((out["cpu"] - out[str(cuda_device)]).abs().max()) \
+        <= 0.05 * scale

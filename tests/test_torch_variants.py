@@ -222,6 +222,9 @@ def test_precast_is_bitwise_the_cast_at_each_call(model_type, params):
 
 
 def test_registry_dtypes_and_unported_int8():
+    """The compute dtypes; int8 ``quant_scales`` and ``quant_skip_levels``
+    build a quantized U-Net (ported since the int8 slice), a bad skip
+    raises as in flax."""
     params = dict(nb_classes=2, in_channels=2, depth=2, start_filters=4)
     assert get_model("unet", {**params, "dtype": "bfloat16"}).dtype \
         == torch.bfloat16
@@ -232,8 +235,13 @@ def test_registry_dtypes_and_unported_int8():
                                      dtype="bfloat16")).dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="float16"):
         get_model("unet", {**params, "dtype": "float16"})
-    with pytest.raises(NotImplementedError, match="int8 PTQ slice"):
-        get_model("unet", {**params, "quant_scales": {"site": 1.0}})
+    quantized = get_model("unet", {**params, "quant_scales": {"site": 1.0},
+                                   "quant_skip_levels": 1})
+    assert quantized.quant_scales == {"site": 1.0}
+    assert quantized.ConvBlock_1.ConvBnRelu_0.quant_scales == {"site": 1.0}
+    assert quantized.ConvBlock_0.ConvBnRelu_0.quant_scales is None
+    with pytest.raises(ValueError, match="quant_skip_levels"):
+        get_model("unet", {**params, "quant_skip_levels": 4})
 
 
 def calibrate(model_type, params, flax_params, stats, x):
@@ -400,7 +408,8 @@ def test_mc_bf16_stays_with_f32_under_the_same_generators(e2e_env,
 
 
 def test_scope_checks_raise_as_in_jax(e2e_env, tmp_path):
-    """fold_bn with mc: ValueError in both packages; int8 is not ported."""
+    """fold_bn with mc: ValueError in both packages; so is int8 on a
+    family outside its scope."""
     config_file = e2e_env["mc"]
     with pytest.raises(ValueError, match="fold_bn covers"):
         jax_evaluate_direct(jax_cfg.load(config_file, "test-config"),
@@ -413,19 +422,29 @@ def test_scope_checks_raise_as_in_jax(e2e_env, tmp_path):
     port_direct.evaluate_direct(port_cfg.load(config_file),
                                 str(tmp_path / "det"), device="cpu", mc=0,
                                 fold_bn=True)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="quantize=True covers"):
+        jax_evaluate_direct(jax_cfg.load(config_file, "test-config"),
+                            str(tmp_path / "jax_q"), strategy="aleatoric",
+                            quantize=True)
+    with pytest.raises(ValueError, match="quantize=True covers"):
         port_direct.evaluate_direct(port_cfg.load(config_file),
                                     str(tmp_path / "q"), device="cpu",
-                                    quantize=True)
+                                    strategy="aleatoric", quantize=True)
 
 
 def test_quant_scales_checkpoint_raises(e2e_env, tmp_path):
-    """A model.json with int8 scales names the int8 slice."""
+    """A model.json with int8 scales loads (the int8 slice is ported): the
+    sites of the levels it quantizes take its dict and their int8 weights
+    at load; a dict without a site's key raises at the forward."""
     _, p, stats = flax_net("unet", UNET, E2E_SHAPE[1:], seed=1)
     model_dir = write_model(tmp_path / "quant", "unet",
-                            {**UNET, "quant_scales": {"site": 1.0}}, p, stats)
-    with pytest.raises(NotImplementedError, match="int8 PTQ slice"):
-        port_direct.load_model(model_dir, "best", "cpu")
+                            {**UNET, "quant_scales": {"site": 1.0},
+                             "quant_skip_levels": 1}, p, stats)
+    model = port_direct.load_model(model_dir, "best", "cpu")
+    assert model.quant_scales == {"site": 1.0}
+    assert model.ConvBlock_1.ConvBnRelu_0.Conv_0.int8_w0.dtype == torch.int8
+    with pytest.raises(KeyError, match="calibrate"):
+        model(torch.zeros(1, 4, *E2E_SHAPE[1:]))
 
 
 def test_cli_variant_flags(e2e_env, tmp_path, monkeypatch):
@@ -437,7 +456,7 @@ def test_cli_variant_flags(e2e_env, tmp_path, monkeypatch):
         "eval_direct", "-config_file", e2e_env["deterministic"], "-dtype",
         "bfloat16", "-fast_decoder", "-fold_bn", "-device", "cpu"])
     port_cli.cli()
-    assert seen["args"][-3:] == ("bfloat16", True, True)
+    assert seen["args"][-5:] == ("bfloat16", True, True, False, None)
     monkeypatch.setattr("sys.argv", ["eval_direct", "-config_file", "x",
                                      "-dtype", "float16"])
     with pytest.raises(SystemExit):
