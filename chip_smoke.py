@@ -12,6 +12,7 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    switches TF32 off for the direct comparisons of the f32 U-Net;
 2. build: one ``nvcc`` per kernel source, all started together; the
    compiler's register, shared memory and spill report of each kernel;
+   the int8 kernel's SASS must hold wgmma (IGMMA) and TMA loads (UTMALDG);
 3. kernels: each kernel against its plain version at the main path's
    shapes (a seeded 155x240x240 subject with exact bin-edge and threshold
    values, the same with unsorted thresholds, and a ragged size); counts
@@ -68,14 +69,20 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    f32 and bf16 with each decoder rewrite, bf16 in both memory formats
    (TFLOP/s of each variant's own convolutions); a dropout_center=2 MC
    batch with the shared encoder prefix is held against the full forward;
-8. int8 (``-quantize``, skip 1): the int8 conv kernel against its plain
-   version (float64 conv, exact) at every distinct quantized site shape of
-   the flagship MC batch (640 images: each level's two 3x3 shapes, which
-   the split halves share, and its fused 4x4 up-conv) and at Cin 4, 45x53
-   and Cout 29: int32 equal, reruns bit-identical; each shape's kernel
-   time (torch.profiler), TOPS, bound (int8 in, weights, int32 out at the
-   memory rate, or its operations at 1979 TOPS) and cuDNN's bf16 conv of
-   the same shape; at the level-1 64->64 shape ``F.unfold`` +
+8. int8 (``-quantize``, skip 1): the int8 conv kernel (``wgmma`` fed by
+   TMA; the fused up-conv split by output phase) against its plain
+   versions at every distinct quantized site shape of the flagship MC
+   batch (640 images: each level's two 3x3 shapes, which the split halves
+   share, and its fused 4x4 up-conv) and at Cin 4, 45x53, its up-conv at
+   23x27 and Cout 29: the int32 mode (``int8_conv``) equal to the float64
+   conv, the fused mode (``int8_conv_dequant``: dequantize and bias in the
+   epilogue) bitwise its plain version in bf16, bf16 folded (hi and lo), a
+   bf16 split pair and f32, reruns bit-identical; each shape's kernel time
+   in the bf16 fused mode and the int32 mode (torch.profiler), TOPS, the
+   bound with the output in bf16 (int8 in, weights and output at the
+   memory rate, or its operations at 1979 TOPS) and the share of it
+   reached, cuDNN's bf16 conv of the same shape and the kernel's earlier
+   mma.sync design's time; at the level-1 64->64 shape ``F.unfold`` +
    ``torch._int_mm`` (the library figure). Then, through
    ``evaluate_subjects`` after ``_calibrated_quant_model``: MC20 in bf16
    with the fast decoder, deterministic and the 10-member ensemble in bf16
@@ -84,9 +91,12 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    seeded weights of the earlier phases (information, not gated): s/subject,
    M voxels/s, peak memory, both kernels' launches, ECE/Dice deltas; a
    path beyond 5e-3 fails the phase once all have run (each says whether
-   it meets 1e-3), and the int8 MC model on the card is held against the
-   CPU on 2 slices. One int8
-   MC20 subject is profiled.
+   it meets 1e-3); the int8 MC model on the card is held against the CPU
+   on 2 slices, and, on the same slices, one site of each kind (a 3x3
+   conv, a split pair, a fused up-conv, and a BN-folded site of the
+   deterministic model) runs on the card and on the CPU with the same
+   input, scales and weights: output bitwise equal. One int8 MC20 subject
+   is profiled.
 
 Every path runs with both kernels' launch counts set to 0 before it and
 read after it, and fails unless it launched the eval kernel once per
@@ -102,6 +112,7 @@ import csv
 import json
 import math
 import os
+import re
 import subprocess
 import tempfile
 import time
@@ -181,7 +192,24 @@ def build_phase():
         summaries[name] = ptxas_summaries(build.report(name))
         for function, summary in sorted(summaries[name].items()):
             log(f"  {name} {function[-60:]}: {summary}")
+    hopper = sass_opcodes("int8conv", ("IGMMA", "UTMALDG", "SYNCS"))
+    log(f"  int8conv SASS: {hopper} (wgmma, TMA loads, mbarrier operations)")
+    if not (hopper["IGMMA"] and hopper["UTMALDG"]):
+        raise AssertionError("int8conv.cu compiled without wgmma or TMA")
     return summaries
+
+
+def sass_opcodes(name, prefixes):
+    """{prefix: instructions whose opcode starts with it} in the SASS of
+    the library built from ``csrc/<name>.cu`` (``cuobjdump`` beside
+    ``nvcc``)."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", build.library_path(name)],
+                          capture_output=True, text=True, check=True).stdout
+    opcodes = re.findall(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", sass)
+    return {prefix: sum(op.startswith(prefix) for op in opcodes)
+            for prefix in prefixes}
 
 
 def seeded_subject(n_or_shape, seed, device):
@@ -1093,21 +1121,24 @@ def flagship_sites():
 
 def int8_sites_per_forward():
     """Launches of one quantized forward at skip 1 with the fast decoder:
-    6 sites a level above the bottom (the down pair, the up-conv, the split
-    pair, the second up conv), 2 at the bottom."""
+    6 a level above the bottom (the down pair, the up-conv, the split pair
+    as two launches, the second adding into the first's output, the second
+    up conv), 2 at the bottom."""
     return (FLAGSHIP["depth"] - INT8_SKIP) * 6 + 2
 
 
-def int8_work(x_shape, cout, k, pad, dilation):
-    """(bytes, operations) of one int8 conv: int8 in, weights and int32
-    out, each once; 2 x the multiply-adds that the data needs (the fused
-    up-conv's 4x4 kernel meets 2x2 non-zero inputs an output)."""
+def int8_work(x_shape, cout, k, pad, dilation, out_bytes):
+    """(bytes, operations) of one int8 conv: int8 in, weights and the
+    output at ``out_bytes`` a value (4 int32, 2 bf16), each once; 2 x the
+    multiply-adds that the data needs (the fused up-conv's 4x4 kernel meets
+    2x2 non-zero inputs an output)."""
     n, h, w, cin = x_shape
     ho = int8conv.output_size(h, k, pad, dilation)
     wo = int8conv.output_size(w, k, pad, dilation)
     taps = 4 if dilation == 2 else k * k
     ops = 2 * n * ho * wo * cout * taps * cin
-    bytes_moved = n * h * w * cin + cout * k * k * cin + n * ho * wo * cout * 4
+    bytes_moved = n * h * w * cin + cout * k * k * cin \
+        + n * ho * wo * cout * out_bytes
     return bytes_moved, ops
 
 
@@ -1139,13 +1170,88 @@ def library_int8_ms(x, w_q, want):
         return None
 
 
+# the kernel's earlier design (mma.sync m16n8k32 from registers, int32 out,
+# 16 taps at the fused up-conv) at the shapes of flagship_sites(), in
+# order: torch.profiler ms recorded in PERF.md (section 5) on an NVIDIA H100
+# 80GB HBM3 at 700 W, not measured by this script. The log line prints them
+# beside this run's times as recorded figures; the JSON line leaves them out
+RECORDED_MMA_SYNC_MS = (2.491, 4.066, 11.79, 2.068, 3.743, 11.43, 1.867,
+                        3.484, 11.49, 1.810, 3.532, 0.515, 0.0434, 0.122,
+                        0.098)
+
+
+def same_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.float().view(torch.int32), b.float().view(torch.int32))
+
+
+def fused_modes(x, w_q, g):
+    """The fused entry point's modes at one site shape: {mode: (terms,
+    bias, lo)} for bf16 (one input), bf16 folded (``bias_terms``' hi and
+    lo), a bf16 split pair (a second input and weights) and f32, with
+    seeded scales and biases."""
+    from rcu_tpu_torch.models.unet import bias_terms
+    cout = w_q.shape[0]
+
+    def vector(lo, hi):
+        return torch.rand(cout, generator=g, device=DEVICE) * (hi - lo) + lo
+
+    bias = torch.randn(cout, generator=g, device=DEVICE)
+    scale = vector(2e-5, 2e-3)
+    bf16 = [(x, w_q, scale.to(torch.bfloat16))]
+    x_b = torch.randint(-127, 128, x.shape, generator=g, device=DEVICE,
+                        dtype=torch.int8)
+    w_b = torch.randint(-127, 128, w_q.shape, generator=g, device=DEVICE,
+                        dtype=torch.int8)
+    pair = bf16 + [(x_b, w_b, vector(2e-5, 2e-3).to(torch.bfloat16))]
+    hi, lo = bias_terms(bias, torch.bfloat16)
+    return {"bf16": (bf16, bias.to(torch.bfloat16), None),
+            "bf16 folded": (bf16, hi, lo),
+            "bf16 split pair": (pair, bias.to(torch.bfloat16), None),
+            "f32": ([(x, w_q, scale)], bias, None)}
+
+
+def check_fused(label, x, w_q, pad, dil, g):
+    """Each fused mode bitwise its plain version on the card, reruns
+    bit-identical. Returns the bf16 mode's operands and the plain
+    version's ms in it."""
+    modes = fused_modes(x, w_q, g)
+    plain_ms = None
+    for mode, (terms, bias, lo) in modes.items():
+        got = int8conv.int8_conv_dequant(terms, bias, pad, dil, lo=lo)
+        again = int8conv.int8_conv_dequant(terms, bias, pad, dil, lo=lo)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = int8conv.int8_conv_dequant_reference(terms, bias, pad, dil, lo)
+        end.record()
+        torch.cuda.synchronize()
+        if mode == "bf16":
+            plain_ms = start.elapsed_time(end)
+        if not same_bits(got, again):
+            raise AssertionError(f"int8_conv_dequant {label} {mode}: reruns "
+                                 "differ")
+        if not same_bits(got, want):
+            err = float((got.float() - want.float()).abs().max())
+            raise AssertionError(f"int8_conv_dequant {label} {mode}: differs "
+                                 f"from the plain version by up to {err}")
+        del got, again, want
+    return modes["bf16"], plain_ms
+
+
 def int8_kernel_phase(hbm_rate):
-    """int8_conv against its plain version (float64 conv, exact) at every
-    distinct site shape of the flagship MC batch and the odd shapes: int32
-    equal, two runs bit-identical; each shape's kernel time
-    (torch.profiler), TOPS, bound and the cuDNN bf16 conv it replaces
-    (``F.conv2d``, or the fused up-conv's transposed conv); at the first
-    level-1 shape the library route. Returns the JSON record."""
+    """The int8 kernel against its plain versions at every distinct site
+    shape of the flagship MC batch and the odd shapes: int32 mode
+    (``int8_conv``) equal to the float64 conv, the fused mode
+    (``int8_conv_dequant``) bitwise its plain version in bf16, bf16 folded,
+    a bf16 split pair and f32, reruns bit-identical; each shape's kernel
+    time in the bf16 fused mode and the int32 mode (torch.profiler), the
+    fused wrapper call's ms, TOPS, the bound with the output in bf16 and
+    the share of it reached, cuDNN's bf16 conv of the same shape
+    (``F.conv2d``, or the fused up-conv's transposed conv) and the earlier
+    design's recorded time (log only); at a 3x3 site the same kernel with
+    one tap (the centre one, padding 0), which splits its time into fixed
+    costs and the main loop; at the first level-1 shape the library
+    route. Returns the JSON record."""
     g = torch.Generator(device=DEVICE)
     g.manual_seed(SEED)
     record = {"name": "int8_conv", "route": "cuda",
@@ -1159,25 +1265,36 @@ def int8_kernel_phase(hbm_rate):
                             device=DEVICE, dtype=torch.int8)
         got = int8conv.int8_conv(x, w_q, pad, dil)
         again = int8conv.int8_conv(x, w_q, pad, dil)
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
         want = int8conv.int8_conv_reference(x, w_q, pad, dil)
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(end)
         if not torch.equal(got, again):
             raise AssertionError(f"int8_conv {label}: reruns differ")
         if not torch.equal(got, want):
             err = int((got.long() - want.long()).abs().max())
             raise AssertionError(f"int8_conv {label} {shape}: differs from "
                                  f"the plain version by up to {err}")
-        del again
-        kernel = kernel_ms(profiled_ms(
+        del got, again
+        (terms, bias, _), plain_ms = check_fused(label, x, w_q, pad, dil, g)
+
+        def fused():
+            return int8conv.int8_conv_dequant(terms, bias, pad, dil)
+
+        kernel = kernel_ms(profiled_ms(fused), "int8_conv_kernel")
+        int32_kernel = kernel_ms(profiled_ms(
             lambda: int8conv.int8_conv(x, w_q, pad, dil)), "int8_conv_kernel")
-        wrapper_ms = cuda_ms(lambda: int8conv.int8_conv(x, w_q, pad, dil), 5)
-        bytes_moved, ops = int8_work(shape, cout, k, pad, dil)
+        wrapper_ms = cuda_ms(fused, 5)
+        one_tap = None
+        if k == 3 and dil == 1:
+            # the same tiles, blocks and epilogue over 1 tap instead of 9:
+            # t1 = fixed + a tap, t9 = fixed + 9 taps
+            w_1 = w_q[:, 1:2, 1:2].contiguous()
+            one_tap = kernel_ms(profiled_ms(lambda: int8conv.int8_conv_dequant(
+                [(x, w_1, terms[0][2])], bias, 0)), "int8_conv_kernel")
+            del w_1
+        bytes_moved, ops = int8_work(shape, cout, k, pad, dil, 2)
         bytes_ms = bytes_moved / hbm_rate * 1e3
         ops_ms = ops / INT8_OPS_PER_S * 1e3
+        int32_bound = max(int8_work(shape, cout, k, pad, dil, 4)[0]
+                          / hbm_rate * 1e3, ops_ms)
         xb = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
         w3 = torch.randn(cout, shape[3], 3, 3, device=DEVICE,
@@ -1185,29 +1302,95 @@ def int8_kernel_phase(hbm_rate):
         bf16_ms = cuda_ms(lambda: upsample_conv(xb, w3, None) if dil == 2
                           else torch.nn.functional.conv2d(xb, w3, padding=1),
                           5)
+        bound = max(bytes_ms, ops_ms)
         site = {"site": label, "x": list(shape), "cout": cout, "k": k,
-                "lhs_dilation": dil, "kernel_ms": kernel, "ms": wrapper_ms,
-                "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "lhs_dilation": dil, "kernel_ms": kernel,
+                "int32_kernel_ms": int32_kernel, "ms": wrapper_ms,
+                "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bound_share": None if kernel is None else bound / kernel,
+                "int32_bound_ms": int32_bound,
                 "tops": None if kernel is None else ops / kernel / 1e9,
-                "cudnn_bf16_ms": bf16_ms}
+                "cudnn_bf16_ms": bf16_ms, "one_tap_kernel_ms": one_tap}
         if i == 1:  # the level-1 64->64 conv: the library route
             site["library_ms"] = library_int8_ms(x, w_q, want)
             record.update({k_: site[k_] for k_ in (
                 "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")})
             record["library_ms"] = site["library_ms"]
-        del x, w_q, got, want, xb, w3
+        del x, w_q, want, xb, w3, terms
         record["sites"].append(site)
+        share = "not measured" if kernel is None else \
+            f"{site['bound_share']:.3f}"
         tops = "not measured" if kernel is None else f"{site['tops']:.1f}"
+        split = ""
+        if one_tap is not None and kernel is not None:
+            tap = (kernel - one_tap) / 8
+            split = (f", one tap {one_tap:.4f} ms, so fixed costs "
+                     f"{one_tap - tap:.4f} ms and the main loop "
+                     f"{9 * tap:.4f} ms")
         log(f"int8_conv {label} {shape} -> {cout}, {k}x{k} lhs dilation "
-            f"{dil}: int32 equal to the plain version, reruns bit-identical; "
-            f"kernel {kernel} ms (torch.profiler), wrapper {wrapper_ms:.4f} ms, "
-            f"{tops} TOPS, bound {site['bound_ms']:.4f} ms "
-            f"({site['bound_by']}), cuDNN bf16 conv {bf16_ms:.4f} ms, plain "
-            f"{plain_ms:.2f} ms" + (f", library (F.unfold + torch._int_mm) "
-                                   f"{site['library_ms']} ms"
-                                   if "library_ms" in site else ""))
+            f"{dil}: int32 equal to the plain version, fused bitwise in bf16, "
+            f"bf16 folded, bf16 split pair and f32, reruns bit-identical; "
+            f"kernel bf16 {kernel} ms, int32 {int32_kernel} ms "
+            f"(torch.profiler), wrapper {wrapper_ms:.4f} ms, {tops} TOPS, "
+            f"bound {bound:.4f} ms ({site['bound_by']}, bf16 out; int32 out "
+            f"{int32_bound:.4f}), share {share}, cuDNN bf16 conv "
+            f"{bf16_ms:.4f} ms{split}, plain {plain_ms:.2f} ms; earlier "
+            f"mma.sync design as recorded in PERF.md (not this run) "
+            f"{RECORDED_MMA_SYNC_MS[i]} ms" + (
+                f", library (F.unfold + torch._int_mm) {site['library_ms']} ms"
+                if "library_ms" in site else ""))
     return record
+
+
+def int8_sites_card_vs_cpu(label, model, x, kinds):
+    """Site by site, on the int8 model's own activations of a 2-slice
+    batch: the first site of each of ``kinds`` ("3x3", "split pair",
+    "fused up-conv", "folded") runs ``models.unet.int8_conv_out`` on the
+    card (the kernel) and on the CPU (the plain version) with the same
+    input, scales and weights; the int8 inputs are equal and the outputs
+    bitwise equal. Returns the number of sites held."""
+    from rcu_tpu_torch.models import unet as unet_module
+    seen = {}
+    site_out = unet_module.int8_conv_out
+
+    def record(inputs, scales, conv, fold=False, folded_bias=False):
+        kind = "fused up-conv" if fold else "folded" if folded_bias else \
+            "split pair" if len(inputs) == 2 else "3x3"
+        if kind in kinds and kind not in seen:
+            seen[kind] = ([t.clone() for t in inputs], scales, conv, fold,
+                          folded_bias)
+        return site_out(inputs, scales, conv, fold, folded_bias)
+
+    unet_module.int8_conv_out = record
+    try:
+        with torch.inference_mode():
+            model(x.to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last).to(DEVICE))
+    finally:
+        unet_module.int8_conv_out = site_out
+    if sorted(seen) != sorted(kinds):
+        raise AssertionError(f"int8 {label}: sites {sorted(seen)} ran, "
+                             f"expected {sorted(kinds)}")
+    for kind, (inputs, scales, conv, fold, folded_bias) in seen.items():
+        cpu_conv = copy.deepcopy(conv).cpu()
+        cpu_inputs = [t.cpu() for t in inputs]
+        for t, c, a in zip(inputs, cpu_inputs, scales):
+            if not torch.equal(unet_module.quantize_nhwc(t, a).cpu(),
+                               unet_module.quantize_nhwc(c, a)):
+                raise AssertionError(f"int8 {label} {kind}: the int8 inputs "
+                                     "differ on the card and the CPU")
+        with torch.inference_mode():
+            got = site_out(inputs, scales, conv, fold, folded_bias).cpu()
+            want = site_out(cpu_inputs, scales, cpu_conv, fold, folded_bias)
+        if not same_bits(got, want):
+            err = float((got.float() - want.float()).abs().max())
+            raise AssertionError(f"int8 {label} {kind} site: card and CPU "
+                                 f"differ by up to {err}")
+        log(f"int8 site card vs CPU, {label} {kind} site "
+            f"{tuple(inputs[0].shape)} x{len(inputs)} -> {tuple(got.shape)} "
+            f"{got.dtype}: int8 inputs equal, output bitwise equal")
+    return len(seen)
 
 
 INT8_TRAIN_STEPS = (100, 400)  # at least, at most
@@ -1402,6 +1585,12 @@ def int8_phase(flagship, families, dataset, tmp, hbm_rate, evalstats_ptxas):
             eval_paths[label]["card_vs_cpu_max_abs_err"] = int8_card_vs_cpu(
                 models, variant_of(weights, "unet", FLAGSHIP, **flags),
                 middle_batch(dataset)[3:5])
+        kinds = {"mc_bf16_fast_int8": ("3x3", "split pair", "fused up-conv"),
+                 "deterministic_bf16_fast_fold_int8": ("folded",)}.get(label)
+        if kinds:
+            eval_paths[label]["sites_card_vs_cpu_bitwise"] = \
+                int8_sites_card_vs_cpu(label, models,
+                                       middle_batch(dataset)[3:5], kinds)
         del models
     if beyond:
         raise AssertionError(f"ECE/Dice against f32 beyond {INT8_ENVELOPE}: "

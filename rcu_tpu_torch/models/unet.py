@@ -43,10 +43,11 @@ The inference variants keep flax's dtype islands and rewrites:
 - ``quant_scales`` (int8 PTQ, ``ops.quant``): every 3x3 trunk conv of the
   levels from ``quant_skip_levels`` on (down, bottom and up blocks, the
   up-convs, the head's ``ConvBnRelu_0``) quantizes its input with the
-  site's calibrated scale, runs ``ops.cuda.int8conv.int8_conv`` (int32)
-  against int8 weights quantized per output channel, and dequantizes into
-  the compute dtype as flax does (:func:`dequantize`); dropout, BatchNorm
-  and ReLU follow unchanged. A split pair quantizes each kernel half and
+  site's calibrated scale and runs ``ops.cuda.int8conv.int8_conv_dequant``
+  against int8 weights quantized per output channel: the int32 conv, then
+  flax's dequantize into the compute dtype and the bias, rounded as flax
+  rounds them (:func:`int8_conv_out`); dropout, BatchNorm and ReLU follow
+  unchanged. A split pair quantizes each kernel half and
   each input on its own and adds the two dequantized products; a fused
   up-conv folds its kernel to 4x4 in f32, then quantizes it, and runs the
   lhs-dilated conv (padding 2, no flip). The 1x1 class and sigma heads and
@@ -70,7 +71,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from rcu_tpu_torch.ops import quant
-from rcu_tpu_torch.ops.cuda.int8conv import int8_conv
+from rcu_tpu_torch.ops.cuda.int8conv import int8_conv_dequant
 
 # the production bundle of checkpoint-compatible decoder rewrites
 # (``rcu_tpu`` unet.py:483)
@@ -179,25 +180,13 @@ def _memory_format(x):
         and not x.is_contiguous() else torch.contiguous_format
 
 
-def int8_site(x, w_q, a_scale: float, padding: int, lhs_dilation: int = 1):
-    """The int32 conv of ``x`` (N, C, H, W, any memory format) quantized
-    with ``a_scale``, as an (N, O, Ho, Wo) view of NHWC memory. A
-    channels-last ``x`` (bf16 models) quantizes straight into NHWC; an
-    NCHW one (f32 models) costs one int8 copy to NHWC."""
+def quantize_nhwc(x, a_scale: float):
+    """``x`` (N, C, H, W, any memory format) quantized with ``a_scale`` as a
+    contiguous NHWC int8 tensor. A channels-last ``x`` (bf16 models)
+    quantizes straight into NHWC; an NCHW one (f32 models) costs one int8
+    copy to NHWC."""
     x_q = quant.quantize_activation(x, a_scale).permute(0, 2, 3, 1)
-    if not x_q.is_contiguous():
-        x_q = x_q.contiguous()
-    return int8_conv(x_q, w_q, padding, lhs_dilation).permute(0, 3, 1, 2)
-
-
-def dequantize(y, w_scale, a_scale: float, dtype):
-    """flax's ``y.astype(compute) * (w_scale * a_scale).astype(compute)``:
-    int32 to f32 (one rounding), then to the compute dtype (a second one,
-    as XLA and torch convert int32 to bf16 on the CPU), times the f32
-    product of the scale vector and the f32 of ``a_scale``, cast to the
-    compute dtype."""
-    scale = (w_scale * quant.f32_scalar(a_scale, w_scale.device)).to(dtype)
-    return y.float().to(dtype) * scale[:, None, None]
+    return x_q if x_q.is_contiguous() else x_q.contiguous()
 
 
 def int8_conv_out(inputs, scales, conv, fold=False, folded_bias=False):
@@ -207,21 +196,24 @@ def int8_conv_out(inputs, scales, conv, fold=False, folded_bias=False):
     flax adds it: in the compute dtype, or with ``folded_bias`` (a BN-folded
     site) as the two terms of :func:`bias_terms`. ``fold`` runs the fused
     up-conv (the 4x4 folded kernel over the input spread by 2, padding 2).
-    Keeps the memory format of ``inputs[0]``."""
+    One call of ``ops.cuda.int8conv.int8_conv_dequant``: the int8 conv
+    with flax's dequantize (``y.astype(compute) * (w_scale *
+    a_scale).astype(compute)``) and bias in its epilogue. Keeps the memory
+    format of ``inputs[0]``."""
     dtype = inputs[0].dtype
     weights = int8_weights(conv, [t.shape[1] for t in inputs], fold)
     pad, dilation = (2, 2) if fold else (conv.padding[0], 1)
-    y = None
-    for t, (w_q, w_scale), scale in zip(inputs, weights, scales):
-        term = dequantize(int8_site(t, w_q, scale, pad, dilation), w_scale,
-                          scale, dtype)
-        y = term if y is None else y + term
+    terms = [(quantize_nhwc(t, a_scale), w_q,
+              (w_scale * quant.f32_scalar(a_scale, w_scale.device)).to(dtype))
+             for t, (w_q, w_scale), a_scale in zip(inputs, weights, scales)]
+    lo = None
     if folded_bias and dtype != torch.float32:
-        hi, lo = bias_terms(conv.bias, dtype)
-        y = (y + hi[:, None, None]) + lo[:, None, None]
+        bias, lo = bias_terms(conv.bias, dtype)
     else:
-        y = y + conv.bias.to(dtype)[:, None, None]
-    return y.contiguous(memory_format=_memory_format(inputs[0]))
+        bias = conv.bias.to(dtype)
+    y = int8_conv_dequant(terms, bias, pad, dilation, lo=lo)
+    return y.permute(0, 3, 1, 2).contiguous(
+        memory_format=_memory_format(inputs[0]))
 
 
 class ConvBnRelu(nn.Module):

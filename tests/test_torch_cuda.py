@@ -322,6 +322,10 @@ def int8_operands(seed, n, h, w, cin, cout, k, extreme=False):
     (2, 6, 5, 128, 64, 4, 2, 2, False),  # the fused up-conv
     (1, 15, 15, 512, 256, 4, 2, 2, True),  # the widest sums, all +-127
     (1, 30, 30, 256, 256, 3, 1, 1, True),
+    (1, 23, 27, 128, 64, 4, 2, 2, False),  # the odd fused up-conv's edges
+    (1, 9, 7, 16, 8, 3, 1, 2, False),  # dilated 3x3: phases of 1 and 2 taps
+    (2, 5, 6, 16, 3, 1, 0, 2, False),  # dilated 1x1: phases with no tap
+    (1, 20, 40, 64, 512, 3, 1, 1, False),  # four 128-channel blocks
 ])
 def test_cuda_int8_conv_matches_plain_version(cuda_device, n, h, w, cin,
                                               cout, k, pad, dil, extreme):
@@ -349,12 +353,119 @@ def test_cuda_int8_conv_refuses_what_it_does_not_take(cuda_device):
         int8conv.int8_conv(x.float(), wq, 1)
     with pytest.raises(ValueError, match="lhs_dilation"):
         int8conv.int8_conv(x, wq, 1, 3)
-    # a pointer off the 16-byte grain takes the byte loads, exactly
+    # a pointer off the 16-byte grain is padded to 32 channels, exactly
     shifted = torch.empty(x.numel() + 1, dtype=torch.int8,
                           device=cuda_device)[1:].view(x.shape)
     shifted.copy_(x)
     assert torch.equal(int8conv.int8_conv(shifted, wq, 1).cpu(),
                        int8conv.int8_conv_reference(x.cpu(), wq.cpu(), 1))
+
+
+def dequant_terms(seed, n, h, w, cin, cout, k, dtype, pair, folded):
+    """A quantized site's operands as ``int8_conv_dequant`` takes them:
+    one or two (int8 input, int8 weights, scale in the compute dtype)
+    terms and the bias (bf16 folded: the two terms of ``bias_terms``)."""
+    from rcu_tpu_torch.models.unet import bias_terms
+    rng = np.random.RandomState(seed)
+    terms = []
+    for part in range(2 if pair else 1):
+        x, wq = int8_operands(seed + part, n, h, w, cin, cout, k)
+        scale = torch.from_numpy(rng.uniform(2e-5, 2e-3, cout)
+                                 .astype(np.float32)).to(dtype)
+        terms.append((x, wq, scale))
+    bias = torch.from_numpy(rng.randn(cout).astype(np.float32))
+    if folded and dtype != torch.float32:
+        return terms, *bias_terms(bias, dtype)
+    return terms, bias.to(dtype), None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,pair,folded", [
+    (torch.bfloat16, False, False), (torch.bfloat16, False, True),
+    (torch.bfloat16, True, False), (torch.bfloat16, True, True),
+    (torch.float32, False, False), (torch.float32, True, False)])
+@pytest.mark.parametrize("n,h,w,cin,cout,k,pad,dil", [
+    (2, 12, 12, 64, 64, 3, 1, 1),
+    (2, 9, 7, 32, 29, 3, 1, 1),  # Cout no multiple of 8: scalar stores
+    (2, 11, 13, 5, 10, 3, 1, 1),  # Cin padded to 16
+    (2, 6, 5, 128, 64, 4, 2, 2),  # the fused up-conv
+    (1, 23, 27, 128, 64, 4, 2, 2),  # at odd sides
+    (1, 15, 15, 256, 512, 3, 1, 1),
+])
+def test_cuda_int8_conv_dequant_matches_plain_version(
+        cuda_device, dtype, pair, folded, n, h, w, cin, cout, k, pad, dil):
+    """The fused site (int8 conv, dequantize, split-pair add, bias) on the
+    card is bitwise its plain version on the card and on the CPU; reruns
+    are bit-identical; one launch a term."""
+    terms, bias, lo = dequant_terms(n * cin + cout, n, h, w, cin, cout, k,
+                                    dtype, pair, folded)
+    card = [tuple(t.to(cuda_device) for t in term) for term in terms]
+    on = (lambda t: None if t is None else t.to(cuda_device))
+    before = int8conv.int8_conv.launches
+    got = int8conv.int8_conv_dequant(card, on(bias), pad, dil, lo=on(lo))
+    again = int8conv.int8_conv_dequant(card, on(bias), pad, dil, lo=on(lo))
+    torch.cuda.synchronize()
+    assert int8conv.int8_conv.launches == before + 2 * len(terms)
+    plain_card = int8conv.int8_conv_dequant_reference(card, on(bias), pad,
+                                                      dil, on(lo))
+    plain_cpu = int8conv.int8_conv_dequant_reference(terms, bias, pad, dil,
+                                                     lo)
+    assert got.dtype == dtype and got.shape == plain_cpu.shape
+    bits = (lambda t: t.float().cpu().view(torch.int32))
+    assert torch.equal(bits(got), bits(again))
+    assert torch.equal(bits(got), bits(plain_card))
+    assert torch.equal(bits(got), bits(plain_cpu))
+
+
+@pytest.mark.cuda
+def test_cuda_int8_conv_dequant_takes_misaligned_and_narrow_inputs(
+        cuda_device):
+    """A view off the 16-byte grain and Cin 4 are copied and padded for the
+    kernel; the output is the plain version's, bitwise."""
+    terms, bias, _ = dequant_terms(3, 2, 10, 9, 4, 16, 3, torch.bfloat16,
+                                   True, False)
+    card = []
+    for x, wq, scale in terms:
+        shifted = torch.empty(x.numel() + 1, dtype=torch.int8,
+                              device=cuda_device)[1:].view(x.shape)
+        shifted.copy_(x)
+        card.append((shifted, wq.to(cuda_device), scale.to(cuda_device)))
+    got = int8conv.int8_conv_dequant(card, bias.to(cuda_device), 1)
+    want = int8conv.int8_conv_dequant_reference(terms, bias, 1)
+    assert torch.equal(got.cpu().float().view(torch.int32),
+                       want.float().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.bfloat16])
+def test_cuda_int8_conv_copies_a_misaligned_view(cuda_device, dtype):
+    """At Cin 64 (no padding) a view of x and w one byte off the 16-byte
+    grain is copied to an aligned buffer; int32 equal and bf16 bitwise the
+    plain version."""
+    terms, bias, _ = dequant_terms(5, 2, 10, 9, 64, 24, 3, torch.bfloat16,
+                                   False, False)
+    (x, wq, scale), = terms
+
+    def shifted(t):
+        view = torch.empty(t.numel() + 1, dtype=torch.int8,
+                           device=cuda_device)[1:].view(t.shape)
+        assert view.data_ptr() % 16
+        return view.copy_(t)
+
+    x_card, w_card = shifted(x), shifted(wq)
+    before = int8conv.int8_conv.launches
+    if dtype == torch.int32:
+        got = int8conv.int8_conv(x_card, w_card, 1)
+        want = int8conv.int8_conv_reference(x, wq, 1)
+    else:
+        got = int8conv.int8_conv_dequant(
+            [(x_card, w_card, scale.to(cuda_device))], bias.to(cuda_device), 1)
+        want = int8conv.int8_conv_dequant_reference(terms, bias, 1)
+    assert int8conv.int8_conv.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    bits = (lambda t: t if t.dtype == torch.int32
+            else t.float().view(torch.int32))
+    assert torch.equal(bits(got.cpu()), bits(want))
 
 
 @pytest.mark.cuda

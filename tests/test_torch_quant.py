@@ -31,8 +31,8 @@ from rcu_tpu.ops import quant as jax_quant
 from rcu_tpu_torch.eval.direct import _calibrated_quant_model, model_from_flax
 from rcu_tpu_torch.models import FAST_DECODER_KWARGS, get_model
 from rcu_tpu_torch.models.convert import fold_bn_params
-from rcu_tpu_torch.models.unet import (ConvBnRelu, int8_conv_out, int8_site,
-                                       int8_weights)
+from rcu_tpu_torch.models.unet import (ConvBnRelu, int8_conv_out,
+                                       int8_weights, quantize_nhwc)
 from rcu_tpu_torch.ops import quant
 from rcu_tpu_torch.ops.cuda import int8conv
 from tests.test_torch_unet import flax_net
@@ -208,8 +208,8 @@ def test_quant_conv_site_is_flax_s(dtype, folded):
     x_q = jax_quant.quantize_activation(jnp.asarray(x).astype(j_dtype), scale)
     k_q, _ = jax_quant.quantize_weight(jnp.asarray(jp["kernel"]))
     ((w_q, _),) = int8_weights(layer.Conv_0, [12])
-    y = int8_site(nchw(x).to(t_dtype), w_q, scale, 1)
-    assert np.array_equal(y.permute(0, 2, 3, 1).numpy(),
+    y = int8conv.int8_conv(quantize_nhwc(nchw(x).to(t_dtype), scale), w_q, 1)
+    assert np.array_equal(y.numpy(),
                           np.asarray(jax_quant.int8_conv(x_q, k_q, 1)))
 
 
