@@ -2,8 +2,9 @@
 hand-written kernels (``csrc/evalstats.cu``, the fused eval statistics;
 ``csrc/int8conv.cu``, the int8 convolution), holds each against its plain
 PyTorch version, then drives the main path, the BraTS MC-dropout direct
-eval, the four other strategy families of the direct eval and the
-inference variants, int8 included, at full width.
+eval, the four other strategy families of the direct eval, the
+inference variants, int8 included, and the native-2D (ISIC) direct eval,
+at full width.
 
   python3 chip_smoke.py
 
@@ -96,7 +97,24 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    conv, a split pair, a fused up-conv, and a BN-folded site of the
    deterministic model) runs on the card and on the CPU with the same
    input, scales and weights: output bitwise equal. One int8 MC20 subject
-   is profiled.
+   is profiled;
+9. ISIC (native-2D): ``evaluate_subjects`` over 600 seeded 192x256 RGB
+   images in memory through config/test_isic_baseline_mc.yaml's rescale,
+   32 a chunk, with the ISIC flagship (config/train_isic_baseline.yaml)
+   at seeded weights: MC20 and deterministic, aleatoric, the 10-member
+   ensemble, auxiliary_feat and auxiliary_segm in f32, MC20 in bf16 with
+   the fast decoder, deterministic in bf16 with the fast decoder and the
+   fold, and MC20 in bf16 + fast + int8 (information). Each path must
+   launch the eval kernel once a chunk (19), never once an image; each
+   prints s, images/s, peak memory and the first ECE; the bf16 paths
+   their ECE/Dice deltas against f32, whose means over the images past
+   5e-3 fail, and their logits on 4 images on the card against the CPU at
+   the bf16 bar. The eval kernel's image axis is held against its plain
+   version and against one launch an image, and timed; the int8 kernel is
+   held against its plain versions at every site shape of the ISIC MC
+   chunk and of its tail chunk, and one site of each kind of the ISIC
+   int8 model runs bitwise on the card and the CPU; the f32 logits of 4
+   images are held against the CPU at the f32 bar.
 
 Every path runs with both kernels' launch counts set to 0 before it and
 read after it, and fails unless it launched the eval kernel once per
@@ -507,10 +525,10 @@ def run_path(dataset, out_dir, models, run_id, int8_launches=0, **kwargs):
     planes = []
     subject_eval = pipeline.fused_subject_eval
 
-    def keep_planes(*args):
+    def keep_planes(*args, **kwargs):
         if not planes:
             planes.extend(args[:5])
-        return subject_eval(*args)
+        return subject_eval(*args, **kwargs)
 
     pipeline.fused_subject_eval = keep_planes
     evalstats.fused_eval_stats.launches = 0
@@ -625,19 +643,21 @@ def forward_breakdown(model, dataset, cpu_batch, cpu_logits):
         f"f32 max abs err {tf32_err:.3e}")
 
 
-def profile_phase(models, dataset, out_dir, label=f"MC{MC_STEPS}", **options):
-    """One subject's eval under torch.profiler (the MC path's unless
-    ``options`` name another strategy): the device's busy share of the
-    wall time and the kernels that take the most device time."""
+def profile_phase(models, dataset, out_dir, label=f"MC{MC_STEPS}",
+                  subjects=1, batch=BATCH, **options):
+    """The eval of the first ``subjects`` subjects (or images) under
+    torch.profiler (the MC path's unless ``options`` name another
+    strategy): the device's busy share of the wall time and the kernels
+    that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     one = copy.copy(dataset)
-    one.subjects = dataset.subjects[:1]
+    one.subjects = dataset.subjects[:subjects]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         evaluate_subjects(models, one, out_dir, run_id="profile",
-                          batch_size=BATCH, seed=SEED, device=DEVICE,
+                          batch_size=batch, seed=SEED, device=DEVICE,
                           **(options or {"mc": MC_STEPS}))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -651,7 +671,8 @@ def profile_phase(models, dataset, out_dir, label=f"MC{MC_STEPS}", **options):
         busy += max(0.0, end - max(start, reach))
         reach = max(reach, end)
         by_name[name] = by_name.get(name, 0.0) + end - start
-    log(f"profile: 1 subject {label} in {wall_us / 1e6:.3f} s under the "
+    log(f"profile: {subjects} {'subject' if subjects == 1 else 'subjects'} "
+        f"{label} in {wall_us / 1e6:.3f} s under the "
         f"profiler, device busy {busy / 1e6:.3f} s = "
         f"{100 * busy / wall_us:.1f} %, {len(spans)} kernels")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
@@ -796,6 +817,11 @@ def strategies_phase(dataset, tmp, hbm_rate, ptxas):
         if name in ("ensemble", "auxiliary_segm"):
             profile_phase(models[name], data, os.path.join(tmp, "profile_" + name),
                           label=name, strategy=name)
+        if name == "auxiliary_segm":
+            # the second subject's read overlaps the first's device work
+            profile_phase(models[name], data,
+                          os.path.join(tmp, "profile2_" + name), label=name,
+                          subjects=2, strategy=name)
         cpu_err = card_vs_cpu(name, models[name], batches[
             "error net" if name == "auxiliary_segm" else "plain"])
         by_path[name] = {"launches": launches, "s_per_subject": seconds / n,
@@ -967,8 +993,9 @@ def shared_encoder_check(flagship, dataset):
     return err
 
 
-def bf16_card_vs_cpu(label, model, flagship, x, split):
-    """A bf16 variant's logits for a 2-slice batch on the card against the
+def bf16_card_vs_cpu(label, model, flagship, x, split,
+                     depth=FLAGSHIP["depth"]):
+    """A bf16 variant's logits for a small batch on the card against the
     same variant on the CPU, at :func:`bf16_bar` of the f32 logits."""
     cpu = copy.deepcopy(model).cpu()
     ref = copy.deepcopy(flagship).cpu()
@@ -978,7 +1005,7 @@ def bf16_card_vs_cpu(label, model, flagship, x, split):
             memory_format=torch.channels_last)).logits.cpu()
         scale = float(ref(x).logits.abs().max())
     err = float((got - want).abs().max())
-    bar = bf16_bar(FLAGSHIP["depth"], split, scale)
+    bar = bf16_bar(depth, split, scale)
     if not err <= bar:
         raise AssertionError(f"{label}: card vs CPU logits {err} > {bar}")
     log(f"variant {label}: card vs CPU on {tuple(x.shape)}, logits max abs "
@@ -1094,29 +1121,36 @@ INT8_OPS_PER_S = 1979e12
 INT8_ENVELOPE = 5e-3
 
 
-def flagship_sites():
-    """The distinct int8 conv shapes of the flagship MC batch (T x B
-    images) at skip 1 with the fast decoder, and the odd shapes: (label,
-    NHWC input shape, Cout, kernel side, padding, lhs dilation)."""
-    n, depth, ch = MC_STEPS * BATCH, FLAGSHIP["depth"], FLAGSHIP["start_filters"]
+def level_sites(n, hw, record):
+    """The distinct int8 conv shapes of an ``n``-image forward of a U-Net
+    of ``record`` on ``hw`` images at skip 1 with the fast decoder:
+    (label, NHWC input shape, Cout, kernel side, padding, lhs dilation)."""
+    depth, ch = record["depth"], record["start_filters"]
     sites = []
     for level in range(INT8_SKIP, depth + 1):
-        side, cout = BRATS[1] >> level, ch << level
+        h, w, cout = hw[0] >> level, hw[1] >> level, ch << level
         where = "bottom" if level == depth else f"level {level}"
-        sites.append((f"{where} down conv 1", (n, side, side, cout // 2), cout,
+        sites.append((f"{where} down conv 1", (n, h, w, cout // 2), cout,
                       3, 1, 1))
         sites.append((f"{where} {cout}->{cout} (down conv 2" + (
             ")" if level == depth else ", split halves a and b, up conv 2)"),
-            (n, side, side, cout), cout, 3, 1, 1))
+            (n, h, w, cout), cout, 3, 1, 1))
         if level < depth:
-            sites.append((f"{where} fused up-conv", (n, side // 2, side // 2,
+            sites.append((f"{where} fused up-conv", (n, h // 2, w // 2,
                                                      2 * cout), cout, 4, 2, 2))
-    sites += [("Cin 4 (first conv at quantize_skip=0)",
-               (BATCH, BRATS[1], BRATS[2], FLAGSHIP["in_channels"]), ch, 3, 1, 1),
-              ("odd 45x53", (BATCH, 45, 53, 2 * ch), 2 * ch, 3, 1, 1),
-              ("odd 45x53 fused up-conv", (BATCH, 23, 27, 4 * ch), 2 * ch, 4, 2, 2),
-              ("Cout 29", (BATCH, 60, 60, 4 * ch), 29, 3, 1, 1)]
     return sites
+
+
+def flagship_sites():
+    """The distinct int8 conv shapes of the flagship MC batch (T x B
+    images) at skip 1 with the fast decoder, and the odd shapes."""
+    ch = FLAGSHIP["start_filters"]
+    return level_sites(MC_STEPS * BATCH, BRATS[1:], FLAGSHIP) + [
+        ("Cin 4 (first conv at quantize_skip=0)",
+         (BATCH, BRATS[1], BRATS[2], FLAGSHIP["in_channels"]), ch, 3, 1, 1),
+        ("odd 45x53", (BATCH, 45, 53, 2 * ch), 2 * ch, 3, 1, 1),
+        ("odd 45x53 fused up-conv", (BATCH, 23, 27, 4 * ch), 2 * ch, 4, 2, 2),
+        ("Cout 29", (BATCH, 60, 60, 4 * ch), 29, 3, 1, 1)]
 
 
 def int8_sites_per_forward():
@@ -1181,8 +1215,14 @@ RECORDED_MMA_SYNC_MS = (2.491, 4.066, 11.79, 2.068, 3.743, 11.43, 1.867,
 
 
 def same_bits(a, b):
-    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
-        a.float().view(torch.int32), b.float().view(torch.int32))
+    """Equal shape, dtype and bits (NaN for NaN, -0 apart from 0)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        ints = {torch.float64: torch.int64, torch.float32: torch.int32,
+                torch.bfloat16: torch.int16, torch.float16: torch.int16}
+        a, b = a.view(ints[a.dtype]), b.view(ints[b.dtype])
+    return torch.equal(a, b)
 
 
 def fused_modes(x, w_q, g):
@@ -1238,6 +1278,30 @@ def check_fused(label, x, w_q, pad, dil, g):
     return modes["bf16"], plain_ms
 
 
+def check_int8_site(label, shape, cout, k, pad, dil, g):
+    """Seeded int8 operands at one site shape: the int32 mode
+    (``int8_conv``) equal to the float64 conv, reruns equal, and each
+    fused mode bitwise its plain version (:func:`check_fused`). Returns
+    (x, w_q, the plain int32 output, the bf16 mode's operands, the plain
+    version's ms in it)."""
+    x = torch.randint(-127, 128, shape, generator=g, device=DEVICE,
+                      dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (cout, k, k, shape[3]), generator=g,
+                        device=DEVICE, dtype=torch.int8)
+    got = int8conv.int8_conv(x, w_q, pad, dil)
+    again = int8conv.int8_conv(x, w_q, pad, dil)
+    want = int8conv.int8_conv_reference(x, w_q, pad, dil)
+    if not torch.equal(got, again):
+        raise AssertionError(f"int8_conv {label}: reruns differ")
+    if not torch.equal(got, want):
+        err = int((got.long() - want.long()).abs().max())
+        raise AssertionError(f"int8_conv {label} {shape}: differs from "
+                             f"the plain version by up to {err}")
+    del got, again
+    bf16, plain_ms = check_fused(label, x, w_q, pad, dil, g)
+    return x, w_q, want, bf16, plain_ms
+
+
 def int8_kernel_phase(hbm_rate):
     """The int8 kernel against its plain versions at every distinct site
     shape of the flagship MC batch and the odd shapes: int32 mode
@@ -1259,21 +1323,8 @@ def int8_kernel_phase(hbm_rate):
               "replaces": "rcu_tpu/ops/quant.py:106", "launches": None,
               "max_abs_err": 0, "sites": []}
     for i, (label, shape, cout, k, pad, dil) in enumerate(flagship_sites()):
-        x = torch.randint(-127, 128, shape, generator=g, device=DEVICE,
-                          dtype=torch.int8)
-        w_q = torch.randint(-127, 128, (cout, k, k, shape[3]), generator=g,
-                            device=DEVICE, dtype=torch.int8)
-        got = int8conv.int8_conv(x, w_q, pad, dil)
-        again = int8conv.int8_conv(x, w_q, pad, dil)
-        want = int8conv.int8_conv_reference(x, w_q, pad, dil)
-        if not torch.equal(got, again):
-            raise AssertionError(f"int8_conv {label}: reruns differ")
-        if not torch.equal(got, want):
-            err = int((got.long() - want.long()).abs().max())
-            raise AssertionError(f"int8_conv {label} {shape}: differs from "
-                                 f"the plain version by up to {err}")
-        del got, again
-        (terms, bias, _), plain_ms = check_fused(label, x, w_q, pad, dil, g)
+        x, w_q, want, (terms, bias, _), plain_ms = check_int8_site(
+            label, shape, cout, k, pad, dil, g)
 
         def fused():
             return int8conv.int8_conv_dequant(terms, bias, pad, dil)
@@ -1600,6 +1651,443 @@ def int8_phase(flagship, families, dataset, tmp, hbm_rate, evalstats_ptxas):
     return record, eval_paths
 
 
+# the native-2D (ISIC) direct eval: config/test_isic_baseline_mc.yaml's
+# chunks, transform and samples, the flagship of
+# config/train_isic_baseline.yaml, the images of
+# scripts/prepare_isic_data.py (192x256) as many as the ISIC-2017 test set
+ISIC_CONFIG = "config/test_isic_baseline_mc.yaml"
+ISIC_FLAGSHIP = dict(nb_classes=2, in_channels=3, depth=4, start_filters=32,
+                     dropout=0.05)
+ISIC = (192, 256)
+ISIC_IMAGES = 600
+# bf16 against f32 on the ISIC paths: per image, ECE and Dice move by up
+# to 1.4e-2 on these seeded weights (an image is a few thousand lesion
+# pixels), so the 1e-3 gate cannot hold image by image; the mean over the
+# 600 images read 9.8e-4 to 3.2e-3 on an H100 (PERF.md), and a mean past
+# this envelope fails the path
+ISIC_BF16_MEAN_ENVELOPE = 5e-3
+
+
+class IsicLikeDataset:
+    """Seeded RGB images of 192x256 in memory with the ISIC folder
+    dataset's read interface: raw 0-255 skin tones with noise and a darker
+    elliptic lesion, {0, 255} masks; :meth:`with_baseline` gives [mask,
+    baseline x 255] labels (the lesion dilated), as the folder dataset
+    merges a baseline prediction."""
+
+    def __init__(self, n=ISIC_IMAGES, seed=SEED):
+        rng = np.random.RandomState(seed)
+        h, w = ISIC
+        self.subjects = [f"ISIC_{i:07d}" for i in range(n)]
+        self._images = np.empty((n, h, w, 3), np.uint8)
+        self._masks = np.empty((n, h, w), np.uint8)
+        self._baselines = np.empty((n, h, w), np.uint8)
+        self._with_baseline = False
+        yy, xx = np.ogrid[:h, :w]
+        for i in range(n):
+            cy, cx = rng.uniform(0.3, 0.7, 2) * ISIC
+            ry, rx = rng.uniform(0.1, 0.3, 2) * ISIC
+            dist = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2
+            skin = rng.randint(150, 230, 3)
+            spot = rng.randint(40, 130, 3)
+            image = np.where((dist < 1.0)[..., None], spot, skin) \
+                + rng.randint(0, 40, (h, w, 3))
+            self._images[i] = np.clip(image, 0, 255)
+            self._masks[i] = np.where(dist < 1.0, 255, 0)
+            self._baselines[i] = dist < 1.3
+
+    def with_baseline(self):
+        view = copy.copy(self)
+        view._with_baseline = True
+        return view
+
+    def read_volume(self, subject, category):
+        i = int(subject[5:])
+        if category == "images":
+            return self._images[i]
+        if self._with_baseline:
+            return np.stack([self._masks[i], self._baselines[i] * 255], -1)
+        return self._masks[i]
+
+    def shape(self, subject, category="images"):
+        if category == "images":
+            return ISIC + (3,)
+        return ISIC + (2,) if self._with_baseline else ISIC
+
+
+def isic_batch(dataset, transform, n, with_baseline=False):
+    """The first ``n`` images through the transform, NCHW float32 on the
+    card (with the baseline prediction as a 4th channel)."""
+    images = []
+    for subject in dataset.subjects[:n]:
+        out = transform({"images": dataset.read_volume(subject, "images"),
+                         "labels": dataset.with_baseline().read_volume(
+                             subject, "labels")})
+        image = out["images"]
+        if with_baseline:
+            image = np.concatenate([image, out["labels"][..., 1:] > 0.5], -1)
+        images.append(image.astype(np.float32))
+    return torch.from_numpy(np.stack(images).transpose(0, 3, 1, 2).copy()) \
+        .to(DEVICE)
+
+
+def prepared_unet(record, seed, x):
+    """A seeded U-Net of ``record`` on the card, its BatchNorms calibrated
+    on ``x`` and its class head centred (:func:`centre_head`)."""
+    torch.manual_seed(seed)
+    model = get_model("unet", record).to(DEVICE)
+    calibrate_bn(model, x)
+    centre_head(lambda v: model(v).logits,
+                getattr(model, f"Conv_{record['depth']}"), x)
+    return model
+
+
+def isic_models(dataset, transform):
+    """{family: what evaluate_subjects takes} at the ISIC flagship's width:
+    the U-Net, a sigma-headed one, 10 members, a segmenter and a PostNet
+    on its 32 feature channels, a 4-channel error net."""
+    x = isic_batch(dataset, transform, 16)
+    segmenter = prepared_unet({**ISIC_FLAGSHIP, "provide_features": True},
+                              SEED + 130, x)
+    torch.manual_seed(SEED + 131)
+    postnet = get_model("postnet", POSTNET).to(DEVICE)
+    with torch.inference_mode():
+        features = segmenter(x).features
+    calibrate_bn(postnet, features)
+    centre_head(lambda v: postnet(v).logits, postnet.Conv_0, features)
+    return {"mc": prepared_unet(ISIC_FLAGSHIP, SEED + 100, x),
+            "aleatoric": prepared_unet({**ISIC_FLAGSHIP, "sigma_out": True},
+                                       SEED + 101, x),
+            "ensemble": [prepared_unet(ISIC_FLAGSHIP, SEED + 110 + k, x)
+                         for k in range(MEMBERS)],
+            "auxiliary_feat": (segmenter, postnet),
+            "auxiliary_segm": prepared_unet(
+                {**ISIC_FLAGSHIP, "in_channels": 4}, SEED + 140,
+                isic_batch(dataset, transform, 16, with_baseline=True))}
+
+
+def run_isic_path(dataset, out_dir, models, run_id, transform, batch,
+                  int8_launches=0, **kwargs):
+    """``evaluate_subjects`` over the images with both kernels' counts set
+    to 0 before it and read after it: the eval kernel must launch once a
+    same-shape part of a chunk (all the images share one shape here, so
+    once a chunk) and never once an image, the int8 conv
+    ``int8_launches`` times. Returns (launches, seconds, eces, the first
+    chunk's eval planes, each (K, 192, 256))."""
+    planes = []
+    subject_eval = pipeline.fused_subject_eval
+
+    def keep_planes(*args, **kw):
+        if not planes:
+            planes.extend(args[:5])
+        return subject_eval(*args, **kw)
+
+    pipeline.fused_subject_eval = keep_planes
+    evalstats.fused_eval_stats.launches = 0
+    int8conv.int8_conv.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        eces = evaluate_subjects(models, dataset, out_dir, run_id=run_id,
+                                 batch_size=batch, seed=SEED, device=DEVICE,
+                                 masked=False, transform=transform, **kwargs)
+        torch.cuda.synchronize()
+    finally:
+        pipeline.fused_subject_eval = subject_eval
+    seconds = time.perf_counter() - t0
+    launches = evalstats.fused_eval_stats.launches
+    parts = -(-len(dataset.subjects) // batch)
+    if launches != parts:
+        raise AssertionError(f"{run_id}: fused_eval_stats launched {launches} "
+                             f"times for {parts} chunks of "
+                             f"{len(dataset.subjects)} images")
+    if int8conv.int8_conv.launches != int8_launches:
+        raise AssertionError(f"{run_id}: int8_conv launched "
+                             f"{int8conv.int8_conv.launches} times, expected "
+                             f"{int8_launches}")
+    if not all(math.isfinite(e) for e in eces.values()):
+        raise AssertionError(f"{run_id}: non-finite ECE")
+    return launches, seconds, eces, planes
+
+
+def check_image_axis(planes, label):
+    """The kernel's image axis on K images' planes: counts equal to the
+    plain version's, confidence sums at rtol 1e-6 (lanes sum in f32, the
+    plain version in f64), reruns bit-identical, every row bitwise the
+    launch of that image alone, and one launch. Returns the sums' max abs
+    error."""
+    th = DEFAULT_THRESHOLDS
+    before = evalstats.fused_eval_stats.launches
+    got = evalstats.fused_eval_stats(*planes, th, per_image=True)
+    again = evalstats.fused_eval_stats(*planes, th, per_image=True)
+    if evalstats.fused_eval_stats.launches != before + 2:
+        raise AssertionError("the image axis took more than one launch")
+    want = evalstats.fused_eval_stats_reference(*planes, th, per_image=True)
+    singles = [evalstats.fused_eval_stats(*(p[i] for p in planes), th)
+               for i in range(len(planes[0]))]
+    torch.cuda.synchronize()
+    err = rel = 0.0
+    for key, value in want.items():
+        if not same_bits(got[key], again[key]):
+            raise AssertionError(f"image axis {key}: reruns differ")
+        for i, single in enumerate(singles):
+            if not same_bits(got[key][i].contiguous(), single[key]):
+                raise AssertionError(f"image axis {key}: image {i} differs "
+                                     "from its single launch")
+        if key == "bins_conf_sum":
+            both = ~(got[key].isnan() & value.isnan())
+            diff = (got[key] - value).abs()[both]
+            err = float(diff.max()) if diff.numel() else 0.0
+            rel = float((diff / value.abs()[both].clamp_min(1e-300)).max()) \
+                if diff.numel() else 0.0
+            torch.testing.assert_close(got[key], value, rtol=1e-6, atol=1e-6,
+                                       equal_nan=True)
+        elif not torch.equal(got[key], value):
+            raise AssertionError(f"image axis {key}: kernel differs from the "
+                                 f"plain version on {label}")
+    log(f"fused_eval_stats image axis {label}: counts equal to the plain "
+        f"version, conf-sum max abs err {err:.3e} (max rel {rel:.3e}), "
+        f"reruns bit-identical, each of {len(singles)} rows bitwise its "
+        "single launch, one launch")
+    return err
+
+
+def time_image_axis(planes, hbm_rate, ptxas):
+    """The batched launch (wrapper, CUDA events; kernel, torch.profiler)
+    beside the K single launches of the same images, the plain version and
+    the bound: 11 bytes a pixel at the memory rate."""
+    th = DEFAULT_THRESHOLDS
+    k = len(planes[0])
+    singles = [tuple(p[i] for p in planes) for i in range(k)]
+
+    def batched():
+        evalstats.fused_eval_stats(*planes, th, per_image=True)
+
+    def one_by_one():
+        for one in singles:
+            evalstats.fused_eval_stats(*one, th)
+
+    batched_ms = cuda_ms(batched, 30)
+    singles_ms = cuda_ms(one_by_one, 10)
+    plain_ms = cuda_ms(lambda: evalstats.fused_eval_stats_reference(
+        *planes, th, per_image=True), 5)
+    for _ in range(2):  # a trace may hold none of the kernel's launches
+        kernel = kernel_ms(profiled_ms(batched))
+        if kernel is not None:
+            break
+    single_kernels = kernel_ms(profiled_ms(one_by_one))
+    n = planes[0].numel()
+    bytes_moved = n * (4 + 4 + 1 + 1 + 1)
+    bytes_ms = bytes_moved / hbm_rate * 1e3
+    ops_ms = n * (9 + 1 + 3 + len(th)) / F32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    (summary,) = ptxas.values()
+    log(f"fused_eval_stats image axis, {k} images {tuple(planes[0].shape[1:])}"
+        f": one launch {batched_ms:.4f} ms (wrapper, CUDA events, median of "
+        f"30), kernel {kernel} ms (torch.profiler); {k} single launches "
+        f"{singles_ms:.4f} ms (wrapper), kernels {single_kernels} ms each "
+        f"(torch.profiler mean); plain {plain_ms:.3f} ms; bound "
+        f"{bound_ms * 1e3:.2f} us ({bytes_moved / 1e6:.1f} MB at "
+        f"{hbm_rate / 1e12:.2f} TB/s); ptxas: {summary}")
+    return {"ms": batched_ms, "kernel_ms": kernel, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "single_launches_ms": singles_ms,
+            "single_kernel_ms": single_kernels}
+
+
+def mixed_nan_planes(planes):
+    """The folded and rescaled planes of a confidence chunk with three of
+    its images' confidence constant: those rescale 0/0 to NaN."""
+    folded, target, prediction, rescaled, mask = (p.clone() for p in planes)
+    for i in (0, 5, len(folded) - 1):
+        rescaled[i] = prepare.rescale_subject_min_max(
+            torch.full_like(rescaled[i], 0.3))
+        folded[i] = prepare.uncertainty_to_foreground_probabilities(
+            rescaled[i], prediction[i])
+    if not folded[0].isnan().all():
+        raise AssertionError("a constant confidence did not rescale to NaN")
+    return folded, target, prediction, rescaled, mask
+
+
+def isic_forward(model, dataset, transform, batch, mc):
+    """One MC chunk's forward (``batch`` images x ``mc`` samples, the
+    model call alone, CUDA events) in f32 and its convolution TFLOP/s."""
+    x = isic_batch(dataset, transform, batch).permute(0, 2, 3, 1) \
+        .contiguous()
+    from torch.utils.flop_counter import FlopCounterMode
+    with torch.inference_mode(), FlopCounterMode(display=False) as flops:
+        model(x[:1].permute(0, 3, 1, 2))
+    total = flops.get_total_flops() * batch * mc
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: steps.mc_forward(model, x, sample_generators(
+            (SEED, 0), 0, mc, DEVICE)), 3)
+    log(f"isic forward: MC{mc} chunk of {batch} images {ISIC} "
+        f"({batch * mc} images) {ms:.1f} ms f32, {total / 1e12:.2f} TFLOP "
+        f"of convolutions = {total / ms / 1e9:.1f} TFLOP/s")
+    return ms
+
+
+def isic_card_vs_cpu(model, x):
+    """The ISIC flagship's logits for a 4-image chunk on the card against
+    the CPU at the f32 bar (TF32 off); returns the max abs error."""
+    cpu = copy.deepcopy(model).cpu()
+    with torch.inference_mode():
+        want = cpu(x.cpu()).logits
+        got = model(x).logits.cpu()
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-4)
+    log(f"isic card vs CPU on {tuple(x.shape)}: logits max abs err "
+        f"{err:.3e} (|logits| max {float(want.abs().max()):.3f})")
+    return err
+
+
+def isic_int8_sites(batch, mc, n):
+    """The int8 kernel at the distinct site shapes of the ISIC int8 MC
+    path: a full chunk (``batch`` x ``mc`` images) and the tail chunk
+    (``n`` mod ``batch`` images x ``mc``) at 192x256, each held as
+    :func:`check_int8_site` holds the flagship's. Returns the sites
+    held."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED + 7)
+    held = []
+    for images in (batch * mc, (n % batch) * mc):
+        for label, shape, cout, k, pad, dil in level_sites(
+                images, ISIC, ISIC_FLAGSHIP):
+            t0 = time.perf_counter()
+            check = check_int8_site(f"isic {label}", shape, cout, k, pad,
+                                    dil, g)
+            del check
+            held.append({"site": f"isic {label}", "x": list(shape),
+                         "cout": cout, "k": k, "lhs_dilation": dil})
+            log(f"int8_conv isic {label} {shape} -> {cout}, {k}x{k} lhs "
+                f"dilation {dil}: int32 equal to the plain version, fused "
+                f"bitwise in bf16, bf16 folded, bf16 split pair and f32, "
+                f"reruns bit-identical ({time.perf_counter() - t0:.2f} s)")
+    return held
+
+
+def isic_phase(tmp, hbm_rate, ptxas):
+    """The native-2D direct eval over 600 ISIC-shaped images through the
+    config's rescale, 32 a chunk: MC20 in f32 and in bf16 with the fast
+    decoder, deterministic in f32 and in bf16 with the fast decoder and
+    the fold, aleatoric, the 10-member ensemble, auxiliary_feat and
+    auxiliary_segm in f32, and MC20 in bf16 + fast + int8 (skip 1; for
+    information). Each path prints s, images/s, peak GB, both kernels'
+    launches and the first image's ECE, the bf16 ones their ECE/Dice
+    deltas against the f32 run. The image axis of the eval kernel is held
+    against its plain version and against single launches, and timed.
+    Returns ({path: the eval kernel's by_path record}, the int8 path's
+    record for the int8 kernel, the image axis's numbers, the max abs
+    error of the kernel checks)."""
+    from rcu_tpu_torch.engine import config as cfg_lib
+    from rcu_tpu_torch.engine import databuild
+    config = cfg_lib.load(ISIC_CONFIG)
+    transform = databuild.build_transform(config.test_data.transform)
+    batch, mc = config.test_data.batch_size, int(config.others["mc"])
+    t0 = time.perf_counter()
+    dataset = IsicLikeDataset()
+    models = isic_models(dataset, transform)
+    n = len(dataset.subjects)
+    log(f"isic data and models: {n} images {ISIC}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    by_path, errs, f32_dirs = {}, [], {}
+    axis = {}
+
+    def run(label, models_, result_id, data=dataset, f32=None,
+            int8_launches=0, **kwargs):
+        out_dir = os.path.join(tmp, label)
+        launches, seconds, eces, planes = run_isic_path(
+            data, out_dir, models_, label, transform, batch,
+            int8_launches=int8_launches, **kwargs)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check_csvs(out_dir, label, result_id, n)
+        record = {"launches": launches, "s": seconds,
+                  "images_per_s": n / seconds, "peak_gb": peak_gb,
+                  "first_ece": eces[dataset.subjects[0]]}
+        text = ""
+        if f32 is not None:
+            got, want = ece_dice(out_dir, result_id), ece_dice(*f32)
+            for j, name in ((0, "ece"), (1, "dice")):
+                deltas = [abs(got[k][j] - want[k][j]) for k in want]
+                record[f"{name}_delta"] = max(deltas)
+                record[f"{name}_delta_mean"] = float(np.mean(deltas))
+            means = max(record["ece_delta_mean"], record["dice_delta_mean"])
+            record["held"] = not int8_launches
+            text = (f", against f32: ECE delta max {record['ece_delta']:.2e} "
+                    f"mean {record['ece_delta_mean']:.2e}, Dice delta max "
+                    f"{record['dice_delta']:.2e} mean "
+                    f"{record['dice_delta_mean']:.2e}" + (
+                        f", means held to {ISIC_BF16_MEAN_ENVELOPE}"
+                        if record["held"] else " (information, not held)"))
+            if record["held"] and means > ISIC_BF16_MEAN_ENVELOPE:
+                raise AssertionError(
+                    f"isic {label}: mean ECE/Dice delta against f32 {means} "
+                    f"beyond {ISIC_BF16_MEAN_ENVELOPE}")
+        f32_dirs[label] = (out_dir, result_id)
+        int8 = f", int8_conv launches {int8_launches}" if int8_launches else ""
+        log(f"isic {label}: {n} images {ISIC} in {seconds:.2f} s = "
+            f"{n / seconds:.1f} images/s (CUDA-synced), peak memory "
+            f"{peak_gb:.2f} GB, fused_eval_stats launches {launches}{int8}, "
+            f"first image's ECE {record['first_ece']:.6f}{text}")
+        by_path["isic_" + label] = record
+        return planes
+
+    planes = run("mc", models["mc"], "mc", mc=mc)
+    isic_forward(models["mc"], dataset, transform, batch, mc)
+    profile_phase(models["mc"], dataset, os.path.join(tmp, "profile_isic"),
+                  label=f"isic MC{mc} f32 (images)", subjects=2 * batch,
+                  batch=batch, mc=mc, masked=False, transform=transform)
+    label = f"MC{mc} chunk of {len(planes[0])} {ISIC}"
+    errs.append(check_image_axis(planes, label))
+    axis = time_image_axis(planes, hbm_rate, ptxas)
+    del planes
+    run("deterministic", models["mc"], "deterministic", mc=0)
+    run("aleatoric", models["aleatoric"], "aleatoric_globalrescale",
+        strategy="aleatoric", is_log_sigma=False)
+    run("ensemble", models["ensemble"], "ensemble", strategy="ensemble")
+    planes = run("auxiliary_feat", models["auxiliary_feat"],
+                 "auxiliary_feat_rescale", strategy="auxiliary_feat")
+    errs.append(check_image_axis(mixed_nan_planes(planes),
+                                 f"folded chunk with NaN images {ISIC}"))
+    del planes
+    run("auxiliary_segm", models["auxiliary_segm"], "auxiliary_segm_rescale",
+        data=dataset.with_baseline(), strategy="auxiliary_segm")
+    flagship = models["mc"]
+    x4 = isic_batch(dataset, transform, 4)
+    for label, flags, f32_label, kwargs in (
+            ("mc_bf16_fast", BF16_FAST, "mc", dict(mc=mc)),
+            ("deterministic_bf16_fast_fold", BF16_FAST_FOLD,
+             "deterministic", dict(mc=0))):
+        variant = variant_of(flagship, "unet", ISIC_FLAGSHIP, **flags)
+        run(label, variant, label, f32=f32_dirs[f32_label], **kwargs)
+        by_path["isic_" + label]["card_vs_cpu_max_abs_err"] = \
+            bf16_card_vs_cpu(f"isic {label}", variant, flagship, x4.cpu(),
+                             split=True, depth=ISIC_FLAGSHIP["depth"])
+        del variant
+    t0 = time.perf_counter()
+    sites = isic_int8_sites(batch, mc, n)
+    log(f"isic int8 sites: {len(sites)} shapes held, "
+        f"{time.perf_counter() - t0:.1f} s")
+    int8_model = variant_of(flagship, "unet", ISIC_FLAGSHIP, **BF16_FAST)
+    _calibrated_quant_model(int8_model, dataset, batch, SEED,
+                            skip_levels=INT8_SKIP, transform=transform)
+    expected = int8_sites_per_forward() * -(-n // batch)
+    run("mc_bf16_fast_int8", int8_model, "mc_bf16_fast_int8",
+        f32=f32_dirs["mc"], int8_launches=expected, mc=mc)
+    by_path["isic_mc_bf16_fast_int8"]["int8_launches"] = expected
+    by_path["isic_mc_bf16_fast_int8"]["sites_card_vs_cpu_bitwise"] = \
+        int8_sites_card_vs_cpu("isic_mc_bf16_fast_int8", int8_model, x4[:2],
+                               ("3x3", "split pair", "fused up-conv"))
+    by_path["isic_mc"]["card_vs_cpu_max_abs_err"] = isic_card_vs_cpu(
+        flagship, x4)
+    int8_record = {k: by_path["isic_mc_bf16_fast_int8"][k]
+                   for k in ("s", "images_per_s", "peak_gb", "ece_delta",
+                             "dice_delta")}
+    int8_record["launches"] = expected
+    int8_record["isic_sites_held"] = sites
+    return by_path, int8_record, axis, max(errs)
+
+
 def main():
     t_start = time.perf_counter()
     hbm_rate = device_phase()
@@ -1631,10 +2119,19 @@ def main():
         int8_record, int8_paths = int8_phase(model, families, dataset, tmp,
                                              hbm_rate, ptxas)
         log(f"int8 phase: {time.perf_counter() - t0:.1f} s")
+        del dataset, families, model
+        t0 = time.perf_counter()
+        isic_paths, isic_int8, axis, isic_err = isic_phase(tmp, hbm_rate,
+                                                           ptxas)
+        log(f"isic phase: {time.perf_counter() - t0:.1f} s")
     record["by_path"] = {"mc": {"launches": record["launches"]}, **by_path,
-                         **variants, **int8_paths}
+                         **variants, **int8_paths, **isic_paths}
     record["launches"] = sum(p["launches"] for p in record["by_path"].values())
-    record["max_abs_err"] = max(record["max_abs_err"], err, variant_err)
+    record["max_abs_err"] = max(record["max_abs_err"], err, variant_err,
+                                isic_err)
+    record["image_axis"] = axis
+    int8_record["by_path"]["isic_mc_bf16_fast_int8"] = isic_int8
+    int8_record["launches"] += isic_int8["launches"]
     log(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [record, int8_record]}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 // Fused per-subject eval statistics for Hopper (sm_90a), one pass over the
-// five per-voxel planes of a subject.
+// five per-voxel planes of a subject, or of each of K images in one launch.
 //
 // Replaces the TPU kernel rcu_tpu/ops/pallas/evalstats.py:fused_eval_stats
 // (Pallas body _make_kernel). It computes the same function, not the same
@@ -52,6 +52,18 @@
 //      rows in block order and writes the int64 / float64 result row with
 //      the threshold rows in the caller's order. The wrapper makes one
 //      allocation a call and caches the edge and threshold arguments.
+//   5. An image axis. The native-2D eval reduces K same-shape images a
+//      chunk (ISIC: 32 images of 192x256, 49,152 voxels each), and its
+//      reference vmaps one reduction an image. A launch an image would cost
+//      K times the wrapper's host time and the kernel's fixed cost for
+//      0.16 us of streaming each. So one launch takes K images: blockIdx.y
+//      is the image, and each image has the grid, partial rows, ticket and
+//      result row that a launch of that image alone would have. The blocks
+//      of an image therefore count the same voxels in the same order as a
+//      single launch, and each image's result is bitwise that launch's.
+//      One memset zeroes the K tickets. Where K > 1 and an image's size is
+//      not a multiple of 8 voxels, the images after the first do not start
+//      on a vector boundary: every chunk then takes the masked scalar path.
 // Determinism: counts are exact; confidences add in f32 per lane in voxel
 // order, in f64 from the block sums on, always in the same order, so two
 // runs give bit-identical results. Per-lane counters are int32: the host
@@ -174,10 +186,10 @@ fused_eval_stats_kernel(const float* __restrict__ fg,
                         const uint8_t* __restrict__ tgt,
                         const uint8_t* __restrict__ pred,
                         const uint8_t* __restrict__ weight, long long n,
-                        Params prm, unsigned* __restrict__ ticket,
-                        long long* __restrict__ part,
-                        long long* __restrict__ out_int,
-                        double* __restrict__ out_conf) {
+                        bool vector_loads, Params prm,
+                        unsigned* __restrict__ tickets,
+                        long long* __restrict__ parts,
+                        long long* __restrict__ out) {
   const int T = prm.n_thresholds;
   const int n_int = int_cells(T);
   const int n_cells = lane_cells(T);
@@ -191,7 +203,21 @@ fused_eval_stats_kernel(const float* __restrict__ fg,
   int* mine = s_cells + warp * n_cells * 32 + lane;
   for (int k = 0; k < n_cells; ++k) mine[32 * k] = 0;  // 0.0f has the same bits
 
-  const long long n_full = n / kVoxels;  // whole chunks
+  // this block's image: its planes, ticket, partial rows and result row
+  const long long image = blockIdx.y;
+  fg += image * n;
+  unc += image * n;
+  tgt += image * n;
+  pred += image * n;
+  weight += image * n;
+  unsigned* ticket = tickets + image;
+  long long* part = parts + image * n_cells * (long long)gridDim.x;
+  long long* out_int = out + image * (kIntCols + kBins);
+  double* out_conf = reinterpret_cast<double*>(out_int + kIntCols);
+
+  // whole chunks by vector loads where the image starts on a vector
+  // boundary
+  const long long n_full = vector_loads ? n / kVoxels : 0;
   const long long stride = (long long)gridDim.x * kThreads;
   long long q = (long long)blockIdx.x * kThreads + threadIdx.x;
   for (; q < n_full; q += stride) {
@@ -211,9 +237,9 @@ fused_eval_stats_kernel(const float* __restrict__ fg,
     load_bytes(weight, q, ww);
     count_chunk<false>(f, u, tw, pw, ww, 0u, prm, mine);
   }
-  if (q == n_full && n_full * kVoxels < n) {
-    // the ragged tail: one chunk, masked, counted by the one thread whose
-    // stride lands on it
+  for (; q * kVoxels < n; q += stride) {
+    // masked chunks: the ragged tail (one chunk, counted by the one thread
+    // whose stride lands on it), or every chunk without vector loads
     float f[kVoxels], u[kVoxels];
     uint32_t tw[kQuads] = {}, pw[kQuads] = {}, ww[kQuads] = {};
     const long long base = kVoxels * q;
@@ -227,8 +253,9 @@ fused_eval_stats_kernel(const float* __restrict__ fg,
       pw[e >> 2] |= (uint32_t)(in && pred[base + e]) << bit;
       ww[e >> 2] |= (uint32_t)(in && weight[base + e]) << bit;
     }
-    count_chunk<true>(f, u, tw, pw, ww, (1u << (unsigned)(n - base)) - 1u,
-                      prm, mine);
+    const int left = n - base < kVoxels ? (int)(n - base) : kVoxels;
+    count_chunk<true>(f, u, tw, pw, ww, (1u << (unsigned)left) - 1u, prm,
+                      mine);
   }
   __syncthreads();
 
@@ -332,21 +359,25 @@ extern "C" int rcu_fused_eval_stats_occupancy(int n_thresholds, int* blocks,
       blocks, fused_eval_stats_kernel, kThreads, shared_bytes(n_thresholds));
 }
 
-// Zeroes the ticket and launches on `stream`; returns the cudaError_t of
-// the two (0 = queued). fg and unc 16-byte aligned, the u8 planes 8-byte
+// Zeroes the tickets and launches on `stream`; returns the cudaError_t of
+// the two (0 = queued). The planes hold `images` images of `n` voxels each,
+// one after another; fg and unc 16-byte aligned, the u8 planes 8-byte
 // aligned. `edge` holds the 9 inner bin edges in `p >= edge` form;
 // `thresholds` ascending without NaN, `slots[j]` the caller's row of
-// thresholds[j] (a permutation of 0..n_thresholds-1). `scratch`: an 8-byte
-// ticket slot, then lane_cells(n_thresholds) * grid 8-byte partials.
-// `out`: kIntCols int64 then kBins float64.
+// thresholds[j] (a permutation of 0..n_thresholds-1). `grid`: the blocks
+// of each image. `scratch`: `images` 4-byte tickets in
+// ticket_words(images) 8-byte words, then images * grid *
+// lane_cells(n_thresholds) 8-byte partials. `out`: a row an image, kIntCols
+// int64 then kBins float64.
 extern "C" int rcu_fused_eval_stats(const float* fg, const float* unc,
                                     const uint8_t* tgt, const uint8_t* pred,
                                     const uint8_t* weight, long long n,
-                                    const float* edge, const float* thresholds,
-                                    const int* slots, int n_thresholds,
-                                    void* scratch, long long* out, int grid,
-                                    void* stream) {
-  if (n < 0 || n_thresholds < 0 || n_thresholds > kMaxThresholds || grid <= 0) {
+                                    int images, const float* edge,
+                                    const float* thresholds, const int* slots,
+                                    int n_thresholds, void* scratch,
+                                    long long* out, int grid, void* stream) {
+  if (n < 0 || n_thresholds < 0 || n_thresholds > kMaxThresholds || grid <= 0 ||
+      images <= 0 || images > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   Params prm;
@@ -367,12 +398,15 @@ extern "C" int rcu_fused_eval_stats(const float* fg, const float* unc,
   }
   prm.n_thresholds = n_thresholds;
   const cudaStream_t s = (cudaStream_t)stream;
-  unsigned* ticket = static_cast<unsigned*>(scratch);
-  long long* part = static_cast<long long*>(scratch) + 1;
-  cudaError_t err = cudaMemsetAsync(ticket, 0, sizeof(unsigned), s);
+  unsigned* tickets = static_cast<unsigned*>(scratch);
+  long long* parts = static_cast<long long*>(scratch) + (images + 1) / 2;
+  cudaError_t err = cudaMemsetAsync(tickets, 0, sizeof(unsigned) * images, s);
   if (err != cudaSuccess) return (int)err;
-  fused_eval_stats_kernel<<<grid, kThreads, shared_bytes(n_thresholds), s>>>(
-      fg, unc, tgt, pred, weight, n, prm, ticket, part, out,
-      reinterpret_cast<double*>(out + kIntCols));
+  // an image's planes start on a vector boundary where it is the only one
+  // or its size is a multiple of a chunk
+  const bool vector_loads = images == 1 || n % kVoxels == 0;
+  fused_eval_stats_kernel<<<dim3(grid, images), kThreads,
+                            shared_bytes(n_thresholds), s>>>(
+      fg, unc, tgt, pred, weight, n, vector_loads, prm, tickets, parts, out);
   return (int)cudaGetLastError();
 }

@@ -4,12 +4,15 @@ artifacts in between (``rcu_tpu.eval.direct`` counterpart).
 
 Ported: the six protocols of :data:`STRATEGIES`, which cover the paper's
 eight strategies (baseline and center run ``deterministic``, their MC
-variants ``mc``), on volume stores, one device, the flat CSV layout, in
-float32 and in the inference variants of the JAX package: the bf16
-compute dtype, the fast decoder, the BN fold (``models.unet``) and int8
-PTQ of the mc, deterministic and ensemble protocols (``ops.quant``).
-Native-2D datasets and meshes are later slices and raise
-``NotImplementedError``.
+variants ``mc``), on volume stores (BraTS) and native-2D datasets (ISIC
+image folders, 2-D H5 stores), with the config's transforms, one device,
+the flat CSV layout, in float32 and in the inference variants of the JAX
+package: the bf16 compute dtype, the fast decoder, the BN fold
+(``models.unet``) and int8 PTQ of the mc, deterministic and ensemble
+protocols (``ops.quant``). Meshes are a later slice. The JAX driver's
+``dispatch_chunks`` is not ported: it amortizes the round trip of a
+remote TPU link over several chunks a dispatch, and a local card has no
+such round trip.
 
 :func:`evaluate_direct` detects the strategy as ``rcu_tpu.eval.direct`` does and
 builds the dataset and the models from a test config and its checkpoints;
@@ -18,8 +21,11 @@ builds the dataset and the models from a test config and its checkpoints;
 """
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import contextlib
 import logging
+import math
 import os
 import time
 
@@ -198,14 +204,34 @@ def _primary_test_at(config):
     return "best" if config.test_at in (None, "") else config.test_at
 
 
-def _centre_batch(dataset, subject, batch_size, dtype, device):
-    """The centre ``min(len, batch_size)`` slices of a subject (BraTS edge
-    slices are often empty and would under-estimate every site's range),
-    NHWC in ``dtype`` on ``device``."""
-    volume = np.asarray(dataset.read_volume(subject, "images"), np.float32)
-    n = min(len(volume), max(1, batch_size))
-    lo = max(0, (len(volume) - n) // 2)
-    return torch.from_numpy(volume[lo:lo + n]).to(dtype).to(device)
+def _transformed_image(transform, image):
+    """One image or slice (H, W, C) through the config's transform, as
+    float32. Only the images entry goes in: a calibration or sigma-bounds
+    batch needs no labels (the JAX package passes zero labels there, which
+    a transform that rescales the labels refuses as constant)."""
+    image = np.asarray(image, np.float32)
+    if transform is None:
+        return image
+    return np.asarray(transform({"images": image})["images"], np.float32)
+
+
+def _calibration_images(dataset, subjects, batch_size, transform):
+    """The int8 calibration (and clip report) batch, float32 (N, H, W, C)
+    on the host, each image or slice through the transform, and whether
+    the dataset is native-2D: on a native-2D dataset the images of
+    ``subjects``, on a volume store the centre ``min(len, batch_size)``
+    slices of ``subjects[0]`` (BraTS edge slices are often empty and would
+    under-estimate every site's range)."""
+    first = np.asarray(dataset.read_volume(subjects[0], "images"), np.float32)
+    if first.ndim == 3:
+        images = [first] + [dataset.read_volume(s, "images")
+                            for s in subjects[1:]]
+        return np.stack([_transformed_image(transform, image)
+                         for image in images]), True
+    n = min(len(first), max(1, batch_size))
+    lo = max(0, (len(first) - n) // 2)
+    return np.stack([_transformed_image(transform, z)
+                     for z in first[lo:lo + n]]), False
 
 
 def _seeded_generator(seed, device):
@@ -215,27 +241,31 @@ def _seeded_generator(seed, device):
 
 
 def _calibrated_quant_model(models, dataset, batch_size: int, seed: int,
-                            ensemble: bool = False, skip_levels=None):
+                            ensemble: bool = False, skip_levels=None,
+                            transform=None):
     """Make ``models`` (one U-Net, or with ``ensemble`` the list of
     members) the int8 models of a direct run, in place, and return them
     (``rcu_tpu.eval.direct._calibrated_quant_model``).
 
-    The calibration batch is the centre slices of the first subject,
-    through the plain model as loaded (dtype, decoder, fold). One model
-    calibrates under one dropout sample drawn from a generator seeded with
-    ``seed`` (a folded model deterministically); the ensemble
-    union-calibrates: each member runs its own deterministic pass, the
-    scales merge by max, and every member keeps its own int8 weights.
-    ``skip_levels`` (None: ``ops.quant.DEFAULT_SKIP_LEVELS``) is clamped to
-    the model's levels. With ``RCU_QUANT_CLIP_DEBUG`` set, the quantized
-    model (member 0) runs the centre slices of the last subject and logs
+    The calibration batch (:func:`_calibration_images`, through the
+    config's ``transform``) is the centre slices of the first subject, or
+    on a native-2D dataset its first ``batch_size`` images, through the
+    plain model as loaded (dtype, decoder, fold). One model calibrates
+    under one dropout sample drawn from a generator seeded with ``seed``
+    (a folded model deterministically); the ensemble union-calibrates:
+    each member runs its own deterministic pass, the scales merge by max,
+    and every member keeps its own int8 weights. ``skip_levels`` (None:
+    ``ops.quant.DEFAULT_SKIP_LEVELS``) is clamped to the model's levels.
+    With ``RCU_QUANT_CLIP_DEBUG`` set, the quantized model (member 0) runs
+    a batch the calibration did not see (:func:`_clip_debug`) and logs
     every site's clipped fraction, as a warning above 0.001."""
     members = list(models) if ensemble else [models]
     first = members[0]
     device = next(first.parameters()).device
     subjects = dataset.subjects
-    batch = _centre_batch(dataset, subjects[0], batch_size, first.dtype,
-                          device)
+    batch, is_2d = _calibration_images(dataset, subjects[:max(1, batch_size)],
+                                       batch_size, transform)
+    batch = torch.from_numpy(batch).to(first.dtype).to(device)
     if ensemble:
         scales = {}
         for member in members:
@@ -260,34 +290,46 @@ def _calibrated_quant_model(models, dataset, batch_size: int, seed: int,
     for member in members:
         member.quantize(scales, skip_levels)
     if os.environ.get("RCU_QUANT_CLIP_DEBUG"):
-        _clip_debug(first, dataset, batch_size, seed, ensemble, skip_levels)
+        _clip_debug(first, dataset, batch_size, seed, ensemble, skip_levels,
+                    transform, is_2d)
     return members if ensemble else first
 
 
-def _clip_debug(model, dataset, batch_size, seed, ensemble, skip_levels):
-    """The clip report of the quantized ``model`` on the centre slices of
-    the last subject, one the calibration never saw where there are two."""
+def _clip_debug(model, dataset, batch_size, seed, ensemble, skip_levels,
+                transform=None, is_2d=False):
+    """The clip report of the quantized ``model`` on a batch that the
+    calibration did not see where the dataset holds one: the centre slices
+    of the last subject, or on a native-2D dataset the last
+    ``batch_size`` images after the calibration's."""
     if skip_levels > model.depth:
         logging.info("int8 clip report skipped: quantize_skip=%d covers all "
                      "%d levels, no quantized sites", skip_levels,
                      model.depth + 1)
         return
     subjects = dataset.subjects
-    if subjects[0] == subjects[-1]:
+    k = max(1, batch_size)
+    if is_2d:
+        probe = subjects[k:][-k:] or subjects[:k]
+        seen = probe[0] in subjects[:k]
+    else:
+        probe = [subjects[-1]]
+        seen = subjects[0] == subjects[-1]
+    if seen:
         logging.warning(
             "int8 clip report: dataset too small to hold out a "
             "never-calibrated subject — the probe batch overlaps the "
             "calibration batch and measures no distribution shift")
     device = next(model.parameters()).device
-    shift = _centre_batch(dataset, subjects[-1], batch_size, model.dtype,
-                          device)
+    shift = torch.from_numpy(_calibration_images(
+        dataset, probe, batch_size, transform)[0]).to(model.dtype).to(device)
     report = quant_ops.clip_report(
         model, [shift], mc_dropout=not ensemble and not model.fold_bn,
         generators=[_seeded_generator(seed + 1, device)])
     worst = sorted(report.items(), key=lambda kv: -kv[1])[:5]
     log = logging.warning if worst and worst[0][1] > 0.001 else logging.info
-    log("int8 clip report (%d subject(s) '%s'%s): worst sites %s", 1,
-        subjects[-1], " member 0" if ensemble else "",
+    span = probe[0] if len(probe) == 1 else f"{probe[0]}..{probe[-1]}"
+    log("int8 clip report (%d subject(s) '%s'%s): worst sites %s",
+        len(probe), span, " member 0" if ensemble else "",
         ", ".join(f"{k}={v:.2e}" for k, v in worst))
 
 
@@ -440,11 +482,14 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
         if not subjects:
             raise ValueError(f"no test subjects: split {config.split!r} has "
                              "an empty test set")
-    databuild.build_transform(config.test_data.transform)
-    dataset = databuild.build_data(config.test_data, subjects=subjects)
+    # the staged test loop's source of an auxiliary_segm run's baseline
+    # predictions on an image folder (the JAX direct eval reads none, so
+    # there only an H5 store with [gt, baseline] labels runs that family)
+    dataset = databuild.build_data(
+        config.test_data, subjects=subjects,
+        prediction_dir=config.others.get("prediction_dir"))
     try:
-        if len(dataset.shape(dataset.subjects[0], "images")) != 4:
-            raise NotImplementedError("native-2D datasets are not ported yet")
+        transform = databuild.build_transform(config.test_data.transform)
         strategy = _detect_strategy(config, dataset, strategy)
         if fold_bn and strategy == "mc" and int(mc) != 0:
             raise ValueError(
@@ -462,7 +507,7 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
             models = _calibrated_quant_model(
                 models, dataset, config.test_data.batch_size, config.seed,
                 ensemble=strategy == "ensemble",
-                skip_levels=quantize_skip_levels)
+                skip_levels=quantize_skip_levels, transform=transform)
         is_log_sigma = cfg_lib.require_log_sigma(config) \
             if strategy == "aleatoric" else False
         return evaluate_subjects(models, dataset, out_dir, strategy=strategy,
@@ -470,7 +515,8 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
                                  is_log_sigma=is_log_sigma,
                                  batch_size=config.test_data.batch_size,
                                  seed=config.seed, thresholds=thresholds,
-                                 masked=masked, device=device)
+                                 masked=masked, device=device,
+                                 transform=transform)
     finally:
         dataset.close()
 
@@ -490,10 +536,95 @@ def _full_float32():
          torch.backends.cuda.matmul.allow_tf32) = flags
 
 
-def _to_host(tree):
+def _flatten(tree, prefix=()):
     if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
-    return tree.cpu().numpy()
+        for key, value in tree.items():
+            yield from _flatten(value, prefix + (key,))
+    else:
+        yield prefix, tree
+
+
+def _flat(leaf):
+    """A contiguous tensor as 1-D with unit stride (a one-element slice of
+    a row keeps the row's stride through ``contiguous``)."""
+    flat = leaf.reshape(-1)
+    return flat.as_strided((1,), (1,)) if flat.numel() == 1 else flat
+
+
+class _Fetch:
+    """The eval results of one dispatch on their way to the host in ONE
+    device-to-host copy: every leaf's bytes packed into one uint8 buffer
+    on the device, queued right after the work that makes them, then
+    copied into pinned host memory without blocking (on the CPU the packed
+    buffer is the host copy). :meth:`result` waits for that copy only and
+    unpacks the leaves as numpy arrays, in the tree's shape."""
+
+    def __init__(self, tree):
+        # the widest leaves first: every leaf then starts at a multiple of
+        # its own element size in the buffer
+        leaves = sorted(((path, leaf.detach().contiguous())
+                         for path, leaf in _flatten(tree)),
+                        key=lambda pl: -pl[1].element_size())
+        self.spec = [(path, leaf.dtype, tuple(leaf.shape))
+                     for path, leaf in leaves]
+        packed = torch.cat([_flat(leaf).view(torch.uint8)
+                            for _, leaf in leaves])
+        self.event = None
+        if packed.device.type == "cuda":
+            self.host = torch.empty(packed.shape, dtype=torch.uint8,
+                                    pin_memory=True)
+            self.host.copy_(packed, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = packed
+
+    def result(self) -> dict:
+        if self.event is not None:
+            self.event.synchronize()
+        out, offset = {}, 0
+        for path, dtype, shape in self.spec:
+            size = math.prod(shape) * dtype.itemsize
+            leaf = self.host[offset:offset + size].view(dtype).reshape(shape)
+            offset += size
+            node = out
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = leaf.numpy().copy()
+        return out
+
+
+def _drive(pool, items, load_fn, dispatch_fn, fetch_fn, window: int = 2):
+    """The direct eval's loop (``rcu_tpu.eval.direct._drive``): the pool's
+    threads read ``window`` items ahead (``load_fn(i, item)``: decode,
+    transform, cast, pin), the calling thread dispatches each item's
+    device work (``dispatch_fn(i, item, loaded)``, which queues it and
+    returns without waiting) and keeps up to ``window`` items in flight
+    before it fetches the oldest (``fetch_fn(item, out, t0)``, which
+    waits for that item's results only). Items finish in order. The
+    loaded host tensors stay referenced until their item is fetched, so a
+    pinned buffer outlives its non-blocking copy. The JAX package sizes
+    its read-ahead as the pool's workers + 2 and clamps it to the window;
+    with the one reader thread that is the window."""
+    lookahead = max(1, window)
+    futures = collections.deque(
+        pool.submit(load_fn, i, item) for i, item in
+        enumerate(items[:lookahead]))
+    pending = collections.deque()
+    for i, item in enumerate(items):
+        t0 = time.time()
+        loaded = futures.popleft().result()
+        if i + lookahead < len(items):
+            futures.append(pool.submit(load_fn, i + lookahead,
+                                       items[i + lookahead]))
+        out = dispatch_fn(i, item, loaded)
+        pending.append((item, (loaded, out), t0))
+        while len(pending) > window:
+            item_, (_, out_), t0_ = pending.popleft()
+            fetch_fn(item_, out_, t0_)
+    while pending:
+        item_, (_, out_), t0_ = pending.popleft()
+        fetch_fn(item_, out_, t0_)
 
 
 def _check_models(strategy, models):
@@ -527,44 +658,132 @@ def _input_dtype(strategy, models) -> torch.dtype:
     return dtypes.pop() if len(dtypes) == 1 else torch.float32
 
 
-def _read_images(dataset, subject, device, dtype=torch.float32):
-    volume = np.asarray(dataset.read_volume(subject, "images"), np.float32)
-    if volume.ndim != 4:
-        raise NotImplementedError("native-2D datasets are not ported yet")
-    return torch.from_numpy(volume).to(dtype).to(device)
-
-
-def _split_labels(labels, needs_baseline: bool):
+def _split_labels(labels, needs_baseline: bool, is_2d: bool = False):
     """-> (target bool, baseline uint8 or None). auxiliary_segm labels carry
-    [gt, baseline prediction] on the trailing axis; otherwise a trailing
-    channel axis drops to the gt channel."""
+    [gt, baseline prediction] on the trailing axis; otherwise a channel
+    axis past the spatial rank ((Z, H, W), native-2D (H, W)) drops to the
+    gt channel."""
     labels = np.asarray(labels)
     if needs_baseline:
         if labels.shape[-1] != 2:
             raise ValueError("auxiliary_segm needs [gt, prediction] 2-channel "
                              f"labels; got label shape {labels.shape}")
         return labels[..., 0] > 0.5, (labels[..., 1] > 0.5).astype(np.uint8)
-    if labels.ndim > 3:
+    if labels.ndim > (2 if is_2d else 3):
         labels = labels[..., 0]
     return labels > 0.5, None
+
+
+class _Reader:
+    """The host side of a run, on the reader threads: each item's images,
+    labels and mask decoded, through the transform (per slice on a volume
+    store), the images cast to the models' input dtype, every array a
+    torch tensor in pinned memory when the run's device is a card. No CUDA
+    stream is touched here: the dispatching thread makes the copies."""
+
+    def __init__(self, dataset, transform, strategy, masked, dtype, device,
+                 is_2d):
+        self.dataset, self.transform = dataset, transform
+        self.needs_baseline = strategy == "auxiliary_segm"
+        self.masked, self.dtype, self.is_2d = masked, dtype, is_2d
+        self.pin = device.type == "cuda"
+
+    def _tensor(self, array, dtype=None):
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if dtype is not None:
+            t = t.to(dtype)
+        return t.pin_memory() if self.pin else t
+
+    def _transformed(self, image, labels):
+        out = self.transform({"images": image, "labels": labels})
+        return np.asarray(out["images"], np.float32), np.asarray(out["labels"])
+
+    def item(self, subject, images_only=False) -> dict:
+        """{images, and unless ``images_only``: target, mask, baseline}
+        of one subject (volume) or image (native-2D)."""
+        images = np.asarray(self.dataset.read_volume(subject, "images"),
+                            np.float32)
+        if images_only:
+            if self.transform is None:
+                return {"images": images}
+            if self.is_2d:
+                return {"images": _transformed_image(self.transform, images)}
+            return {"images": np.stack([_transformed_image(self.transform, z)
+                                        for z in images])}
+        labels = np.asarray(self.dataset.read_volume(subject, "labels"))
+        if self.transform is not None:
+            if self.is_2d:
+                images, labels = self._transformed(images, labels)
+            else:  # per slice (H, W, C), as the staged loader applies it
+                outs = [self._transformed(images[z], labels[z])
+                        for z in range(images.shape[0])]
+                images = np.stack([o[0] for o in outs])
+                labels = np.stack([o[1] for o in outs])
+        target, baseline = _split_labels(labels, self.needs_baseline,
+                                         self.is_2d)
+        mask = foreground_mask(self.dataset, subject, target.shape) \
+            if self.masked else np.ones(target.shape, bool)
+        item = {"images": images, "target": target, "mask": mask}
+        if baseline is not None:
+            item["baseline"] = baseline
+        return item
+
+    def host(self, arrays: dict) -> dict:
+        """numpy arrays -> host tensors, the images in the input dtype."""
+        return {k: self._tensor(v, self.dtype if k == "images" else None)
+                for k, v in arrays.items()}
+
+    def subject(self, subject, images_only=False) -> dict:
+        return self.host(self.item(subject, images_only))
+
+    def chunk(self, group, images_only=False) -> list:
+        """A chunk of native-2D images as same-shape parts, in order: runs
+        of consecutive images of one shape (``load_chunk``), each
+        ``(start in the chunk, subjects, host tensors (n, ...))``."""
+        items = [self.item(s, images_only) for s in group]
+        parts, start = [], 0
+        for i in range(1, len(items) + 1):
+            if i == len(items) or \
+                    items[i]["images"].shape != items[start]["images"].shape:
+                same = items[start:i]
+                parts.append((start, group[start:i], self.host(
+                    {k: np.stack([it[k] for it in same]) for k in same[0]})))
+                start = i
+        return parts
+
+
+def _image_row(host, i):
+    """Image ``i``'s eval row of a part's host results."""
+    return {k: ({c: x[i] for c, x in v.items()} if isinstance(v, dict)
+                else v[i]) for k, v in host.items()}
 
 
 def evaluate_subjects(models, dataset, out_dir: str, *, strategy: str = "mc",
                       run_id: str = "baseline", mc: int = 20,
                       is_log_sigma: bool = False, batch_size: int = 32,
                       seed: int = 20, thresholds=DEFAULT_THRESHOLDS,
-                      masked: bool = True, device=None) -> dict:
+                      masked: bool = True, device=None,
+                      transform=None) -> dict:
     """The direct eval's core over ``dataset.subjects`` (see module doc).
 
     ``models``: one model for mc, deterministic, aleatoric (sigma head)
     and auxiliary_segm (5 input channels); the list of members for
     ensemble; the (segmenter with ``provide_features``, PostNet) pair for
-    auxiliary_feat; in float32 or any variant (``model_from_flax``). The
-    volumes are cast to the models' compute dtype on the host. ``mc=0``
-    runs the mc strategy as deterministic, and subject ``i``'s MC stream
-    is ``(seed, i)`` (``eval.pipeline``). aleatoric runs two passes: the
-    subjects' sigma bounds, then the eval with the run's global bounds (a
+    auxiliary_feat; in float32 or any variant (``model_from_flax``).
+    ``transform`` (``engine.databuild.build_transform``) applies per
+    slice of a volume, or per image. The images are cast to the models'
+    compute dtype on the host. ``mc=0`` runs the mc strategy as
+    deterministic. aleatoric runs two passes: the sigma bounds of each
+    subject (image), then the eval with the run's global bounds (a
     constant range raises in between).
+
+    A volume store runs a subject at a time (its MC stream ``(seed,
+    i)``). A native-2D dataset (images (H, W, C)) runs ``batch_size``
+    images a chunk, a chunk split into runs of consecutive same-shape
+    images, each run one batch and one eval kernel launch (its MC stream
+    ``(seed, offset of its first image)``), with a CSV row per image.
+    Either way one reader thread reads ahead of the device work
+    (:func:`_drive`), and each item's results come back in one copy.
 
     The f32 models and the f32 heads of the others are held to the f32
     bar, so cuDNN and matmul TF32 are off while they run (torch's default
@@ -572,52 +791,149 @@ def evaluate_subjects(models, dataset, out_dir: str, *, strategy: str = "mc",
     restored afterwards, also on error."""
     _check_models(strategy, models)
     device = resolve_device(device)
-    dtype = _input_dtype(strategy, models)
-    with _full_float32():
-        sinks = _EvalSinks(out_dir, run_id, thresholds, strategy)
-        bounds = None
-        if strategy == "aleatoric":
-            for subject in dataset.subjects:
-                sinks.add_bounds(*pipeline.volume_sigma_minmax(
-                    models, batch_size,
-                    _read_images(dataset, subject, device, dtype),
-                    is_log_sigma))
-            bounds = _global_bounds(sinks.bounds)
-            logging.info("direct aleatoric: global sigma range [%.6f, %.6f]",
-                         *bounds)
-        eces = {}
-        for si, subject in enumerate(dataset.subjects):
-            t0 = time.time()
-            volume = _read_images(dataset, subject, device, dtype)
-            target, baseline = _split_labels(
-                dataset.read_volume(subject, "labels"),
-                strategy == "auxiliary_segm")
-            mask = foreground_mask(dataset, subject, target.shape) if masked \
-                else np.ones(target.shape, bool)
-            target = torch.from_numpy(target).to(device)
-            mask = torch.from_numpy(mask).to(device)
-            common = (target, mask, thresholds)
-            if strategy in ("mc", "deterministic"):
-                out = pipeline.volume_mc_eval(
-                    models, mc if strategy == "mc" else 0, batch_size, volume,
-                    *common, rng=(seed, si))
-            elif strategy == "aleatoric":
-                out = pipeline.volume_aleatoric_eval(
-                    models, batch_size, volume, *common, *bounds, is_log_sigma)
-            elif strategy == "ensemble":
-                out = pipeline.volume_ensemble_eval(models, batch_size, volume,
-                                                    *common)
-            elif strategy == "auxiliary_feat":
-                out = pipeline.volume_aux_feat_eval(*models, batch_size,
-                                                    volume, *common)
-            else:
-                out = pipeline.volume_aux_segm_eval(
-                    models, batch_size, volume,
-                    torch.from_numpy(baseline).to(device), *common)
-            row = _to_host(out)
-            sinks.write_subject(subject, row)
-            eces[subject] = float(row["ece"])
-            logging.info("direct eval %s ece=%.5f (%.2fs)", subject,
-                         eces[subject], time.time() - t0)
-        sinks.finish()
-        return eces
+    # native-2D: images (H, W, C) with no slice axis (ISIC)
+    is_2d = len(dataset.shape(dataset.subjects[0], "images")) == 3
+    reader = _Reader(dataset, transform, strategy, masked,
+                     _input_dtype(strategy, models), device, is_2d)
+    pool = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="direct")
+    try:
+        with _full_float32():
+            run = _run_images if is_2d else _run_volumes
+            return run(models, dataset, out_dir, reader, pool, strategy=strategy,
+                       run_id=run_id, mc=mc, is_log_sigma=is_log_sigma,
+                       batch_size=batch_size, seed=seed, thresholds=thresholds,
+                       device=device)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+_WINDOW = 2  # items in flight on the device, and items read ahead
+
+
+def _eval_call(strategy, models, data, thresholds, mc, bounds, is_log_sigma,
+               rng, batch_size=None):
+    """The pipeline function of ``strategy`` on one item's device tensors:
+    a volume's (``batch_size`` slices a forward) or, with ``batch_size``
+    None, a part's images in one batch, each image's own row."""
+    images = data["images"]
+    per_image = batch_size is None
+    n = len(images) if per_image else batch_size
+    common = (data["target"], data["mask"], thresholds)
+    if strategy in ("mc", "deterministic"):
+        return pipeline.volume_mc_eval(models, mc if strategy == "mc" else 0,
+                                       n, images, *common, rng, per_image)
+    if strategy == "aleatoric":
+        return pipeline.volume_aleatoric_eval(models, n, images, *common,
+                                              *bounds, is_log_sigma, per_image)
+    if strategy == "ensemble":
+        return pipeline.volume_ensemble_eval(models, n, images, *common,
+                                             per_image)
+    if strategy == "auxiliary_feat":
+        return pipeline.volume_aux_feat_eval(*models, n, images, *common,
+                                             per_image)
+    return pipeline.volume_aux_segm_eval(models, n, images, data["baseline"],
+                                         *common, per_image)
+
+
+def _to_device(host, device):
+    return {k: v.to(device, non_blocking=True) for k, v in host.items()}
+
+
+def _run_volumes(models, dataset, out_dir, reader, pool, *, strategy, run_id,
+                 mc, is_log_sigma, batch_size, seed, thresholds, device):
+    sinks = _EvalSinks(out_dir, run_id, thresholds, strategy)
+    names = list(dataset.subjects)
+    bounds = None
+    if strategy == "aleatoric":
+        def minmax_dispatch(si, subject, host):
+            images = _to_device(host, device)["images"]
+            mn, mx = pipeline.volume_sigma_minmax(models, batch_size, images,
+                                                  is_log_sigma)
+            return _Fetch({"min": mn, "max": mx})
+
+        def minmax_fetch(subject, out, t0):
+            got = out.result()
+            sinks.add_bounds(got["min"], got["max"])
+
+        _drive(pool, names, lambda si, s: reader.subject(s, images_only=True),
+               minmax_dispatch, minmax_fetch, _WINDOW)
+        bounds = _global_bounds(sinks.bounds)
+        logging.info("direct aleatoric: global sigma range [%.6f, %.6f]",
+                     *bounds)
+    eces = {}
+
+    def dispatch(si, subject, host):
+        return _Fetch(_eval_call(strategy, models, _to_device(host, device),
+                                 thresholds, mc, bounds, is_log_sigma,
+                                 (seed, si), batch_size))
+
+    def fetch(subject, out, t0):
+        row = out.result()
+        sinks.write_subject(subject, row)
+        eces[subject] = float(row["ece"])
+        logging.info("direct eval %s ece=%.5f (%.2fs)", subject,
+                     eces[subject], time.time() - t0)
+
+    _drive(pool, names, lambda si, s: reader.subject(s), dispatch, fetch,
+           _WINDOW)
+    sinks.finish()
+    return eces
+
+
+def _run_images(models, dataset, out_dir, reader, pool, *, strategy, run_id,
+                mc, is_log_sigma, batch_size, seed, thresholds, device):
+    """The native-2D run (``rcu_tpu.eval.direct._evaluate_direct_2d``).
+    A part runs at its own length: an eager program needs no padding to a
+    static shape, and the JAX package drops its padded rows before the
+    CSVs."""
+    sinks = _EvalSinks(out_dir, run_id, thresholds, strategy)
+    k = max(1, int(batch_size))
+    names = list(dataset.subjects)
+    starts = list(range(0, len(names), k))
+    groups = [names[s:s + k] for s in starts]
+    bounds = None
+    if strategy == "aleatoric":
+        def minmax_dispatch(ci, group, parts):
+            outs = []
+            for _, subjects, host in parts:
+                mn, mx = pipeline.image_batch_sigma_minmax(
+                    models, _to_device(host, device)["images"], is_log_sigma)
+                outs.append((subjects, _Fetch({"min": mn, "max": mx})))
+            return outs
+
+        def minmax_fetch(group, outs, t0):
+            for subjects, out in outs:
+                got = out.result()
+                for i in range(len(subjects)):
+                    sinks.add_bounds(got["min"][i], got["max"][i])
+
+        _drive(pool, groups,
+               lambda ci, g: reader.chunk(g, images_only=True),
+               minmax_dispatch, minmax_fetch, _WINDOW)
+        bounds = _global_bounds(sinks.bounds)
+        logging.info("direct 2d aleatoric: global sigma range [%.6f, %.6f]",
+                     *bounds)
+    eces = {}
+
+    def dispatch(ci, group, parts):
+        return [(subjects, _Fetch(_eval_call(
+            strategy, models, _to_device(host, device), thresholds, mc,
+            bounds, is_log_sigma, (seed, starts[ci] + start))))
+            for start, subjects, host in parts]
+
+    def fetch(group, outs, t0):
+        for subjects, out in outs:
+            host = out.result()
+            for i, subject in enumerate(subjects):
+                row = _image_row(host, i)
+                sinks.write_subject(subject, row)
+                eces[subject] = float(row["ece"])
+        logging.info("direct eval [%s..%s] mean ece=%.5f (%d images, %.2fs)",
+                     group[0], group[-1],
+                     float(np.mean([eces[s] for s in group])), len(group),
+                     time.time() - t0)
+
+    _drive(pool, groups, lambda ci, g: reader.chunk(g), dispatch, fetch,
+           _WINDOW)
+    sinks.finish()
+    return eces

@@ -1,11 +1,17 @@
-"""Whole-volume inference + eval reductions of every strategy family
-(``rcu_tpu.eval.pipeline`` counterparts of the ``_*_scan`` helpers,
-``_entropy_eval``, ``_confidence_eval`` and the ``make_volume_*_eval_fn``
-factories, with ``make_volume_mc_fn``).
+"""Whole-volume and image-batch inference + eval reductions of every
+strategy family (``rcu_tpu.eval.pipeline`` counterparts of the ``_*_scan``
+helpers, ``_entropy_eval``, ``_confidence_eval``, the
+``make_volume_*_eval_fn`` and ``make_image_batch_*_fn`` factories, with
+``make_volume_mc_fn``).
 
 PyTorch runs eagerly, so the JAX factories become plain functions: a
 Python loop over the volume's slice batches, then one call of the fused
-eval kernel per subject. Two protocols feed the kernel:
+eval kernel per subject (``volume_*``); or, on native-2D datasets, one
+batch of K same-shape images, then one call of the kernel for all K with
+each image's own reductions, as the JAX programs vmap them
+(``image_batch_*``: every result has a leading K axis, and an image is a
+subject: its own confidence rescale, its own minmax bounds). Two
+protocols feed the kernel:
 - entropy (mc, deterministic, ensemble): the fg probability is the ECE
   plane, the entropy in bits the uncertainty plane, ``fg > 0.5`` the
   prediction;
@@ -20,6 +26,8 @@ MC random stream: batch ``b`` of subject ``s`` draws sample ``t``'s dropout
 masks from a ``torch.Generator`` seeded with
 ``SeedSequence([seed, s, b, t])`` (:func:`sample_generators`). The stream
 is thus defined per (subject, batch, sample), whatever rides one forward.
+An image batch is one batch named by its first image's offset in the run
+(``rng=(seed, offset)``), as the JAX driver names a chunk's key.
 It cannot equal flax's threefry stream; MC parity with the JAX package is
 distributional.
 """
@@ -96,10 +104,12 @@ def _as_u8(x):
     return x.contiguous()
 
 
-def _eval_row(fg, uncertainty, prediction, target, mask, thresholds):
+def _eval_row(fg, uncertainty, prediction, target, mask, thresholds,
+              per_image=False):
     """One kernel pass: ECE bins on ``fg`` (masked), the threshold
-    correction on ``uncertainty`` and the confusion row (both unmasked).
-    The planes are float32 whatever the models' compute dtype: the logits,
+    correction on ``uncertainty`` and the confusion row (both unmasked);
+    with ``per_image``, a row for each image of the leading axis. The
+    planes are float32 whatever the models' compute dtype: the logits,
     sigma and confidence heads give f32."""
     for name, plane in (("fg", fg), ("uncertainty", uncertainty)):
         if plane.dtype != torch.float32:
@@ -108,46 +118,68 @@ def _eval_row(fg, uncertainty, prediction, target, mask, thresholds):
     bins, confusion, correction = fused_subject_eval(
         fg.contiguous(), _as_u8(target), _as_u8(prediction),
         uncertainty.contiguous(), None if mask is None else _as_u8(mask),
-        thresholds)
-    return {**bins, "dice": correction["dice"][0], "correction": correction,
+        thresholds, per_image=per_image)
+    return {**bins, "dice": correction["dice"][..., 0],
+            "correction": correction,
             **{k: confusion[k] for k in ("tp", "tn", "fp", "fn", "n")}}
 
 
-def _entropy_eval(fg, ent, target, mask, thresholds):
+def _min_max(x, per_image):
+    """The map's (min, max), or each image's."""
+    if per_image:
+        dims = tuple(range(1, x.dim()))
+        return torch.amin(x, dim=dims), torch.amax(x, dim=dims)
+    return torch.min(x), torch.max(x)
+
+
+def _entropy_eval(fg, ent, target, mask, thresholds, per_image=False):
     """The 'probabilities' protocol's eval row, plus the subject's fg
     min/max for the run minmax CSV."""
-    return {**_eval_row(fg, ent, fg > 0.5, target, mask, thresholds),
-            "conf_min": torch.min(fg), "conf_max": torch.max(fg)}
+    conf_min, conf_max = _min_max(fg, per_image)
+    return {**_eval_row(fg, ent, fg > 0.5, target, mask, thresholds,
+                        per_image),
+            "conf_min": conf_min, "conf_max": conf_max}
 
 
-def _folded_eval(rescaled, prediction, target, mask, thresholds):
+def _folded_eval(rescaled, prediction, target, mask, thresholds,
+                 per_image=False):
     """Fold the rescaled map by the prediction; the folded map is the ECE
     plane, the rescaled one the uncertainty plane."""
     folded = prepare.uncertainty_to_foreground_probabilities(rescaled,
                                                              prediction)
-    return _eval_row(folded, rescaled, prediction, target, mask, thresholds)
+    return _eval_row(folded, rescaled, prediction, target, mask, thresholds,
+                     per_image)
 
 
-def _confidence_eval(confidence, prediction, target, mask, thresholds):
+def _confidence_eval(confidence, prediction, target, mask, thresholds,
+                     per_image=False):
     """The 'confidence' protocol's eval row (auxiliary feat/segm): subject
-    min-max rescale, fold, one kernel pass; the run minmax CSV takes the
-    RAW confidence's min/max."""
-    rescaled = prepare.rescale_subject_min_max(confidence)
-    return {**_folded_eval(rescaled, prediction, target, mask, thresholds),
-            "conf_min": torch.min(confidence),
-            "conf_max": torch.max(confidence)}
+    (with ``per_image``: image) min-max rescale, fold, one kernel pass; the
+    run minmax CSV takes the RAW confidence's min/max."""
+    conf_min, conf_max = _min_max(confidence, per_image)
+    if per_image:
+        view = (-1,) + (1,) * (confidence.dim() - 1)
+        rescaled = prepare.rescale_linear(confidence, conf_min.view(view),
+                                          conf_max.view(view))
+    else:
+        rescaled = prepare.rescale_subject_min_max(confidence)
+    return {**_folded_eval(rescaled, prediction, target, mask, thresholds,
+                           per_image),
+            "conf_min": conf_min, "conf_max": conf_max}
 
 
 @torch.inference_mode()
 def volume_mc_eval(model, mc_steps: int, batch_size: int, volume, target,
-                   mask, thresholds, rng):
+                   mask, thresholds, rng, per_image: bool = False):
     """MC inference + eval reductions of one volume -> the eval dict.
 
     ``volume`` (Z, H, W, C) float32 or the model's compute dtype,
     ``target``/``mask`` (Z, H, W) bool or uint8, all on the model's device;
-    ``rng`` names the volume's MC stream."""
+    ``rng`` names the volume's MC stream. With ``per_image`` each slice is
+    an image with its own eval row."""
     fg, ent, _ = _mc_scan(model, mc_steps, volume, batch_size, rng)
-    return _entropy_eval(fg, _normalize_entropy(ent), target, mask, thresholds)
+    return _entropy_eval(fg, _normalize_entropy(ent), target, mask, thresholds,
+                         per_image)
 
 
 @torch.inference_mode()
@@ -173,28 +205,31 @@ def _aleatoric_scan(model, is_log_sigma: bool, volume, batch_size: int):
 
 
 @torch.inference_mode()
-def volume_sigma_minmax(model, batch_size: int, volume, is_log_sigma: bool):
+def volume_sigma_minmax(model, batch_size: int, volume, is_log_sigma: bool,
+                        per_image: bool = False):
     """Pass A of the aleatoric protocol: the subject's predicted-class
-    sigma (min, max), its share of the run's global rescale bounds."""
+    sigma (min, max), its share of the run's global rescale bounds (with
+    ``per_image``, each slice's)."""
     _, sigma = _aleatoric_scan(model, is_log_sigma, volume, batch_size)
-    return torch.min(sigma), torch.max(sigma)
+    return _min_max(sigma, per_image)
 
 
 @torch.inference_mode()
 def volume_aleatoric_eval(model, batch_size: int, volume, target, mask,
                           thresholds, sigma_min, sigma_max,
-                          is_log_sigma: bool):
+                          is_log_sigma: bool, per_image: bool = False):
     """Pass B: sigma rescaled by the run's f32 global bounds, folded, one
     kernel pass. No conf_min/conf_max: the minmax CSV holds pass A's."""
     prediction, sigma = _aleatoric_scan(model, is_log_sigma, volume,
                                         batch_size)
     rescaled = prepare.rescale_linear(sigma, sigma_min, sigma_max)
-    return _folded_eval(rescaled, prediction, target, mask, thresholds)
+    return _folded_eval(rescaled, prediction, target, mask, thresholds,
+                        per_image)
 
 
 @torch.inference_mode()
 def volume_ensemble_eval(members, batch_size: int, volume, target, mask,
-                         thresholds):
+                         thresholds, per_image: bool = False):
     """Member-mean softmax, then the entropy protocol. The members run one
     after another (the JAX package vmaps them) and their probabilities add
     in member order before the division by K."""
@@ -208,12 +243,12 @@ def volume_ensemble_eval(members, batch_size: int, volume, target, mask,
         fg.append(probabilities[..., 1])
         ent.append(metrics.entropy(probabilities, dim=-1))
     return _entropy_eval(torch.cat(fg), _normalize_entropy(torch.cat(ent)),
-                         target, mask, thresholds)
+                         target, mask, thresholds, per_image)
 
 
 @torch.inference_mode()
 def volume_aux_feat_eval(segmenter, postnet, batch_size: int, volume, target,
-                         mask, thresholds):
+                         mask, thresholds, per_image: bool = False):
     """The frozen segmenter's argmax (of its logits) is the prediction, the
     PostNet's softmax fg on the segmenter's features the confidence."""
     conf, pred = [], []
@@ -222,12 +257,12 @@ def volume_aux_feat_eval(segmenter, postnet, batch_size: int, volume, target,
         pred.append(torch.argmax(out.logits, dim=1).to(torch.uint8))
         conf.append(torch.softmax(postnet(out.features).logits, dim=1)[:, 1])
     return _confidence_eval(torch.cat(conf), torch.cat(pred), target, mask,
-                            thresholds)
+                            thresholds, per_image)
 
 
 @torch.inference_mode()
 def volume_aux_segm_eval(model, batch_size: int, volume, baseline, target,
-                         mask, thresholds):
+                         mask, thresholds, per_image: bool = False):
     """The error net reads the images and the baseline prediction as a 5th
     channel (0/1, exact in the images' dtype); the baseline itself (uint8,
     (Z, H, W)) is the prediction."""
@@ -237,4 +272,65 @@ def volume_aux_segm_eval(model, batch_size: int, volume, baseline, target,
         inputs = torch.cat([images, base[..., None].to(images.dtype)], dim=-1)
         conf.append(predict(model, inputs)[..., 1])
     return _confidence_eval(torch.cat(conf), baseline, target, mask,
-                            thresholds)
+                            thresholds, per_image)
+
+
+# ---------------------------------------------------------------------------
+# native-2D: K same-shape images a call, each image's own eval row
+# ---------------------------------------------------------------------------
+
+@torch.inference_mode()
+def image_batch_mc_eval(model, mc_steps: int, images, targets, masks,
+                        thresholds, rng):
+    """MC (``mc_steps=0``: deterministic) inference over K images in one
+    batch, then each image's eval row (``make_image_batch_mc_eval_fn``).
+    ``images`` (K, H, W, C), ``targets``/``masks`` (K, H, W) bool or uint8;
+    ``rng`` names the batch's MC stream, ``(seed, offset of its first
+    image)``."""
+    return volume_mc_eval(model, mc_steps, len(images), images, targets,
+                          masks, thresholds, rng, per_image=True)
+
+
+@torch.inference_mode()
+def image_batch_ensemble_eval(members, images, targets, masks, thresholds):
+    """Member-mean softmax over K images, each image's entropy-protocol
+    row (``make_image_batch_ensemble_eval_fn``)."""
+    return volume_ensemble_eval(members, len(images), images, targets, masks,
+                                thresholds, per_image=True)
+
+
+@torch.inference_mode()
+def image_batch_aux_feat_eval(segmenter, postnet, images, targets, masks,
+                              thresholds):
+    """Frozen segmenter + PostNet over K images, each image rescaled by its
+    own confidence range (``make_image_batch_aux_feat_eval_fn``)."""
+    return volume_aux_feat_eval(segmenter, postnet, len(images), images,
+                                targets, masks, thresholds, per_image=True)
+
+
+@torch.inference_mode()
+def image_batch_aux_segm_eval(model, images, baselines, targets, masks,
+                              thresholds):
+    """The error net over K images and their baselines, each image
+    rescaled by its own confidence range
+    (``make_image_batch_aux_segm_eval_fn``)."""
+    return volume_aux_segm_eval(model, len(images), images, baselines,
+                                targets, masks, thresholds, per_image=True)
+
+
+@torch.inference_mode()
+def image_batch_sigma_minmax(model, images, is_log_sigma: bool):
+    """Pass A over K images: each image's predicted-class sigma (min, max),
+    (K,) each (``make_image_batch_sigma_minmax_fn``)."""
+    return volume_sigma_minmax(model, len(images), images, is_log_sigma,
+                               per_image=True)
+
+
+@torch.inference_mode()
+def image_batch_aleatoric_eval(model, images, targets, masks, thresholds,
+                               sigma_min, sigma_max, is_log_sigma: bool):
+    """Pass B over K images: sigma rescaled by the run's global bounds,
+    folded, each image's row (``make_image_batch_aleatoric_eval_fn``)."""
+    return volume_aleatoric_eval(model, len(images), images, targets, masks,
+                                 thresholds, sigma_min, sigma_max,
+                                 is_log_sigma, per_image=True)

@@ -73,18 +73,20 @@ def binary_calibration(probabilities, target, n_bins: int = 10, mask=None):
 
 
 def _bin_proportions(bin_weighting: str, bin_count, nonzero, n_dim: int):
-    """Bin weights over nonzero bins; zero bins get weight 0."""
+    """Bin weights over nonzero bins (the last axis; any leading axes are
+    images); zero bins get weight 0."""
     count = torch.where(nonzero, bin_count, 0).double()
     if bin_weighting == "proportion":
-        return count / count.sum()
+        return count / count.sum(-1, keepdim=True)
     if bin_weighting == "log_proportion":
         logc = torch.where(nonzero, torch.log(torch.where(nonzero, count, 1.0)), 0.0)
-        return logc / logc.sum()
+        return logc / logc.sum(-1, keepdim=True)
     if bin_weighting == "power_proportion":
         powc = torch.where(nonzero, torch.where(nonzero, count, 1.0) ** (1.0 / n_dim), 0.0)
-        return powc / powc.sum()
+        return powc / powc.sum(-1, keepdim=True)
     if bin_weighting == "mean_proportion":
-        return torch.where(nonzero, 1.0 / nonzero.sum().double(), 0.0)
+        return torch.where(nonzero, 1.0 / nonzero.sum(-1, keepdim=True).double(),
+                           0.0)
     raise ValueError(f'unknown bin weighting "{bin_weighting}"')
 
 

@@ -2,6 +2,11 @@
 kernel (``rcu_tpu_torch/csrc/evalstats.cu``), its plain PyTorch version and
 the glue that turns its sums into the eval CSV rows.
 
+``per_image=True`` reads the planes' leading axis as K images of one
+shape (the native-2D eval's chunks) and gives every result a leading K
+axis, in one launch; each image's row is bitwise what a launch of that
+image alone gives. The default reads the planes as one subject.
+
 Port of ``rcu_tpu/ops/pallas/evalstats.py`` (``fused_eval_stats`` and
 ``fused_subject_eval``). :func:`fused_eval_stats` launches the kernel for
 CUDA tensors and takes :func:`fused_eval_stats_reference` only for CPU
@@ -26,7 +31,7 @@ import numpy as np
 import torch
 
 from rcu_tpu_torch.ops.calibration import (_bin_proportions, bin_edges,
-                                           bin_statistics, binned_sums)
+                                           bin_ids, bin_statistics)
 from rcu_tpu_torch.ops.metrics import dice_from_counts
 from rcu_tpu_torch.ops.uncertainty import _correction_from_counts
 
@@ -59,8 +64,8 @@ def _library():
     lib.rcu_fused_eval_stats_occupancy.argtypes = [ctypes.c_int, ptr, ptr]
     lib.rcu_fused_eval_stats_occupancy.restype = ctypes.c_int
     lib.rcu_fused_eval_stats.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, ptr, ptr, ptr,
-        ctypes.c_int, ptr, ptr, ctypes.c_int, ptr]
+        ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, ctypes.c_int, ptr, ptr,
+        ptr, ctypes.c_int, ptr, ptr, ctypes.c_int, ptr]
     lib.rcu_fused_eval_stats.restype = ctypes.c_int
     return lib
 
@@ -125,37 +130,49 @@ def grid_size(n: int, wave: int) -> int:
 
 
 def _stats_dict(counts, conf_sum, n_thresholds):
-    """Name the kernel's int64 count row and float64 confidence sums."""
-    tp, tn, fp, fn = counts[2 * N_BINS:2 * N_BINS + 4]
+    """Name the kernel's int64 count rows and float64 confidence sums (one
+    row, or a leading image axis)."""
     off = 2 * N_BINS + 4
-    return {"bins_count": counts[:N_BINS], "bins_conf_sum": conf_sum,
-            "bins_true_sum": counts[N_BINS:2 * N_BINS],
+    tp, tn, fp, fn = counts[..., 2 * N_BINS:off].unbind(-1)
+    return {"bins_count": counts[..., :N_BINS], "bins_conf_sum": conf_sum,
+            "bins_true_sum": counts[..., N_BINS:2 * N_BINS],
             "tp": tp, "tn": tn, "fp": fp, "fn": fn,
-            "thresh_counts": counts[off:off + 4 * n_thresholds]
-            .reshape(n_thresholds, 4)}
+            "thresh_counts": counts[..., off:off + 4 * n_thresholds]
+            .reshape(*counts.shape[:-1], n_thresholds, 4)}
 
 
 def fused_eval_stats_reference(fg, target, prediction, uncertainty, weight,
-                               thresholds):
+                               thresholds, per_image: bool = False):
     """Plain PyTorch version of the kernel: the same sums, by tensor ops.
 
     Returns ``bins_count``/``bins_true_sum`` (10,) int64, ``bins_conf_sum``
     (10,) float64, ``tp/tn/fp/fn`` int64 scalars and ``thresh_counts``
-    (T, 4) int64 of (tpu, tnu, fpu, fnu) per threshold, ``u > threshold``.
-    The weight counts for the bins only, not for the other counts."""
-    t = target.reshape(-1).bool()
-    p = prediction.reshape(-1).bool()
-    u = uncertainty.reshape(-1).float()
-    count, conf, true = binned_sums(fg, t, N_BINS, weight)
+    (T, 4) int64 of (tpu, tnu, fpu, fnu) per threshold, ``u > threshold``;
+    with ``per_image`` each with a leading image axis. The weight counts
+    for the bins only, not for the other counts."""
+    images = fg.shape[0] if per_image else 1
+    t = target.reshape(images, -1).bool()
+    p = prediction.reshape(images, -1).bool()
+    u = uncertainty.reshape(images, -1).float()
+    # each image's bins are its own ten of K * 10: binned_sums over ids
+    # offset by ten an image
+    fg = fg.reshape(images, -1).float()
+    keep = weight.reshape(images, -1).bool()
+    ids = bin_ids(fg, N_BINS) + N_BINS * torch.arange(
+        images, device=fg.device)[:, None]
+    count = torch.bincount(ids[keep], minlength=images * N_BINS)
+    conf = torch.bincount(ids[keep], weights=fg[keep].double(),
+                          minlength=images * N_BINS)
+    true = torch.bincount(ids[keep & t], minlength=images * N_BINS)
     classes = [t & p, ~t & ~p, ~t & p, t & ~p]  # tp, tn, fp, fn
     th = torch.as_tensor(thresholds, dtype=torch.float32, device=u.device)
-    counts = torch.cat([
-        count, true,
-        torch.stack([m.sum() for m in classes]),
-        torch.stack([(m & (u > th[j])).sum() for j in range(th.numel())
-                     for m in classes]) if th.numel() else
-        torch.zeros(0, dtype=torch.int64, device=u.device)])
-    return _stats_dict(counts, conf, th.numel())
+    counts = torch.cat(
+        [count.view(images, N_BINS), true.view(images, N_BINS)]
+        + [m.sum(1, keepdim=True) for m in classes]
+        + [(m & (u > th[j])).sum(1, keepdim=True)
+           for j in range(th.numel()) for m in classes], dim=1)
+    stats = _stats_dict(counts, conf.view(images, N_BINS), th.numel())
+    return stats if per_image else {k: v[0] for k, v in stats.items()}
 
 
 def _check_cuda_inputs(fg, target, prediction, uncertainty, weight):
@@ -217,8 +234,28 @@ def _host_args(key: tuple):
     return edge, th_arg, slots, th.size
 
 
-def fused_eval_stats(fg, target, prediction, uncertainty, weight, thresholds):
-    """One-pass eval sums of one subject (see the reference for the result).
+def ticket_words(images: int) -> int:
+    """The 8-byte words of a launch's tickets, 4 bytes an image."""
+    return (images + 1) // 2
+
+
+def _check_images(fg, per_image):
+    """-> (images, voxels an image)."""
+    if not per_image:
+        return 1, fg.numel()
+    if fg.dim() < 2 or fg.shape[0] < 1:
+        raise ValueError(f"per_image planes need a leading image axis and an "
+                         f"image's voxels, got shape {tuple(fg.shape)}")
+    if fg.shape[0] > 65535:
+        raise ValueError(f"at most 65535 images a launch, got {fg.shape[0]}")
+    return fg.shape[0], fg[0].numel()
+
+
+def fused_eval_stats(fg, target, prediction, uncertainty, weight, thresholds,
+                     per_image: bool = False):
+    """One-pass eval sums of one subject, or with ``per_image`` of each of
+    the K images of the planes' leading axis (see the reference for the
+    result).
 
     On CUDA: ``fg``/``uncertainty`` float32, ``target``/``prediction``/
     ``weight`` uint8 0/1 (a bool tensor's ``.view(torch.uint8)``), all
@@ -229,63 +266,70 @@ def fused_eval_stats(fg, target, prediction, uncertainty, weight, thresholds):
     if fg.device.type == "cpu":
         fused_eval_stats.plain_calls += 1
         return fused_eval_stats_reference(fg, target, prediction, uncertainty,
-                                          weight, thresholds)
+                                          weight, thresholds, per_image)
     if fg.device.type != "cuda":
         raise ValueError(f"fused_eval_stats runs on cuda or cpu, not {fg.device}")
     _check_cuda_inputs(fg, target, prediction, uncertainty, weight)
+    images, n = _check_images(fg, per_image)
     lib = _library()
     edge, th_arg, slots, n_th = _host_args(host_args_key(thresholds))
     device = fg.device.index if fg.device.index is not None \
         else torch.cuda.current_device()
-    n = fg.numel()
-    grid = grid_size(n, _wave(device, n_th))
+    grid = grid_size(n, _wave(device, n_th))  # blocks of each image
     check_lane_counts(n, grid)
     stream = torch.cuda.current_stream(device).cuda_stream
-    # the one allocation: the result row, then the ticket and the blocks'
+    # the one allocation: the result rows, then the tickets and the blocks'
     # partial rows
     width = _INT_COLS + N_BINS
-    out = torch.empty(width + 1 + lane_cells(n_th) * grid, dtype=torch.int64,
+    out = torch.empty(images * (width + lane_cells(n_th) * grid)
+                      + ticket_words(images), dtype=torch.int64,
                       device=fg.device)
     with torch.cuda.device(device):
         err = lib.rcu_fused_eval_stats(
             fg.data_ptr(), uncertainty.data_ptr(), target.data_ptr(),
-            prediction.data_ptr(), weight.data_ptr(), n, edge, th_arg, slots,
-            n_th, out[width:].data_ptr(), out.data_ptr(), grid, stream)
+            prediction.data_ptr(), weight.data_ptr(), n, images, edge, th_arg,
+            slots, n_th, out[images * width:].data_ptr(), out.data_ptr(),
+            grid, stream)
     if err != 0:
         raise RuntimeError(f"fused_eval_stats launch failed: cudaError {err}")
     fused_eval_stats.launches += 1
-    return _stats_dict(out[:_INT_COLS],
-                       out[_INT_COLS:width].view(torch.float64), n_th)
+    rows = out[:images * width].view(images, width)
+    stats = _stats_dict(rows[:, :_INT_COLS],
+                        rows[:, _INT_COLS:].view(torch.float64), n_th)
+    return stats if per_image else {k: v[0] for k, v in stats.items()}
 
 
 fused_eval_stats.launches = 0
 fused_eval_stats.plain_calls = 0
 
 
-def fused_subject_eval(fg, target, prediction, uncertainty, mask, thresholds):
-    """Everything the eval CSVs need from one pass over a subject.
+def fused_subject_eval(fg, target, prediction, uncertainty, mask, thresholds,
+                       per_image: bool = False):
+    """Everything the eval CSVs need from one pass over a subject, or with
+    ``per_image`` over each image of the planes' leading axis.
 
     Returns ``(bins, confusion, correction)`` like the JAX
     ``fused_subject_eval``: bins with the proportion-weighted ``ece``;
     confusion with ``n`` and ``dice``; correction a dict of
-    ``(len(thresholds),)`` tensors. ``mask`` (None = all voxels) reaches the
-    ECE bins only."""
+    ``(len(thresholds),)`` tensors; with ``per_image`` every entry gains a
+    leading image axis. ``mask`` (None = all voxels) reaches the ECE bins
+    only."""
     weight = mask if mask is not None else torch.ones_like(target)
     stats = fused_eval_stats(fg, target, prediction, uncertainty, weight,
-                             thresholds)
+                             thresholds, per_image)
     count = stats["bins_count"]
     pos_frac, mean_conf, nonzero = bin_statistics(
         count, stats["bins_conf_sum"], stats["bins_true_sum"])
     proportions = _bin_proportions("proportion", count, nonzero, 1)
-    ece = torch.sum(torch.abs(mean_conf - pos_frac) * proportions)
+    ece = torch.sum(torch.abs(mean_conf - pos_frac) * proportions, dim=-1)
     bins = {"bins_count": count, "bins_avg_confidence": mean_conf,
             "bins_positive_fraction": pos_frac, "bins_non_zero": nonzero,
             "ece": ece}
     tp, tn, fp, fn = stats["tp"], stats["tn"], stats["fp"], stats["fn"]
     confusion = {"tp": tp, "tn": tn, "fp": fp, "fn": fn, "n": tp + tn + fp + fn,
                  "dice": dice_from_counts(tp.float(), fp.float(), fn.float())}
-    per_th = stats["thresh_counts"]  # (T, 4): tpu, tnu, fpu, fnu
+    per_th = stats["thresh_counts"]  # (..., T, 4): tpu, tnu, fpu, fnu
     correction = _correction_from_counts(
-        tuple(c.expand(per_th.shape[0]) for c in (tp, tn, fp, fn))
-        + tuple(per_th.unbind(1)))
+        tuple(c[..., None].expand(per_th.shape[:-1]) for c in (tp, tn, fp, fn))
+        + tuple(per_th.unbind(-1)))
     return bins, confusion, correction

@@ -162,6 +162,45 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     assert torch.equal(got["thresh_counts"], want["thresh_counts"])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,shape", [(1, (192, 256)), (3, (64, 80)),
+                                     (32, (48, 64)), (3, (49, 57)),
+                                     (32, (17, 19))])
+def test_cuda_image_axis_matches_plain_and_single_launches(cuda_device, k,
+                                                           shape):
+    """K images in one launch: counts equal to the plain version's, the
+    confidence sums at its bar, and every row bitwise what a launch of
+    that image alone gives (the same grid, order and sums an image).
+    49x57 and 17x19 are no multiple of a chunk: the images after the first
+    take the masked loads."""
+    planes = [make_subject(30 + i, shape) for i in range(k)]
+    fg, target, prediction, unc, mask = (np.stack(p) for p in zip(*planes))
+    inputs = port_inputs(fg, target, prediction, unc, mask, cuda_device)
+    before = evalstats.fused_eval_stats.launches
+    got = evalstats.fused_eval_stats(*inputs, THRESHOLDS, per_image=True)
+    assert evalstats.fused_eval_stats.launches == before + 1
+    want = evalstats.fused_eval_stats_reference(*inputs, THRESHOLDS,
+                                                per_image=True)
+    for key, value in want.items():
+        assert got[key].shape[0] == k, key
+        if key == "bins_conf_sum":
+            torch.testing.assert_close(got[key], value, rtol=1e-6, atol=1e-6)
+        else:
+            assert torch.equal(got[key], value), key
+    rows = evalstats.fused_subject_eval(*inputs, THRESHOLDS, per_image=True)
+    for i in range(k):
+        one = [p[i].clone() for p in inputs]  # aligned alone
+        single = evalstats.fused_eval_stats(*one, THRESHOLDS)
+        for key, value in single.items():
+            assert same_bits(got[key][i], value), (i, key)
+        for part, single_part in zip(rows, evalstats.fused_subject_eval(
+                *one, THRESHOLDS)):
+            for key, value in single_part.items():
+                assert same_bits(part[key][i].contiguous(), value) or \
+                    torch.equal(part[key][i].isnan(), value.isnan()), (i, key)
+    torch.cuda.synchronize()
+
+
 class TinyVolumes:
     """Two small volumes in memory with the SubjectDataset read interface."""
     subjects = ["a", "b"]
@@ -230,6 +269,8 @@ def family_models(strategy):
             model.Conv_2.weight.mul_(50.0)
         return model
 
+    if strategy in ("mc", "deterministic"):
+        return unet(0)
     if strategy == "aleatoric":
         return unet(1, sigma_out=True)
     if strategy == "ensemble":
@@ -508,3 +549,61 @@ def test_cuda_int8_unet_runs_the_kernel_at_every_site(cuda_device, flags):
     scale = float(out["cpu"].abs().max())
     assert float((out["cpu"] - out[str(cuda_device)]).abs().max()) \
         <= 0.05 * scale
+
+
+class TinyImages:
+    """Seven small native-2D images in memory (images (H, W, 4)), the third
+    of another shape, so that a chunk of 4 splits into three same-shape
+    parts and the tail of 3 is one; ``with_baseline``: [gt, baseline]
+    labels, as auxiliary_segm stores hold them."""
+    subjects = [f"i{n}" for n in range(7)]
+
+    def __init__(self, with_baseline=False):
+        rng = np.random.RandomState(11)
+        self._data = {}
+        for n, s in enumerate(self.subjects):
+            shape = (20, 24) if n == 2 else (24, 20)
+            labels = (rng.rand(*shape) < 0.3).astype(np.uint8)
+            if with_baseline:
+                baseline = labels.copy()
+                baseline[:4] = 1 - baseline[:4]
+                labels = np.stack([labels, baseline], axis=-1)
+            self._data[s] = {"images": rng.rand(*shape, 4).astype(np.float32),
+                             "labels": labels}
+
+    def read_volume(self, subject, category):
+        return self._data[subject][category]
+
+    def shape(self, subject, category="images"):
+        return self.read_volume(subject, category).shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["mc", "deterministic", "aleatoric",
+                                      "ensemble", "auxiliary_feat",
+                                      "auxiliary_segm"])
+def test_cuda_native_2d_eval_matches_cpu(cuda_device, tmp_path, strategy):
+    """The native-2D direct eval on the card: one launch a same-shape part
+    (4 here, for 7 images), never the plain version, and the ECE of each
+    image near the CPU's (mc: its own stream on each device, so only
+    finite)."""
+    torch.backends.cudnn.allow_tf32 = False
+    models = family_models(strategy)
+    dataset = TinyImages(with_baseline=strategy == "auxiliary_segm")
+    options = dict(strategy=strategy, batch_size=4, masked=False,
+                   is_log_sigma=strategy == "aleatoric", mc=3)
+    cpu = evaluate_subjects(models, dataset, str(tmp_path / "cpu"),
+                            device="cpu", **options)
+    on_card = models.to(cuda_device) if isinstance(models, torch.nn.Module) \
+        else type(models)(m.to(cuda_device) for m in models)
+    before = evalstats.fused_eval_stats.launches
+    plain = evalstats.fused_eval_stats.plain_calls
+    gpu = evaluate_subjects(on_card, dataset, str(tmp_path / "gpu"),
+                            device=cuda_device, **options)
+    assert evalstats.fused_eval_stats.launches == before + 4
+    assert evalstats.fused_eval_stats.plain_calls == plain
+    assert gpu.keys() == cpu.keys() == set(TinyImages.subjects)
+    for subject, ece in cpu.items():
+        assert np.isfinite(gpu[subject])
+        if strategy != "mc":  # a pixel at a bin edge may flip
+            assert gpu[subject] == pytest.approx(ece, rel=1e-3, abs=1e-3)

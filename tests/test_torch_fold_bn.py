@@ -1,8 +1,9 @@
 """The load-time BatchNorm fold of the port against the JAX package's
 (``rcu_tpu.models.fold_bn_params``, ``fold_bn=True``): the folded arrays,
 the folded models in f32 and bf16, the guards, the precast of a folded
-model, the weights bridge back to a flax tree, and the direct eval end to
-end in bf16 with the fast decoder and the fold.
+model and the weights bridge back to a flax tree (the direct eval end to
+end in bf16 with the fast decoder and the fold is
+``tests/test_torch_fold_bn_e2e.py`` and ``tests/test_torch_fold_bn_ensemble.py``).
 
 The fold is f32 algebra done once on the host, so the folded f32 model is
 the same function as the unfolded one, held to the JAX package's bar
@@ -21,11 +22,9 @@ from rcu_tpu_torch.models.convert import (flax_from_state_dict,
                                           state_dict_from_flax)
 from rcu_tpu_torch.models.unet import bias_terms
 from tests.test_torch_unet import flax_net
-from tests.test_torch_variants import (BAR, F32_ATOL, GATE, SIGMA_ENVELOPE,
-                                       assert_within_gate, bf16_bar,
-                                       build_e2e_env, flax_out, leaf_dtypes,
-                                       port_net, port_out, roundings,
-                                       run_both)
+from tests.test_torch_variants import (BAR, F32_ATOL, bf16_bar, flax_out,
+                                       leaf_dtypes, port_net, port_out,
+                                       roundings)
 
 FOLD_BAR = dict(rtol=2e-4, atol=2e-5)  # tests/test_fold_bn.py:89-94
 SIGMA_UNET = dict(nb_classes=2, in_channels=3, depth=2, start_filters=4,
@@ -160,21 +159,3 @@ def test_flax_tree_round_trip(model_type, params, hw):
                 assert np.array_equal(got[path], value), path
         again = state_dict_from_flax(*back)
         assert all(torch.equal(again[k], v) for k, v in state.items())
-
-
-@pytest.fixture(scope="module")
-def e2e_env(tmp_path_factory):
-    return build_e2e_env(tmp_path_factory.mktemp("torch_fold_bn"))
-
-
-@pytest.mark.parametrize("strategy", ["deterministic", "ensemble",
-                                      "auxiliary_feat", "auxiliary_segm",
-                                      "aleatoric"])
-def test_bf16_fast_decoder_fold_matches_jax(e2e_env, tmp_path, strategy):
-    """The JAX package's production flags, bf16 + fast decoder + fold, on
-    every single-forward family."""
-    jax_dir, port_dir = run_both(e2e_env[strategy], tmp_path, strategy,
-                                 dtype="bfloat16", fast_decoder=True,
-                                 fold_bn=True)
-    gate = SIGMA_ENVELOPE if strategy == "aleatoric" else GATE
-    assert_within_gate(jax_dir, port_dir, gate)

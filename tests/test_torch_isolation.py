@@ -1,6 +1,6 @@
 """The port stands alone: every module of ``rcu_tpu_torch`` imports with JAX,
 flax, optax and the JAX package blocked, and with the packages that the
-card's machine may lack (h5py, msgpack, yaml); ``chip_smoke.py`` imports
+card's machine may lack (h5py, msgpack, yaml, PIL); ``chip_smoke.py`` imports
 none of the blocked packages."""
 import ast
 import os
@@ -10,7 +10,7 @@ import textwrap
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "rcu_tpu", "h5py", "msgpack",
-           "yaml")
+           "yaml", "PIL")
 NEVER = ("jax", "jaxlib", "flax", "optax", "rcu_tpu")
 
 

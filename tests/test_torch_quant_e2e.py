@@ -1,7 +1,9 @@
 """The port's int8 direct eval end to end against the JAX package's: both
 ``evaluate_direct``s with ``quantize=True`` and the production flags (bf16,
 fast decoder, and the BN fold on the single-forward protocols) on the
-same H5 store and flax checkpoints, and the port's own f32 run.
+same H5 store and flax checkpoints, and the port's own f32 run, for the
+deterministic and mc protocols (the ensemble's runs are
+``tests/test_torch_quant_e2e_ensemble.py``).
 
 The weights follow the recipe of ``tests/test_torch_variants.py``
 (BatchNorm statistics of the test images, spread antisymmetric heads,
@@ -55,11 +57,9 @@ def assert_held_like_jax(f32_dir, int8_dir, jax_f32_dir, jax_int8_dir):
     return jax_dev
 
 
-@pytest.fixture(scope="module")
-def env(tmp_path_factory):
+def build_env(tmp):
     """{protocol: config file}: deterministic, mc (3 samples) and a
     2-member ensemble."""
-    tmp = tmp_path_factory.mktemp("torch_quant_e2e")
     store = make_store(tmp, E2E_SHAPE)
     split_file = str(tmp / "split.json")
     save_split(split_file, ["s00"], ["s01"], list(TEST_SUBJECTS))
@@ -81,8 +81,7 @@ def env(tmp_path_factory):
     return configs
 
 
-@pytest.fixture(scope="module")
-def f32_runs(env, tmp_path_factory):
+def f32_runner(env, tmp_path_factory):
     """(JAX's, the port's) f32 run dirs of a protocol, each run once."""
     runs = {}
 
@@ -95,6 +94,16 @@ def f32_runs(env, tmp_path_factory):
     return get
 
 
+@pytest.fixture(scope="module")
+def env(tmp_path_factory):
+    return build_env(tmp_path_factory.mktemp("torch_quant_e2e"))
+
+
+@pytest.fixture(scope="module")
+def f32_runs(env, tmp_path_factory):
+    return f32_runner(env, tmp_path_factory)
+
+
 def port_run(config_file, out_dir, strategy, **flags):
     port_direct.evaluate_direct(port_cfg.load(config_file), str(out_dir),
                                 run_id=strategy, strategy=strategy,
@@ -102,10 +111,9 @@ def port_run(config_file, out_dir, strategy, **flags):
     return out_dir
 
 
-@pytest.mark.parametrize("strategy,fold", [
-    ("deterministic", False), ("deterministic", True),
-    ("ensemble", False), ("ensemble", True)])
-def test_int8_matches_jax_and_f32(env, f32_runs, tmp_path, strategy, fold):
+def check_int8_run(env, f32_runs, tmp_path, strategy, fold):
+    """int8 within the gate of JAX's int8 run, and held against the f32
+    run like JAX's own (:func:`assert_held_like_jax`)."""
     flags = dict(INT8, fold_bn=fold)
     calls = int8conv.int8_conv.plain_calls
     jax_dir, port_dir = run_both(env[strategy], tmp_path, strategy, **flags)
@@ -113,6 +121,12 @@ def test_int8_matches_jax_and_f32(env, f32_runs, tmp_path, strategy, fold):
     jax_f32, f32_dir = f32_runs(strategy)
     assert_within_gate(jax_dir, port_dir, GATE)
     assert_held_like_jax(f32_dir, port_dir, jax_f32, jax_dir)
+
+
+@pytest.mark.parametrize("strategy,fold", [
+    ("deterministic", False), ("deterministic", True)])
+def test_int8_matches_jax_and_f32(env, f32_runs, tmp_path, strategy, fold):
+    check_int8_run(env, f32_runs, tmp_path, strategy, fold)
 
 
 @pytest.mark.parametrize("skip", [None, 0, 2])

@@ -1,7 +1,10 @@
 """The port's inference variants against the JAX package's: the fast
 decoder in f32, one fused upsample conv, the bf16 compute dtype (logits,
-sigma, PostNet confidence), precast weights, the registry and the scope
-checks, and the direct eval end to end in bf16 with the fast decoder.
+sigma, PostNet confidence), precast weights and the registry; and the
+helpers and weights of the direct eval end to end in bf16 with the fast
+decoder (``tests/test_torch_variants_e2e.py``,
+``tests/test_torch_variants_ensemble.py``) and with the fold
+(``tests/test_torch_fold_bn_e2e.py``, ``tests/test_torch_fold_bn_ensemble.py``).
 
 Model-level forwards use perturbed flax init weights with random BN
 statistics (``tests.test_torch_unet.flax_net``). The end-to-end runs use
@@ -13,8 +16,6 @@ with the same flags on the same flax checkpoints and store; per-subject
 ECE and Dice must stay within the JAX package's bf16 gate
 (``tests/test_bf16_parity.py``: 1e-3, 2e-3 for the sigma protocol).
 """
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +29,6 @@ from rcu_tpu.engine import config as jax_cfg
 from rcu_tpu.eval.direct import evaluate_direct as jax_evaluate_direct
 from rcu_tpu.models import get_model as flax_get_model
 from rcu_tpu.models.unet import _fused_upsample_conv
-from rcu_tpu_torch.cli import eval_direct as port_cli
 from rcu_tpu_torch.engine import config as port_cfg
 from rcu_tpu_torch.eval import direct as port_direct
 from rcu_tpu_torch.models import (FAST_DECODER_KWARGS, get_model,
@@ -339,11 +339,6 @@ def build_e2e_env(tmp):
     return configs
 
 
-@pytest.fixture(scope="module")
-def e2e_env(tmp_path_factory):
-    return build_e2e_env(tmp_path_factory.mktemp("torch_variants"))
-
-
 def read_ece_dice(out_dir):
     rows = next(rows for name, rows in read_dir(out_dir).items()
                 if name.startswith("eval_ece_"))
@@ -380,90 +375,3 @@ def run_both(config_file, out_dir, strategy, **flags):
                                 strategy=strategy, device="cpu", **flags)
     assert evalstats.fused_eval_stats.plain_calls == plain + 2
     return out_dir / "jax", out_dir / "port"
-
-
-@pytest.mark.parametrize("strategy", ["deterministic", "ensemble",
-                                      "auxiliary_feat", "auxiliary_segm",
-                                      "aleatoric"])
-def test_bf16_fast_decoder_matches_jax(e2e_env, tmp_path, strategy):
-    jax_dir, port_dir = run_both(e2e_env[strategy], tmp_path, strategy,
-                                 dtype="bfloat16", fast_decoder=True)
-    gate = SIGMA_ENVELOPE if strategy == "aleatoric" else GATE
-    assert_within_gate(jax_dir, port_dir, gate)
-
-
-def test_mc_bf16_stays_with_f32_under_the_same_generators(e2e_env,
-                                                          tmp_path):
-    """MC masks cannot equal flax's; under the port's own generators the
-    bf16 fast-decoder run stays within the gate of the f32 run."""
-    config = port_cfg.load(e2e_env["mc"])
-    runs = {}
-    for name, flags in (("f32", {}), ("bf16", dict(dtype="bfloat16",
-                                                   fast_decoder=True))):
-        runs[name] = tmp_path / name
-        port_direct.evaluate_direct(config, str(runs[name]), run_id="mc",
-                                    device="cpu", **flags)
-    got = assert_within_gate(runs["f32"], runs["bf16"], GATE)
-    assert got != read_ece_dice(runs["f32"])  # bf16 did run
-
-
-def test_scope_checks_raise_as_in_jax(e2e_env, tmp_path):
-    """fold_bn with mc: ValueError in both packages; so is int8 on a
-    family outside its scope."""
-    config_file = e2e_env["mc"]
-    with pytest.raises(ValueError, match="fold_bn covers"):
-        jax_evaluate_direct(jax_cfg.load(config_file, "test-config"),
-                            str(tmp_path / "jax"), fold_bn=True)
-    with pytest.raises(ValueError, match="fold_bn covers"):
-        port_direct.evaluate_direct(port_cfg.load(config_file),
-                                    str(tmp_path / "port"), device="cpu",
-                                    fold_bn=True)
-    # mc=0 is the deterministic protocol, which folds
-    port_direct.evaluate_direct(port_cfg.load(config_file),
-                                str(tmp_path / "det"), device="cpu", mc=0,
-                                fold_bn=True)
-    with pytest.raises(ValueError, match="quantize=True covers"):
-        jax_evaluate_direct(jax_cfg.load(config_file, "test-config"),
-                            str(tmp_path / "jax_q"), strategy="aleatoric",
-                            quantize=True)
-    with pytest.raises(ValueError, match="quantize=True covers"):
-        port_direct.evaluate_direct(port_cfg.load(config_file),
-                                    str(tmp_path / "q"), device="cpu",
-                                    strategy="aleatoric", quantize=True)
-
-
-def test_quant_scales_checkpoint_raises(e2e_env, tmp_path):
-    """A model.json with int8 scales loads (the int8 slice is ported): the
-    sites of the levels it quantizes take its dict and their int8 weights
-    at load; a dict without a site's key raises at the forward."""
-    _, p, stats = flax_net("unet", UNET, E2E_SHAPE[1:], seed=1)
-    model_dir = write_model(tmp_path / "quant", "unet",
-                            {**UNET, "quant_scales": {"site": 1.0},
-                             "quant_skip_levels": 1}, p, stats)
-    model = port_direct.load_model(model_dir, "best", "cpu")
-    assert model.quant_scales == {"site": 1.0}
-    assert model.ConvBlock_1.ConvBnRelu_0.Conv_0.int8_w0.dtype == torch.int8
-    with pytest.raises(KeyError, match="calibrate"):
-        model(torch.zeros(1, 4, *E2E_SHAPE[1:]))
-
-
-def test_cli_variant_flags(e2e_env, tmp_path, monkeypatch):
-    """-dtype, -fast_decoder and -fold_bn parse and reach the run."""
-    seen = {}
-    monkeypatch.setattr(port_cli, "main",
-                        lambda *args: seen.setdefault("args", args))
-    monkeypatch.setattr("sys.argv", [
-        "eval_direct", "-config_file", e2e_env["deterministic"], "-dtype",
-        "bfloat16", "-fast_decoder", "-fold_bn", "-device", "cpu"])
-    port_cli.cli()
-    assert seen["args"][-5:] == ("bfloat16", True, True, False, None)
-    monkeypatch.setattr("sys.argv", ["eval_direct", "-config_file", "x",
-                                     "-dtype", "float16"])
-    with pytest.raises(SystemExit):
-        port_cli.cli()
-    monkeypatch.undo()
-    out_dir = str(tmp_path / "cli")
-    port_cli.main(e2e_env["deterministic"], run_id="cli", out_dir=out_dir,
-                  mc=0, device="cpu", dtype="bfloat16", fast_decoder=True,
-                  fold_bn=True)
-    assert "eval_calibration_cli.csv" in os.listdir(out_dir)
