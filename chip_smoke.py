@@ -3,8 +3,8 @@ hand-written kernels (``csrc/evalstats.cu``, the fused eval statistics;
 ``csrc/int8conv.cu``, the int8 convolution), holds each against its plain
 PyTorch version, then drives the main path, the BraTS MC-dropout direct
 eval, the four other strategy families of the direct eval, the
-inference variants, int8 included, and the native-2D (ISIC) direct eval,
-at full width.
+inference variants, int8 included, the native-2D (ISIC) direct eval and
+training, at full width.
 
   python3 chip_smoke.py
 
@@ -114,17 +114,39 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    held against its plain versions at every site shape of the ISIC MC
    chunk and of its tail chunk, and one site of each kind of the ISIC
    int8 model runs bitwise on the card and the CPU; the f32 logits of 4
-   images are held against the CPU at the f32 bar.
+   images are held against the CPU at the f32 bar;
+10. training: ``rcu_tpu_torch.strategies.train_*`` on in-memory stores
+   (``memory_stores``: the config's dataset name resolves to them), at
+   the width, batch and optimizer of the shipped train configs, with the
+   smoke's hooks (a step timer, best + 3 last checkpoints, the validation
+   CSV): one epoch of BraTS default (config/train_brats_baseline.yaml; 2
+   synthetic 155x240x240 subjects through the none-black selection, the
+   third validated), then aleatoric, auxiliary_feat (on the default
+   run's best checkpoint) and auxiliary_segm on the slices through the
+   lesion, and ISIC default (config/train_isic_baseline.yaml, 96 + 32
+   images through its rescale, ISIC validation). Each prints its ms per
+   step on one batch after 3 warm-up steps (CUDA-synced), slices or
+   images per second, peak memory, first and last loss, validation
+   seconds per subject, checkpoint write seconds and MB. The default
+   run's best checkpoint goes through ``evaluate_subjects``,
+   deterministic and MC20, on the valid subject (the eval kernel once
+   each); one train step of each kind at flagship width on 2 slices runs
+   on the card and the CPU from the same weights (and in float64 on the
+   card as the reference; the bars at ``TRAIN_LOSS_RTOL``); 10 BraTS
+   default steps run under torch.profiler (busy share, the 8 costliest
+   kernels).
 
 Every path runs with both kernels' launch counts set to 0 before it and
 read after it, and fails unless it launched the eval kernel once per
 subject and the int8 conv once per quantized site and forward (never on a
-path that quantizes nothing, never its plain version). The last two lines
-are the kernels' JSON records (``fused_eval_stats`` and ``int8_conv``;
-``launches``: the sum over the paths, ``by_path``: each path's launches
-and numbers; the int8 record's ``sites``: each site shape's numbers) and
-``{"ok": true, "device": {...}}``.
+path that quantizes nothing, never its plain version). The last three
+lines are the training phase's numbers (JSON), the kernels' JSON records
+(``fused_eval_stats`` and ``int8_conv``; ``launches``: the sum over the
+paths, ``by_path``: each path's launches and numbers; the int8 record's
+``sites``: each site shape's numbers) and ``{"ok": true, "device":
+{...}}``.
 """
+import contextlib
 import copy
 import csv
 import json
@@ -139,9 +161,11 @@ import numpy as np
 import torch
 
 from rcu_tpu_torch.data import nifti
+from rcu_tpu_torch.engine import hooks as train_hooks
 from rcu_tpu_torch.engine import steps
 from rcu_tpu_torch.eval.direct import (DEFAULT_THRESHOLDS,
                                        _calibrated_quant_model,
+                                       _fp32_switches,
                                        evaluate_subjects, model_from_flax)
 from rcu_tpu_torch.models import FAST_DECODER_KWARGS, get_model
 from rcu_tpu_torch.models.convert import flax_from_state_dict
@@ -170,6 +194,14 @@ def log(*args):
     print(*args, flush=True)
 
 
+def full_float32():
+    """Every switch that lets cuDNN or cuBLAS round float32 to TF32 off,
+    for the rest of the run (``eval.direct._full_float32`` within a
+    block)."""
+    for holder, name, value in _fp32_switches():
+        setattr(holder, name, value)
+
+
 def device_phase():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; none is available")
@@ -177,11 +209,16 @@ def device_phase():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(smi)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_float32()
+    conv = getattr(torch.backends.cudnn, "conv", None)
     log(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-        f"torch {torch.__version__} cuda {torch.version.cuda}")
+        f"cudnn.conv.fp32_precision="
+        f"{getattr(conv, 'fp32_precision', 'n/a')} "
+        f"cuda.matmul.fp32_precision="
+        f"{getattr(torch.backends.cuda.matmul, 'fp32_precision', 'n/a')} "
+        f"torch {torch.__version__} cuda {torch.version.cuda} cudnn "
+        f"{torch.backends.cudnn.version()}")
     part = "PCIe" if "PCIe" in smi else "SXM"
     log(f"bound: H100 {part} memory rate {HBM_BYTES_PER_S[part] / 1e12} TB/s")
     return HBM_BYTES_PER_S[part]
@@ -447,11 +484,38 @@ class BratsLikeDataset:
             return np.stack([data["labels"], data["baseline"]], axis=-1)
         return data[category]
 
+    def read_slice(self, subject, index, category):
+        data = self._data[subject]
+        if category == "labels" and self._labels_with_baseline:
+            return np.stack([data["labels"][index], data["baseline"][index]],
+                            axis=-1)
+        return data[category][index]
+
     def shape(self, subject, category="images"):
-        return self.read_volume(subject, category).shape
+        shape = self._data[subject][category].shape
+        if category == "labels" and self._labels_with_baseline:
+            return shape + (2,)
+        return shape
+
+    def dtype(self, subject, category="images"):
+        return self._data[subject][category].dtype
+
+    def categories(self, subject=None):
+        return ["images", "labels"]
+
+    def properties(self, subject):
+        return nifti.ImageProperties(size=BRATS[::-1])
 
     def files(self, subject):
         return {"images": {"t2": self._t2[subject]}}
+
+    def subset(self, names, path):
+        """The subjects ``names`` as a store of their own at ``path``
+        (the index cache's key and directory)."""
+        view = copy.copy(self)
+        view.subjects = view.subject_subset = list(names)
+        view.dataset_path = path
+        return view
 
 
 def middle_batch(dataset):
@@ -590,8 +654,7 @@ def main_path_phase(model, dataset, out_dir):
     if not (torch.backends.cudnn.allow_tf32
             and torch.backends.cuda.matmul.allow_tf32):
         raise AssertionError("evaluate_subjects did not restore the TF32 flags")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_float32()
     n = len(dataset.subjects)
     check_csvs(out_dir, "smoke", "smoke", n)
     voxels = n * int(np.prod(BRATS))
@@ -1455,15 +1518,19 @@ def trained_unet(seed, dataset):
     take Adam steps of class-weighted cross-entropy (lesion x
     :data:`INT8_LESION_WEIGHT`) on 8-slice batches of the synthetic
     subjects, half of them slices through the lesion, with channel dropout
-    as the MC protocol samples it (BatchNorm on its fixed statistics, as
-    the port has no training mode; TF32 on, since only the weights come
-    out), until the loss of the last 10 steps averages below
+    as the MC protocol samples it (BatchNorm on its fixed statistics; TF32
+    on, since only the weights come out), until the loss of the last 10 steps averages below
     :data:`INT8_TRAIN_LOSS` (between the bounds of
     :data:`INT8_TRAIN_STEPS`). Its predictions follow the lesion, as a
     trained model's do (Dice ~0.9 where a seeded model's is ~0.02): the JAX
     package set its int8 gate on trained models, and on seeded weights
     int8 misses that gate in the JAX package too
-    (``tests/test_torch_quant_e2e.py``; PERF.md)."""
+    (``tests/test_torch_quant_e2e.py``; PERF.md).
+
+    It does not use the ported trainer (:func:`train_phase` runs that):
+    fixed BatchNorm statistics and the class-weighted loss reach a
+    lesion-following model in these few steps, and the int8 numbers that
+    PERF.md records were measured on this model."""
     torch.manual_seed(seed)
     model = get_model("unet", FLAGSHIP).to(DEVICE)
     calibrate_bn(model, middle_batch(dataset).to(DEVICE))
@@ -1713,6 +1780,24 @@ class IsicLikeDataset:
         if category == "images":
             return ISIC + (3,)
         return ISIC + (2,) if self._with_baseline else ISIC
+
+    def read_slice(self, subject, index, category):
+        return self.read_volume(subject, category)
+
+    def categories(self, subject=None):
+        return ["images", "labels"]
+
+    def properties(self, subject):
+        return nifti.ImageProperties(size=ISIC[::-1])
+
+    def files(self, subject):
+        return {}
+
+    def subset(self, names, path):
+        view = copy.copy(self)
+        view.subjects = view.subject_subset = list(names)
+        view.dataset_path = path
+        return view
 
 
 def isic_batch(dataset, transform, n, with_baseline=False):
@@ -2088,6 +2173,542 @@ def isic_phase(tmp, hbm_rate, ptxas):
     return by_path, int8_record, axis, max(errs)
 
 
+# ----------------------------------------------------------- training
+
+TRAIN_CONFIGS = {"default": "config/train_brats_baseline.yaml",
+                 "aleatoric": "config/train_brats_aleatoric.yaml",
+                 "auxiliary_feat": "config/train_brats_auxiliary_feat.yaml",
+                 "auxiliary_segm": "config/train_brats_auxiliary_segm.yaml",
+                 "isic": "config/train_isic_baseline.yaml"}
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10  # steps before and in a step timing
+TRAIN_PROFILED = 10
+ISIC_TRAIN, ISIC_VALID = 96, 32  # images: 3 steps of 32, one valid batch
+# card against CPU, one train step at flagship width on 2 slices (dropout
+# 0, TF32 off): the loss's relative error; each gradient tensor against
+# its own max abs value (a conv bias before a BatchNorm, whose gradient is
+# zero in exact arithmetic and rounding noise on either device, against
+# its conv kernel's). Where the card misses TRAIN_GRAD_SCALE, the two
+# sides took some ReLU or pool choice otherwise (a unit whose input
+# float32 rounds to the other side of 0 carries its whole gradient on one
+# side and none on the other); then a card step that takes the CPU's
+# choices (ForwardDecisions) must lie within the same bar of the CPU's
+# gradient or, where the CPU's float32 lies the farther from it, of
+# float64's on those choices. A TF32 convolution misses it, and the check
+# shows it does. Then the BatchNorm running statistics relative to their
+# tensor's max; adam's new parameters from identical gradients
+TRAIN_LOSS_RTOL, TRAIN_GRAD_SCALE = 1e-5, 1e-3
+TRAIN_STATS_RTOL, TRAIN_ADAM_RTOL = 1e-5, 1e-6
+
+
+class TrainTimer(train_hooks.TrainLoopHook):
+    """A train-loop hook: each step's time (CUDA-synced), its loss, the
+    validation's seconds and score."""
+
+    def __init__(self):
+        self.times, self.losses, self.validation_s = [], [], None
+        self.score, self._t = None, None
+
+    def _now(self):
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def on_epoch_start(self, loop, epoch):
+        self._t = self._now()
+
+    def on_training_batch_end(self, loop, epoch, batch_index, nb_batches,
+                              metrics):
+        self.losses.append(float(metrics["loss"]))
+        now = self._now()
+        self.times.append(now - self._t)
+        self._t = now
+
+    def on_training_end(self, loop, epoch, metrics_mean):
+        self._t = self._now()
+
+    def on_validation_end(self, loop, epoch, score, is_best, subject_results):
+        self.validation_s = self._now() - self._t
+        self.score = score
+
+
+@contextlib.contextmanager
+def memory_stores(stores):
+    """``engine.databuild.build_dataset`` resolves a config's dataset name
+    to one of ``stores`` (the card's machine has no h5py, and the smoke's
+    data live in memory); the loader, the selection and its index cache
+    run as for a store on disk."""
+    from rcu_tpu_torch.engine import databuild
+    build = databuild.build_dataset
+    databuild.build_dataset = \
+        lambda data_config, subjects=None, prediction_dir=None: \
+        stores[data_config.dataset]
+    try:
+        yield
+    finally:
+        databuild.build_dataset = build
+
+
+def train_config(name, tmp, train, valid, **others):
+    """A shipped train config with the smoke's run dir, one epoch, the
+    in-memory stores ``train`` and ``valid``, and ``others`` merged."""
+    from rcu_tpu_torch.engine import config as cfg_lib
+    config = cfg_lib.load(TRAIN_CONFIGS[name], expected_type="train-config")
+    config.train_dir, config.split, config.epochs = tmp, "", 1
+    config.train_data.dataset, config.valid_data.dataset = train, valid
+    config.others.update(others)
+    return config
+
+
+class CsvAtRunDir(train_hooks.TrainLoopHook):
+    """The validation CSV hook in the run's own dir, which the loop names
+    when it starts."""
+
+    def __init__(self):
+        self.hook = None
+
+    def on_startup(self, loop):
+        self.hook = train_hooks.WriteValidationMetricsCsvHook(
+            os.path.join(loop.run_dir, "validation_metrics.csv"))
+        self.hook.on_startup(loop)
+
+    def on_validation_subject_end(self, loop, epoch, subject, results):
+        self.hook.on_validation_subject_end(loop, epoch, subject, results)
+
+    def on_validation_end(self, loop, epoch, score, is_best, subject_results):
+        self.hook.on_validation_end(loop, epoch, score, is_best,
+                                    subject_results)
+
+
+def run_training(label, run, config, batch_size, **kwargs):
+    """One epoch of ``run`` (a ``strategies.train_*``) with the smoke's
+    hooks (timer, best + 3 last checkpoints, validation CSV); then, from
+    the trained state, ``TRAIN_WARMUP`` steps and ``TRAIN_TIMED`` timed
+    steps (CUDA-synced) on its first batch, and one more checkpoint write
+    timed. Prints a line; returns (loop, the record)."""
+    from rcu_tpu_torch.data.loader import prefetch
+    timer = TrainTimer()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop = run(config, device=DEVICE, hooks=[
+        timer, train_hooks.SaveBestModelHook(),
+        train_hooks.SaveNLastModelHook(3), CsvAtRunDir()], **kwargs)
+    run_s = time.perf_counter() - t0
+    run_peak = torch.cuda.max_memory_allocated() / 1e9
+    names = sorted(os.listdir(loop.model_files.weight_checkpoint_dir))
+    if names != ["checkpoint_ep000-best.ckpt", "checkpoint_ep000.ckpt"]:
+        raise AssertionError(f"{label}: checkpoints {names}")
+    with open(os.path.join(loop.run_dir, "validation_metrics.csv")) as f:
+        rows = f.read().strip().splitlines()
+    n_valid = len(loop.valid_data.dataset.subjects)
+    if len(rows) != 1 + n_valid or not all(math.isfinite(x) for x in
+                                          timer.losses):
+        raise AssertionError(f"{label}: validation rows {rows[:3]}, losses "
+                             f"{timer.losses}")
+    batch = next(prefetch(iter(loop.train_data.loader), DEVICE))
+    step = loop.train_step
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_WARMUP):
+        step(loop.state, batch, steps.step_generator(SEED, 1, i, DEVICE))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_TIMED):
+        metrics = step(loop.state, batch,
+                       steps.step_generator(SEED, 2, i, DEVICE))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TRAIN_TIMED * 1e3
+    step_peak = torch.cuda.max_memory_allocated() / 1e9
+    if not math.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"{label}: non-finite loss after the timed steps")
+    path = loop.model_files.build_checkpoint_path(99)
+    t0 = time.perf_counter()
+    loop.save_checkpoint(99)
+    ckpt_s = time.perf_counter() - t0
+    ckpt_mb = os.path.getsize(path) / 1e6
+    os.remove(path)
+    record = {"steps": len(timer.times), "step_ms": step_ms,
+              "per_s": batch_size / step_ms * 1e3, "peak_gb": step_peak,
+              "run_peak_gb": run_peak, "run_s": run_s,
+              "first_loss": timer.losses[0], "last_loss": timer.losses[-1],
+              "validation_s_per_subject": timer.validation_s / n_valid,
+              "score": timer.score, "checkpoint_s": ckpt_s,
+              "checkpoint_mb": ckpt_mb}
+    loop_steps = timer.times[TRAIN_WARMUP:]
+    loop_ms = f"{1e3 * np.mean(loop_steps):.1f}" if loop_steps else "n/a"
+    log(f"train {label}: one epoch of {len(timer.times)} steps of "
+        f"{batch_size} in {run_s:.2f} s (in the loop after {TRAIN_WARMUP} "
+        f"steps {loop_ms} ms/step, synced), loss {timer.losses[0]:.4f} -> "
+        f"{timer.losses[-1]:.4f}; {step_ms:.2f} ms/step on one batch after "
+        f"{TRAIN_WARMUP} warm-up steps = {record['per_s']:.1f} "
+        f"{'images' if 'isic' in label else 'slices'}/s, peak "
+        f"{step_peak:.2f} GB (run {run_peak:.2f} GB); validation "
+        f"{record['validation_s_per_subject']:.3f} s/subject, score "
+        f"{timer.score:.4f}; checkpoint write {ckpt_s:.3f} s, "
+        f"{ckpt_mb:.3f} MB")
+    return loop, record
+
+
+def profile_train_steps(loop, n=TRAIN_PROFILED):
+    """``n`` train steps on the loader's batches under torch.profiler: the
+    device's busy share of the wall time and the 8 kernels with the most
+    device time, names whole."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from rcu_tpu_torch.data.loader import prefetch
+    batches = []
+    for batch in prefetch(iter(loop.train_data.loader), DEVICE):
+        batches.append(batch)
+        if len(batches) == n:
+            break
+    batches = (batches * n)[:n]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i, batch in enumerate(batches):
+            loop.train_step(loop.state, batch,
+                            steps.step_generator(SEED, 3, i, DEVICE))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        log("train profile: the trace holds no device kernels; busy share "
+            "not measured")
+        return None
+    busy, reach, by_name = 0.0, -math.inf, {}
+    for start, end, name in spans:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+        by_name[name] = by_name.get(name, 0.0) + end - start
+    log(f"train profile: {n} steps of brats default in {wall_us / 1e6:.3f} s "
+        f"under the profiler, device busy {busy / 1e6:.3f} s = "
+        f"{100 * busy / wall_us:.1f} %, {len(spans)} kernels")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  {100 * us / busy:5.1f} %  {us / 1e3 / n:8.3f} ms/step  {name}")
+    return busy / wall_us
+
+
+def seeded_train_model(record, seed):
+    from rcu_tpu_torch.engine.state import create_train_state
+    from rcu_tpu_torch.models import get_optimizer
+    model_type = "postnet" if "nb_convs" in record or "start_filters" not \
+        in record else "unet"
+    return create_train_state(get_model(model_type, record),
+                              get_optimizer("adam", {}), seed, "cpu").model
+
+
+class GradRecorder:
+    """An optimizer that keeps the gradients and updates nothing."""
+
+    def init(self, params):
+        return {}
+
+    def step(self, params, state):
+        self.grads = {k: p.grad.detach().cpu() for k, p in params.items()}
+
+
+class ForwardDecisions:
+    """The discrete choices of a forward pass, in call order: each ReLU's
+    mask and each max-pool's argmax (``rcu_tpu_torch.models.unet`` makes
+    both through ``torch.nn.functional``). :meth:`recording` keeps a run's
+    choices; :meth:`replaying` makes another run take them, and counts the
+    units and windows where that run's own values would have chosen
+    otherwise. Where rounding puts a ReLU's input on the other side of 0,
+    the forward moves by that rounding but the unit's gradient by its
+    whole value: a difference of the choice, not of the arithmetic."""
+
+    def __init__(self):
+        self.relu, self.pool, self.differ = [], [], 0
+
+    @contextlib.contextmanager
+    def recording(self):
+        from unittest import mock
+        relu_, pool = torch.nn.functional.relu_, torch.nn.functional.max_pool2d
+
+        def record_relu(y):
+            self.relu.append(y > 0)
+            return relu_(y)
+
+        def record_pool(x, *args, **kwargs):
+            y, index = pool(x, *args, return_indices=True, **kwargs)
+            self.pool.append(index)
+            return y
+
+        with mock.patch.object(torch.nn.functional, "relu_", record_relu), \
+                mock.patch.object(torch.nn.functional, "max_pool2d",
+                                  record_pool):
+            yield
+
+    @contextlib.contextmanager
+    def replaying(self):
+        from unittest import mock
+        pool = torch.nn.functional.max_pool2d
+        relus, pools = iter(self.relu), iter(self.pool)
+        self.differ = 0
+
+        def replay_relu(y):
+            mask = next(relus).to(y.device)
+            self.differ += int(((y > 0) != mask).sum())
+            return torch.where(mask, y, 0.0)
+
+        def replay_pool(x, *args, **kwargs):
+            index = next(pools).to(x.device)
+            own = pool(x.detach(), *args, return_indices=True, **kwargs)[1]
+            self.differ += int((own != index).sum())
+            return x.flatten(2).gather(2, index.flatten(2)).view(index.shape)
+
+        with mock.patch.object(torch.nn.functional, "relu_", replay_relu), \
+                mock.patch.object(torch.nn.functional, "max_pool2d",
+                                  replay_pool):
+            yield
+        if next(relus, None) is not None or next(pools, None) is not None:
+            raise AssertionError("the replayed forward took fewer choices "
+                                 "than the recorded one")
+
+
+@contextlib.contextmanager
+def cudnn_tf32():
+    """cuDNN's convolutions in TF32 within the block (the control of the
+    train step's gradient check), the caller's flag back afterwards."""
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+
+
+def train_step_card_vs_cpu(label, model, make_step, batch, frozen=None,
+                           noise=None, lr=1e-4, tf32_control=False):
+    """One train step of ``make_step(frozen)`` from ``model``'s weights on
+    the card and on the CPU in float32 (TF32 off): the loss, each
+    gradient, the BatchNorm running statistics at the TRAIN_* bars. A
+    gradient that misses its bar is held again from a card step that
+    replays the CPU's forward choices (:class:`ForwardDecisions`),
+    against the nearer of the CPU's and float64's on those choices. Then
+    adam from both sides' weights fed the CPU's gradients: the new
+    parameters at TRAIN_ADAM_RTOL. With ``tf32_control`` the replaying
+    card step runs once more with cuDNN's TF32 on, and the check fails
+    unless that run misses the bar: the check is shown to reject the
+    precision it exists to exclude. Returns the largest card-vs-CPU
+    gradient error relative to its tensor's max."""
+    from rcu_tpu_torch.engine.state import TrainState
+    from rcu_tpu_torch.models.optim import Adam
+    pre_bn_bias = re.compile(r"ConvBnRelu_\d+\.Conv_0\.bias$")
+
+    def step(device, dtype, choices=None, replay=False):
+        m = copy.deepcopy(model).to(device)
+        f = None if frozen is None else copy.deepcopy(frozen).to(device)
+        if dtype == torch.float64:
+            for net in filter(None, (m, f)):
+                net.double().dtype = torch.float64
+        state = TrainState(m, GradRecorder(), {})
+        kwargs = {} if noise is None else {"noise": noise.to(device)}
+        data = {k: (v.to(dtype) if v.is_floating_point() else v).to(device)
+                for k, v in batch.items()}
+        with (contextlib.nullcontext() if choices is None else
+              choices.replaying() if replay else choices.recording()):
+            metrics = make_step(f)(
+                state, data, torch.Generator(device=device).manual_seed(SEED),
+                **kwargs)
+        return (float(metrics["loss"]), state.optimizer.grads,
+                {k: v.detach().cpu() for k, v in m.state_dict().items()
+                 if "running" in k}, m)
+
+    choices = ForwardDecisions()
+    l_cpu, g_cpu, s_cpu, m_cpu = step("cpu", torch.float32, choices)
+    l_gpu, g_gpu, s_gpu, m_gpu = step(DEVICE, torch.float32)
+    g_replay = step(DEVICE, torch.float32, choices, replay=True)[1]
+    flips = choices.differ
+    g64 = step(DEVICE, torch.float64, choices, replay=True)[1]
+
+    def scale_of(name):
+        return float(g_cpu[name[:-len("bias")] + "weight"
+                           if pre_bn_bias.search(name) else name].abs().max())
+
+    def replay_err(grads, name):
+        """(vs the CPU, vs float64), on the CPU's choices."""
+        got = grads[name].double()
+        return (float((got - g_cpu[name].double()).abs().max()),
+                float((got - g64[name]).abs().max()))
+
+    failures, rows = [], []
+    if not abs(l_gpu - l_cpu) <= TRAIN_LOSS_RTOL * abs(l_cpu):
+        failures.append(f"loss card {l_gpu} vs CPU {l_cpu}")
+    worst = 0.0
+    for name, want in g_cpu.items():
+        scale = scale_of(name)
+        err = float((g_gpu[name] - want).abs().max())
+        rows.append((err / scale, name) + tuple(
+            e / scale for e in replay_err(g_replay, name)))
+        if not (err <= TRAIN_GRAD_SCALE * scale
+                or min(replay_err(g_replay, name)) <= TRAIN_GRAD_SCALE * scale):
+            failures.append(f"gradient {name} card vs CPU {err}; on the "
+                            f"CPU's choices vs CPU and vs float64 "
+                            f"{replay_err(g_replay, name)} (max {scale})")
+        worst = max(worst, err / scale)
+    log(f"  {label}: {flips} ReLU units and pool windows of the card's "
+        f"forward would choose otherwise than the CPU's")
+    for rel, name, cpu, f64 in sorted(rows, reverse=True)[:4]:
+        log(f"  {label} gradient {name}: card vs CPU {rel:.2e}; on the "
+            f"CPU's choices vs CPU {cpu:.2e}, vs float64 {f64:.2e} x its max")
+    for name, want in s_cpu.items():
+        err = float((s_gpu[name] - want).abs().max())
+        if not err <= TRAIN_STATS_RTOL * float(want.abs().max()):
+            failures.append(f"{name} card vs CPU {err}")
+    if tf32_control:
+        with cudnn_tf32():
+            g_tf32 = step(DEVICE, torch.float32, choices, replay=True)[1]
+        control = max(min(replay_err(g_tf32, name)) / scale_of(name)
+                      for name in g_tf32)
+        log(f"  {label} control, cuDNN TF32 on, on the CPU's choices: the "
+            f"farthest gradient lies {control:.2e} x its max from the "
+            f"nearer of CPU and float64 (bar {TRAIN_GRAD_SCALE:.0e})")
+        if not control > TRAIN_GRAD_SCALE:
+            failures.append(f"the TF32 control's gradients lie within "
+                            f"{control} of the CPU's or float64's: the bar "
+                            f"cannot tell TF32 from float32")
+    # adam on identical gradients, from identical weights
+    params, start = {}, copy.deepcopy(m_cpu.state_dict())
+    for device, m in (("cpu", m_cpu), (DEVICE, m_gpu)):
+        m.load_state_dict(start)
+        named = dict(m.named_parameters())
+        for key, p in named.items():
+            p.grad = g_cpu[key].to(device)
+        state = TrainState(m, Adam(lr), Adam(lr).init(named))
+        state.step()
+        params[device] = {k: v.detach().cpu() for k, v in
+                          m.named_parameters()}
+    for key, want in params["cpu"].items():
+        got = params[DEVICE][key]
+        if not torch.allclose(got, want, rtol=TRAIN_ADAM_RTOL, atol=0):
+            failures.append(f"adam {key}: {float((got - want).abs().max())}")
+    if failures:
+        raise AssertionError(f"{label}: {len(failures)} checks failed: "
+                             + "; ".join(failures[:8]))
+    log(f"train card vs CPU, {label}: loss {l_gpu:.6f} vs {l_cpu:.6f}, "
+        f"gradients max err {worst:.2e} x their tensor's max, BatchNorm "
+        f"statistics and adam's update at the bars")
+    return worst
+
+
+def train_card_vs_cpu(dataset):
+    """One train step of each kind at flagship width on 2 slices through
+    the lesion, dropout 0, card against CPU."""
+    subject = dataset.subjects[0]
+    labels = dataset.read_volume(subject, "labels")
+    z = int(np.argmax(labels.reshape(labels.shape[0], -1).sum(1)))
+    images = torch.from_numpy(np.ascontiguousarray(
+        dataset.read_volume(subject, "images")[z:z + 2]))
+    gt = torch.from_numpy(np.ascontiguousarray(labels[z:z + 2]))
+    baseline = torch.from_numpy(np.ascontiguousarray(
+        dataset._data[subject]["baseline"][z:z + 2]))
+    batch = {"images": images, "labels": gt, "valid": torch.ones(2)}
+    flagship = {**FLAGSHIP, "dropout": 0.0}
+    errs = [train_step_card_vs_cpu(
+        "ce", seeded_train_model(flagship, SEED), lambda f:
+        steps.make_train_step(), batch, tf32_control=True)]
+    sigma = seeded_train_model({**flagship, "sigma_out": True}, SEED + 1)
+    noise = torch.randn((10, 2, 2) + BRATS[1:],
+                        generator=torch.Generator().manual_seed(SEED))
+    errs.append(train_step_card_vs_cpu(
+        "aleatoric", sigma, lambda f: steps.make_train_step(
+            "aleatoric", is_log_sigma=False), batch, noise=noise))
+    segmenter = seeded_train_model({**flagship, "provide_features": True},
+                                   SEED + 2).eval()
+    errs.append(train_step_card_vs_cpu(
+        "auxiliary_feat", seeded_train_model(
+            {"nb_classes": 2, "in_channels": FLAGSHIP["start_filters"],
+             "nb_convs": 3}, SEED + 3),
+        lambda f: steps.make_auxiliary_train_step(f), batch,
+        frozen=segmenter))
+    errs.append(train_step_card_vs_cpu(
+        "auxiliary_segm", seeded_train_model(
+            {**flagship, "in_channels": 5}, SEED + 4),
+        lambda f: steps.make_auxiliary_train_step(), dict(
+            batch, labels=torch.stack([gt, baseline], -1))))
+    return max(errs)
+
+
+def train_phase(tmp, dataset=None):
+    """Training on the card through ``rcu_tpu_torch.strategies``: BraTS
+    default (config/train_brats_baseline.yaml at its width and batch, one
+    epoch over 2 synthetic 155x240x240 subjects, validation on a third),
+    whose best checkpoint then runs through the direct eval, deterministic
+    and MC20, on the valid subject; aleatoric, auxiliary_feat (on that
+    checkpoint) and auxiliary_segm on the slices through the lesion; ISIC
+    default (config/train_isic_baseline.yaml, 192x256 through its
+    rescale, ISIC validation); card against CPU steps; a profile of 10
+    BraTS default steps. Returns ({eval path: by_path record}, the largest
+    card-vs-CPU gradient error, {run: numbers})."""
+    from rcu_tpu_torch import strategies
+    from rcu_tpu_torch.engine.config import ParametricNode
+    from rcu_tpu_torch.eval.direct import load_model
+    t0 = time.perf_counter()
+    data = dataset or BratsLikeDataset(tmp, n_subjects=3, seed=SEED + 7)
+    train, valid = data.subjects[:2], data.subjects[2:]
+    stores = {"brats_train": data.subset(train, os.path.join(tmp, "brats_train")),
+              "brats_valid": data.subset(valid, os.path.join(tmp, "brats_valid"))}
+    wpred = data.with_baseline()
+    stores["wpred_train"] = wpred.subset(train, os.path.join(tmp, "wpred_train"))
+    stores["wpred_valid"] = wpred.subset(valid, os.path.join(tmp, "wpred_valid"))
+    isic = IsicLikeDataset(ISIC_TRAIN + ISIC_VALID, seed=SEED + 8)
+    stores["isic_train"] = isic.subset(isic.subjects[:ISIC_TRAIN],
+                                       os.path.join(tmp, "isic_train"))
+    stores["isic_valid"] = isic.subset(isic.subjects[ISIC_TRAIN:],
+                                       os.path.join(tmp, "isic_valid"))
+    log(f"train data: {len(train)} + {len(valid)} subjects {BRATS}, "
+        f"{ISIC_TRAIN} + {ISIC_VALID} images {ISIC}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    runs, by_path = {}, {}
+    root = os.path.join(tmp, "train")
+    lesion = ParametricNode("with-foreground", {})
+    with memory_stores(stores):
+        config = train_config("default", root, "brats_train", "brats_valid")
+        default, runs["brats_default"] = run_training(
+            "brats default", strategies.train_default, config,
+            config.train_data.batch_size)
+        runs["brats_default"]["busy_share"] = profile_train_steps(default)
+        config = train_config("aleatoric", root, "brats_train", "brats_valid")
+        config.train_data.selection_strategy = lesion
+        _, runs["brats_aleatoric"] = run_training(
+            "brats aleatoric", strategies.train_aleatoric, config,
+            config.train_data.batch_size)
+        config = train_config("auxiliary_feat", root, "brats_train",
+                              "brats_valid",
+                              model_dir=default.model_files.model_dir,
+                              test_at="best")
+        config.train_data.selection_strategy = lesion
+        _, runs["brats_auxiliary_feat"] = run_training(
+            "brats auxiliary_feat", strategies.train_auxiliary_feat, config,
+            config.train_data.batch_size)
+        config = train_config("auxiliary_segm", root, "wpred_train",
+                              "wpred_valid")
+        config.train_data.selection_strategy = lesion
+        _, runs["brats_auxiliary_segm"] = run_training(
+            "brats auxiliary_segm", strategies.train_auxiliary_segm, config,
+            config.train_data.batch_size)
+        config = train_config("isic", root, "isic_train", "isic_valid")
+        _, runs["isic_default"] = run_training(
+            "isic default", strategies.train_default, config,
+            config.train_data.batch_size,
+            eval_subject_fn=strategies.isic_eval_subject_fn)
+    model = load_model(default.model_files.model_dir, "best", DEVICE)
+    for run_id, mc in (("train_deterministic", 0), ("train_mc20", MC_STEPS)):
+        out_dir = os.path.join(tmp, run_id)
+        launches, seconds, eces, _ = run_path(stores["brats_valid"], out_dir,
+                                              model, run_id, mc=mc)
+        check_csvs(out_dir, run_id, run_id, len(valid))
+        by_path[run_id] = {"launches": launches,
+                           "s_per_subject": seconds / len(valid),
+                           "first_ece": next(iter(eces.values()))}
+        log(f"train best checkpoint, direct eval {'MC%d' % mc if mc else 'deterministic'}: "
+            f"{seconds:.2f} s for {len(valid)} subject, launches {launches}, "
+            f"eces {eces}")
+    err = train_card_vs_cpu(data)
+    log(f"train phase: {time.perf_counter() - t0:.1f} s")
+    return by_path, err, runs
+
+
 def main():
     t_start = time.perf_counter()
     hbm_rate = device_phase()
@@ -2124,8 +2745,10 @@ def main():
         isic_paths, isic_int8, axis, isic_err = isic_phase(tmp, hbm_rate,
                                                            ptxas)
         log(f"isic phase: {time.perf_counter() - t0:.1f} s")
+        train_paths, train_err, train_runs = train_phase(tmp)
     record["by_path"] = {"mc": {"launches": record["launches"]}, **by_path,
-                         **variants, **int8_paths, **isic_paths}
+                         **variants, **int8_paths, **isic_paths,
+                         **train_paths}
     record["launches"] = sum(p["launches"] for p in record["by_path"].values())
     record["max_abs_err"] = max(record["max_abs_err"], err, variant_err,
                                 isic_err)
@@ -2133,6 +2756,8 @@ def main():
     int8_record["by_path"]["isic_mc_bf16_fast_int8"] = isic_int8
     int8_record["launches"] += isic_int8["launches"]
     log(f"smoke run: {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"training": train_runs,
+                    "card_vs_cpu_grad_err": train_err}))
     log(json.dumps({"kernels": [record, int8_record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,7 +39,7 @@ def main(config_file, run_id=None, out_dir=None, mc=None, unmasked=False,
     from rcu_tpu_torch.engine import config as cfg_lib
     from rcu_tpu_torch.eval.direct import evaluate_direct
 
-    config = cfg_lib.load(config_file)
+    config = cfg_lib.load(config_file, expected_type="test-config")
     run_id = run_id or config.test_name or "baseline"
     out_dir = out_dir or os.path.join(
         os.path.dirname(config.model_dir or "."), "eval_direct")

@@ -1,0 +1,27 @@
+"""ISIC train script (aleatoric) (``bin/isic_train_aleatoric.py`` counterpart): resolves a config id
+to its default yaml and runs ``rcu_tpu_torch.strategies.train_aleatoric``.
+
+  python -m rcu_tpu_torch.cli.isic_train_aleatoric [-config_file F | -config_id ID] [-device cpu]
+"""
+from rcu_tpu_torch.cli import _cli
+
+DEFAULT_CONFIGS = {'aleatoric': 'train_isic_aleatoric.yaml'}
+
+
+def main(config_file, config_id=None, device=None, devices=None):
+    _cli.check_devices(devices)
+    config_file = _cli.resolve_config(config_file, config_id, DEFAULT_CONFIGS,
+                                      'aleatoric')
+    from rcu_tpu_torch import strategies
+    config = _cli.load_train_config(config_file)
+    return strategies.train_aleatoric(
+        config, device=device,
+        eval_subject_fn=strategies.isic_smooth_dice_eval_subject_fn)
+
+
+def cli():
+    _cli.run_main(main, 'ISIC train script (aleatoric)')
+
+
+if __name__ == "__main__":
+    cli()

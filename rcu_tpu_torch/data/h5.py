@@ -4,6 +4,7 @@ Layout (the store's contract)::
 
   /subjects                     string dataset of subject names (ordering!)
   /data/<subject>/<category>    e.g. images (Z,Y,X,C) f32, labels (Z,Y,X) u8
+  /props/<subject>              attrs: size/spacing/origin/direction
   /meta/<subject>               free-form attrs, 'files' as a json string
 
 ``h5py`` is imported when a store is opened, not when this module is.
@@ -12,6 +13,8 @@ from __future__ import annotations
 
 import json
 import typing
+
+from rcu_tpu_torch.data.nifti import ImageProperties
 
 
 class SubjectDataset:
@@ -37,16 +40,46 @@ class SubjectDataset:
             self.subjects = [s for s in all_subjects if s in subset]
         else:
             self.subjects = all_subjects
+        self.subject_subset = list(self.subjects)
+        # an h5py path lookup costs ~0.25 ms; the loader reads by row
+        self._handles = {}
+
+    def _ds(self, subject: str, category: str):
+        key = (subject, category)
+        if key not in self._handles:
+            self._handles[key] = self._f[f"data/{subject}/{category}"]
+        return self._handles[key]
+
+    def categories(self, subject: str = None):
+        return sorted(self._f[f"data/{subject or self.subjects[0]}"].keys())
 
     def shape(self, subject: str, category: str = "images"):
-        return self._f[f"data/{subject}/{category}"].shape
+        return self._ds(subject, category).shape
+
+    def dtype(self, subject: str, category: str = "images"):
+        return self._ds(subject, category).dtype
+
+    def read_slice(self, subject: str, index: int, category: str):
+        return self._ds(subject, category)[index]
 
     def read_volume(self, subject: str, category: str):
-        return self._f[f"data/{subject}/{category}"][()]
+        return self._ds(subject, category)[()]
+
+    def properties(self, subject: str) -> ImageProperties:
+        attrs = self._f[f"props/{subject}"].attrs
+        if "size" not in attrs:
+            return ImageProperties(size=tuple(
+                int(v) for v in self.shape(subject)[0:3][::-1]))
+        return ImageProperties(
+            size=tuple(int(v) for v in attrs["size"]),
+            spacing=tuple(float(v) for v in attrs["spacing"]),
+            origin=tuple(float(v) for v in attrs["origin"]),
+            direction=tuple(float(v) for v in attrs["direction"]))
 
     def files(self, subject: str) -> dict:
         attrs = self._f[f"meta/{subject}"].attrs
         return json.loads(attrs["files"]) if "files" in attrs else {}
 
     def close(self):
+        self._handles.clear()
         self._f.close()

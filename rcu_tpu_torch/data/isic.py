@@ -1,7 +1,8 @@
 """ISIC-2017 image-folder dataset (``rcu_tpu.data.isic.IsicFolderDataset``
 counterpart), with the read interface of ``data.h5.SubjectDataset``
 (``subjects``, ``shape``, ``read_volume``, ``files``, ``close``) so that
-the direct eval takes either. Each subject is one 2-D image.
+the direct eval and training's loader take either. Each subject is one
+2-D image, its own single index (``read_slice`` is ``read_volume``).
 
 - images are the resized jpg/png files, read as RGB uint8 (H, W, 3);
 - labels are the ``*_segmentation.png`` masks with values {0, 255}; the
@@ -44,6 +45,7 @@ class IsicFolderDataset:
                 raise ValueError(f"subjects not in dataset: {sorted(missing)}")
             subjects = [s for s in subjects if s in subset]
         self.subjects = subjects
+        self.subject_subset = list(subjects)
         self.prediction_dir = prediction_dir
         self.with_superpixels = with_superpixels
 
@@ -82,6 +84,9 @@ class IsicFolderDataset:
                                           f"{subject}_prediction.nii.gz"))
         pred = np.squeeze(pred).astype(np.uint8) * 255  # the x255 quirk
         return np.stack([gt, pred], axis=-1)
+
+    def read_slice(self, subject: str, index: int, category: str):
+        return self.read_volume(subject, category)
 
     def properties(self, subject: str) -> nifti.ImageProperties:
         h, w, _ = self.shape(subject)

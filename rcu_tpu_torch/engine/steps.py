@@ -1,14 +1,31 @@
-"""The protocols' forwards (``rcu_tpu.engine.steps`` counterparts).
+"""The protocols' forwards and the train steps (``rcu_tpu.engine.steps``
+counterparts).
 
 Public layout is the JAX package's: NHWC images in, ``(..., classes)``
 probabilities out (views over the NCHW compute, no copies). Models return
 ``models.unet.UNetOutput``.
+
+A train step is a plain function ``(state, batch, generator) -> metrics``
+(``engine.state.TrainState``; a batch of the loader's tensors on the
+state's device): one forward in train mode with channel dropout drawn from
+``generator``, the valid-masked loss, its backward and one optimizer
+update. The metrics (``loss``, ``dice``: the batch's smooth dice) stay on
+the device; the hooks fetch them at their cadence. Per-step randomness is
+:func:`step_generator` of ``(seed, epoch, step)``, the port's analogue of
+``fold_in(fold_in(key, epoch), step)``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch.nn import functional as F
 
-from rcu_tpu_torch.ops import metrics
+from rcu_tpu_torch.ops import losses, metrics
+
+# the JAX package's remat policies and its mesh wait for the multi-device
+# slice (ROADMAP.md, queue 1 item 5); remat is a measured negative there
+_LATER = ("{} is not ported to rcu_tpu_torch yet (ROADMAP.md queue 1, "
+          "item 5: multi-device and the remat policies)")
 
 
 def to_model_layout(images, model):
@@ -75,3 +92,167 @@ def aleatoric_forward(model, images, is_log_sigma: bool):
     predicted_sigma = torch.gather(sigma, 1, prediction[:, None])[:, 0]
     return (probabilities.permute(0, 2, 3, 1), sigma.permute(0, 2, 3, 1),
             prediction, predicted_sigma)
+
+
+def seeded_generator(names, device) -> torch.Generator:
+    """A generator on ``device`` seeded from the ints ``names`` through
+    numpy's SeedSequence (nearby names give unrelated streams)."""
+    words = np.random.SeedSequence(list(names)).generate_state(2, np.uint32)
+    g = torch.Generator(device=device)
+    g.manual_seed((int(words[0]) << 31) ^ int(words[1]))
+    return g
+
+
+def step_generator(seed: int, epoch: int, step: int, device) -> torch.Generator:
+    """The dropout (and aleatoric noise) generator of one train step."""
+    return seeded_generator((seed, epoch, step), device)
+
+
+def _check_later(remat=None, mesh=None):
+    if remat not in (None, "conv", "full"):
+        raise ValueError(f"unknown remat policy '{remat}'; "
+                         "choose None, 'conv' or 'full'")
+    if remat is not None:
+        raise NotImplementedError(_LATER.format(f"remat={remat!r}"))
+    if mesh is not None:
+        raise NotImplementedError(_LATER.format("training on a mesh"))
+
+
+def _masked_mean(per_px: torch.Tensor, valid: torch.Tensor):
+    """Mean over the pixels of the valid batch items; per_px (B, H, W),
+    valid (B,)."""
+    w = valid[:, None, None]
+    return torch.sum(per_px * w) / (torch.sum(valid) * per_px.shape[1]
+                                    * per_px.shape[2])
+
+
+def _masked_ce(logits, labels, valid):
+    return -_masked_mean(losses.ce_log_probs(logits, labels), valid)
+
+
+@torch.no_grad()
+def _batch_smooth_dice(logits, labels, valid):
+    """Valid-masked smooth dice of the softmax probabilities (B, C, H, W)
+    against the one-hot labels (B, H, W): the train score."""
+    probs = torch.softmax(logits, dim=1)
+    onehot = F.one_hot(labels.long(), logits.shape[1]).permute(0, 3, 1, 2) \
+        .to(probs.dtype)
+    w = valid[:, None, None, None]
+    iflat = (probs * w).reshape(-1)
+    tflat = (onehot * w).reshape(-1)
+    intersection = torch.sum(iflat * tflat)
+    return (2.0 * intersection + 1.0) / (torch.sum(iflat) + torch.sum(tflat)
+                                         + 1.0)
+
+
+def _update(state, loss, logits, target, valid) -> dict:
+    loss.backward()
+    state.step()
+    return {"loss": loss.detach(),
+            "dice": _batch_smooth_dice(logits.detach(), target, valid)}
+
+
+def make_train_step(loss_kind: str = "ce", is_log_sigma: bool = False,
+                    nb_samples: int = 10, remat: str = None, mesh=None):
+    """The CE or aleatoric train step. ``'aleatoric'`` needs a sigma-headed
+    model: its loss averages the softmax over ``nb_samples`` draws of
+    Normal(logits, sigma), drawn from the step's generator after the
+    dropout masks, or given as ``noise`` (``losses.aleatoric_log_probs``).
+    ``remat`` and ``mesh`` raise ``NotImplementedError``."""
+    if loss_kind not in ("ce", "aleatoric"):
+        raise ValueError(f"unknown loss_kind '{loss_kind}'; "
+                         "choose 'ce' or 'aleatoric'")
+    _check_later(remat, mesh)
+
+    def train_step(state, batch: dict, generator, noise=None) -> dict:
+        model = state.model.train()
+        out = model(to_model_layout(batch["images"], model), [generator])
+        labels, valid = batch["labels"].long(), batch["valid"]
+        if loss_kind == "aleatoric":
+            loss = -_masked_mean(losses.aleatoric_log_probs(
+                out.logits, out.sigma, labels, is_log_sigma, nb_samples,
+                generator, noise), valid)
+        else:
+            loss = _masked_ce(out.logits, labels, valid)
+        return _update(state, loss, out.logits, labels, valid)
+
+    return train_step
+
+
+def _aux_segm_inputs(batch):
+    """auxiliary_segm: labels carry [gt, baseline prediction]; the model
+    reads the images with the prediction appended as a channel. -> (gt,
+    baseline, NHWC inputs)."""
+    gt = batch["labels"][..., 0].long()
+    baseline = batch["labels"][..., 1].long()
+    inputs = torch.cat([batch["images"], baseline[..., None].float()], dim=-1)
+    return gt, baseline, inputs
+
+
+def make_auxiliary_train_step(segm_model=None, remat: str = None, mesh=None):
+    """Train a confidence net on the segmenter's error mask. With
+    ``segm_model`` (auxiliary_feat: a frozen U-Net with
+    ``provide_features``, in eval mode) the batch runs through it without
+    gradients, the PostNet reads its features and the target is
+    ``argmax(logits) != labels``; without (auxiliary_segm) the model reads
+    the images with the baseline prediction appended, and the target is
+    ``baseline != gt``."""
+    _check_later(remat, mesh)
+
+    def train_step(state, batch: dict, generator) -> dict:
+        model = state.model.train()
+        if segm_model is not None:
+            with torch.no_grad():
+                segm_out = segm_model(to_model_layout(batch["images"],
+                                                      segm_model))
+            target = (torch.argmax(segm_out.logits, dim=1)
+                      != batch["labels"].long()).long()
+            inputs = segm_out.features
+        else:
+            gt, baseline, images = _aux_segm_inputs(batch)
+            target = (baseline != gt).long()
+            inputs = to_model_layout(images, model)
+        out = model(inputs, [generator])
+        valid = batch["valid"]
+        return _update(state, _masked_ce(out.logits, target, valid),
+                       out.logits, target, valid)
+
+    return train_step
+
+
+def make_predict_fn():
+    """Deterministic softmax forward of a batch: ``predict(model, batch)``
+    -> {probabilities}."""
+    def predict_fn(model, batch):
+        return {"probabilities": predict(model, batch["images"])}
+    return predict_fn
+
+
+def make_auxiliary_feat_predict_fn(segm_model):
+    """The frozen segmenter and the PostNet on its features:
+    ``predict(post_model, batch)`` -> the PostNet's softmax
+    (``probabilities``) and foreground column (``confidence``), the
+    segmenter's softmax (``segm_probabilities``) and its argmax
+    (``net_predictions``)."""
+    def predict_fn(post_model, batch):
+        segm_out = segm_model(to_model_layout(batch["images"], segm_model))
+        segm_probabilities = torch.softmax(segm_out.logits, dim=1)
+        confidence = torch.softmax(post_model(segm_out.features).logits, dim=1)
+        return {"probabilities": confidence.permute(0, 2, 3, 1),
+                "net_predictions": torch.argmax(segm_probabilities, dim=1),
+                "segm_probabilities": segm_probabilities.permute(0, 2, 3, 1),
+                "confidence": confidence[:, 1]}
+    return predict_fn
+
+
+def make_auxiliary_segm_predict_fn():
+    """The error net over the images and the baseline prediction:
+    ``predict(model, batch)`` -> {probabilities, confidence,
+    baseline_prediction}."""
+    def predict_fn(model, batch):
+        _, baseline, inputs = _aux_segm_inputs(batch)
+        confidence = predict(model, inputs)
+        return {"probabilities": confidence,
+                "confidence": confidence[..., 1],
+                "baseline_prediction": batch["labels"][..., 1]}
+    return predict_fn

@@ -487,7 +487,7 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
     # there only an H5 store with [gt, baseline] labels runs that family)
     dataset = databuild.build_data(
         config.test_data, subjects=subjects,
-        prediction_dir=config.others.get("prediction_dir"))
+        prediction_dir=config.others.get("prediction_dir")).dataset
     try:
         transform = databuild.build_transform(config.test_data.transform)
         strategy = _detect_strategy(config, dataset, strategy)
@@ -521,19 +521,34 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
         dataset.close()
 
 
+def _fp32_switches():
+    """(holder, attribute, float32 value) of each switch that decides
+    whether cuDNN's convolutions and cuBLAS's matmuls may round float32
+    to TF32: the ``allow_tf32`` flags and, on a PyTorch that has them,
+    the ``fp32_precision`` ones, legacy first."""
+    backends = torch.backends
+    switches = [(backends.cudnn, "allow_tf32", False),
+                (backends.cuda.matmul, "allow_tf32", False)]
+    for holder in (getattr(backends.cudnn, "conv", None),
+                   backends.cuda.matmul):
+        if holder is not None and hasattr(holder, "fp32_precision"):
+            switches.append((holder, "fp32_precision", "ieee"))
+    return switches
+
+
 @contextlib.contextmanager
 def _full_float32():
     """cuDNN and matmul TF32 off within the block; the caller's flags come
     back afterwards, also on error."""
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    switches = _fp32_switches()
+    saved = [getattr(holder, name) for holder, name, _ in switches]
+    for holder, name, value in switches:
+        setattr(holder, name, value)
     try:
         yield
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = flags
+        for (holder, name, _), value in zip(switches, saved):
+            setattr(holder, name, value)
 
 
 def _flatten(tree, prefix=()):

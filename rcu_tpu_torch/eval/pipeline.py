@@ -35,12 +35,11 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from rcu_tpu_torch.engine.steps import (aleatoric_forward, mc_forward,
                                         multi_prediction_summary, predict,
-                                        to_model_layout)
+                                        seeded_generator, to_model_layout)
 from rcu_tpu_torch.ops import metrics, prepare
 from rcu_tpu_torch.ops.cuda.evalstats import fused_subject_eval
 
@@ -53,14 +52,8 @@ def _slice_batches(volume, batch_size):
 def sample_generators(rng, batch_index: int, mc_steps: int, device):
     """One Generator per MC sample of batch ``batch_index``; ``rng`` is the
     tuple of ints that names the volume, e.g. ``(seed, subject_index)``."""
-    gens = []
-    for t in range(mc_steps):
-        words = np.random.SeedSequence(
-            [*rng, batch_index, t]).generate_state(2, np.uint32)
-        g = torch.Generator(device=device)
-        g.manual_seed((int(words[0]) << 31) ^ int(words[1]))
-        gens.append(g)
-    return gens
+    return [seeded_generator((*rng, batch_index, t), device)
+            for t in range(mc_steps)]
 
 
 def _mc_scan(model, mc_steps: int, volume, batch_size: int, rng,

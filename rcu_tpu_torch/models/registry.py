@@ -1,10 +1,12 @@
-"""String -> model registry, the config surface of ``rcu_tpu.models.registry``
-(``model: {unet: {...}}``, ``model: {postnet: {...}}``)."""
+"""String -> model and optimizer registries, the config surface of
+``rcu_tpu.models.registry`` (``model: {unet: {...}}``, ``model: {postnet:
+{...}}``, ``optimizer: {adam: {lr: ...}}``)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from rcu_tpu_torch.models.optim import get_optimizer  # noqa: F401
 from rcu_tpu_torch.models.unet import PostNet, UNet
 
 _KEYS = {"unet": {"nb_classes", "in_channels", "depth", "start_filters",

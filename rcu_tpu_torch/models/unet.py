@@ -17,8 +17,12 @@ MC sample: the input batch is ``T`` sample-major copies of the images, and
 every dropout site draws sample ``t``'s ``(B, C)`` mask from
 ``generators[t]``. A sample's stream therefore does not depend on how many
 other samples ride the same forward. BatchNorm always uses its running
-statistics (eps 1e-5): under MC dropout as in flax, and because training
-is not ported yet.
+statistics (eps 1e-5) in eval mode, under MC dropout as in flax. In
+train mode (:meth:`UNet.train`, float32 models without the fold or int8)
+it is flax's ``nn.BatchNorm(momentum=0.9)``: the batch statistics
+``E[x]`` and ``E[x^2] - E[x]^2`` (clipped at 0), and the running
+statistics updated with that biased variance (:func:`batch_norm_train`).
+A training step passes its one generator as ``generators=[g]``.
 
 The inference variants keep flax's dtype islands and rewrites:
 - ``dtype`` (compute dtype, ``torch.bfloat16`` or float32): the input is
@@ -102,9 +106,31 @@ class ChannelDropout(nn.Module):
                  for g in generators]
         # where(keep, x / keep_prob, 0) as flax computes it, with keep_prob
         # rounded to x's dtype as flax rounds it, in one in-place pass: a
-        # dropped channel divides by inf (x is finite)
+        # dropped channel divides by inf (x is finite), and its gradient,
+        # 1 / inf, is 0. In place under autograd too: x is a conv output,
+        # which no backward reads
         divisor = torch.where(torch.cat(masks), keep, float("inf"))
         return x.div_(divisor.to(x.dtype)[:, :, None, None])
+
+
+def batch_norm_train(x, bn):
+    """flax's train-mode ``nn.BatchNorm`` (``use_fast_variance``, momentum
+    0.9) on the NCHW ``x`` with ``bn``'s affine weights: normalizes with
+    the batch mean and ``max(E[x^2] - E[x]^2, 0)``, in at least f32 (as
+    flax promotes), in flax's order of operations, and updates ``bn``'s
+    running statistics in place (outside autograd) as ``0.9 * running +
+    0.1 * batch``, with the biased variance (``nn.BatchNorm2d`` would
+    take the unbiased one)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    n = xf.numel() // xf.shape[1]
+    mean = xf.sum((0, 2, 3)) / n
+    var = torch.clamp_min((xf * xf).sum((0, 2, 3)) / n - mean * mean, 0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(0.9).add_(0.1 * mean)
+        bn.running_var.mul_(0.9).add_(0.1 * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
+    return y.to(x.dtype)
 
 
 def bias_terms(bias, dtype):
@@ -285,8 +311,13 @@ class ConvBnRelu(nn.Module):
             y = self.dropout(y, generators)
         if not self.fold_bn:
             bn = self.BatchNorm_0
-            y = F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight,
-                             bn.bias, False, 0.0, bn.eps)
+            if self.training:
+                y = batch_norm_train(y, bn)
+            else:
+                y = F.batch_norm(y, bn.running_mean, bn.running_var,
+                                 bn.weight, bn.bias, False, 0.0, bn.eps)
+        # in place under autograd too: no backward reads the BatchNorm's
+        # output, and relu's own backward reads its result
         return F.relu_(y)
 
 
@@ -349,14 +380,40 @@ def _conv(x, conv):
                     padding=conv.padding)
 
 
-class _EvalOnly(nn.Module):
-    """Training is not ported: the module stays in eval mode and
-    ``train(True)`` raises."""
+class _Trainable(nn.Module):
+    """``train(True)`` for the float32 models without the BN fold or int8
+    (and float64 ones, which the tests hold against the JAX package's
+    float64 gradients); the inference variants raise (bf16 training is a
+    later slice)."""
 
     def train(self, mode: bool = True):
         if mode:
-            raise NotImplementedError("training is not ported to rcu_tpu_torch yet")
-        return super().train(False)
+            if self.fold_bn or getattr(self, "quant_scales", None) is not None:
+                raise NotImplementedError(
+                    "fold_bn and int8 models are inference-only rewrites; "
+                    "train the unfolded float32 model")
+            if self.dtype not in (torch.float32, torch.float64):
+                raise NotImplementedError(
+                    f"training in {self.dtype} is not ported to "
+                    "rcu_tpu_torch yet; train in float32")
+        return super().train(mode)
+
+    def reset_parameters_like_flax(self, generator=None):
+        """flax's initialization (``rcu_tpu`` unet.py ``conv_init``): conv
+        kernels ``variance_scaling(1/3, fan_in, uniform)``, which is
+        ``U(-sqrt(1/fan_in), sqrt(1/fan_in))``, drawn from ``generator``
+        module by module in registration order; conv biases 0; BatchNorm
+        scale 1, bias 0, running mean 0 and variance 1. Returns the
+        model."""
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, nn.Conv2d):
+                    bound = (1.0 / (m.weight[0].numel())) ** 0.5
+                    m.weight.uniform_(-bound, bound, generator=generator)
+                    m.bias.zero_()
+                elif isinstance(m, nn.BatchNorm2d):
+                    m.reset_parameters()
+        return self
 
     def _check_fold_bn(self, generators):
         if self.fold_bn and generators is not None:
@@ -367,7 +424,7 @@ class _EvalOnly(nn.Module):
                 "run MC-dropout protocols on the unfolded model")
 
 
-class UNet(_EvalOnly):
+class UNet(_Trainable):
     """Configurable 2D encoder-decoder; NCHW in, :class:`UNetOutput` out.
 
     ``sigma_out`` adds the aleatoric sigma head, ``provide_features``
@@ -548,7 +605,7 @@ class UNet(_EvalOnly):
         return UNetOutput(logits, sigma, x if self.provide_features else None)
 
 
-class PostNet(_EvalOnly):
+class PostNet(_Trainable):
     """The auxiliary confidence net on a segmenter's features
     (``rcu_tpu.models.unet.PostNet``): ``nb_convs`` 1x1 ConvBnRelu at the
     input width in the compute dtype, then the 1x1 class conv ``Conv_0``

@@ -607,3 +607,86 @@ def test_cuda_native_2d_eval_matches_cpu(cuda_device, tmp_path, strategy):
         assert np.isfinite(gpu[subject])
         if strategy != "mc":  # a pixel at a bin edge may flip
             assert gpu[subject] == pytest.approx(ece, rel=1e-3, abs=1e-3)
+
+
+# ----------------------------------------------------------- training
+
+TRAIN_UNET = dict(nb_classes=2, in_channels=4, depth=3, start_filters=16,
+                  dropout=0.0)
+
+
+def train_batch(seed, n=2, hw=(64, 64), labels_channels=None):
+    rng = np.random.RandomState(seed)
+    images = rng.randn(n, *hw, 4).astype(np.float32)
+    shape = (n, *hw) + ((labels_channels,) if labels_channels else ())
+    labels = (rng.rand(*shape) < 0.3).astype(np.uint8)
+    return {"images": torch.from_numpy(images),
+            "labels": torch.from_numpy(labels), "valid": torch.ones(n)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ce", "aleatoric", "auxiliary_feat",
+                                  "auxiliary_segm"])
+def test_cuda_train_step_matches_cpu(cuda_device, kind):
+    """One train step on the card against the CPU from the same weights,
+    at the smoke run's bars (``chip_smoke.train_step_card_vs_cpu`` raises
+    on a miss: the loss rtol 1e-5, each gradient within 1e-3 of its
+    tensor's max, or, where a ReLU or pool choice went otherwise, a card
+    step on the CPU's choices within 1e-3 of the CPU's or float64's; the
+    BatchNorm statistics, adam's update from identical gradients), with
+    TF32 off and the caller's flags back afterwards."""
+    import chip_smoke
+    from rcu_tpu_torch.engine import steps
+    from rcu_tpu_torch.eval.direct import _full_float32
+    batch, frozen, noise = train_batch(1), None, None
+    if kind == "ce":
+        model = chip_smoke.seeded_train_model(TRAIN_UNET, 1)
+        make = lambda f: steps.make_train_step()  # noqa: E731
+    elif kind == "aleatoric":
+        model = chip_smoke.seeded_train_model({**TRAIN_UNET,
+                                               "sigma_out": True}, 2)
+        noise = torch.randn((10, 2, 2, 64, 64),
+                            generator=torch.Generator().manual_seed(3))
+        make = lambda f: steps.make_train_step(  # noqa: E731
+            "aleatoric", is_log_sigma=True)
+    elif kind == "auxiliary_feat":
+        frozen = chip_smoke.seeded_train_model(
+            {**TRAIN_UNET, "provide_features": True}, 4).eval()
+        model = chip_smoke.seeded_train_model(
+            {"nb_classes": 2, "in_channels": 16, "nb_convs": 3}, 5)
+        make = lambda f: steps.make_auxiliary_train_step(f)  # noqa: E731
+    else:
+        model = chip_smoke.seeded_train_model({**TRAIN_UNET,
+                                               "in_channels": 5}, 6)
+        batch = train_batch(7, labels_channels=2)
+        make = lambda f: steps.make_auxiliary_train_step()  # noqa: E731
+    with _full_float32():
+        chip_smoke.train_step_card_vs_cpu(kind, model, make, batch,
+                                          frozen=frozen, noise=noise)
+
+
+@pytest.mark.cuda
+def test_cuda_prefetch_feeds_pinned_batches(cuda_device):
+    """The read-ahead feed: host batches pinned, device batches equal."""
+    from rcu_tpu_torch.data import loader
+    batches = [{"images": np.random.RandomState(i).rand(4, 8, 8, 2)
+                .astype(np.float32), "valid": np.ones(4, np.float32)}
+               for i in range(5)]
+    pinned = []
+    real = loader._host_tensors
+
+    def spy(batch, pin):
+        out = real(batch, pin)
+        pinned.append(all(t.is_pinned() for t in out.values()))
+        return out
+
+    loader._host_tensors = spy
+    try:
+        got = list(loader.prefetch(iter(batches), cuda_device))
+    finally:
+        loader._host_tensors = real
+    assert pinned == [True] * 5
+    for want, have in zip(batches, got):
+        for key in want:
+            assert have[key].device.type == "cuda"
+            assert np.array_equal(have[key].cpu().numpy(), want[key])

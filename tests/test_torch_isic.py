@@ -235,12 +235,12 @@ def test_build_data_opens_the_store_or_the_tree(tree, tmp_path):
     path, pred_dir = tree
     config = port_cfg.DataConfiguration.from_dict(
         {"dataset": path, "with_superpixels": True})
-    dataset = databuild.build_data(config, prediction_dir=pred_dir)
+    dataset = databuild.build_data(config, prediction_dir=pred_dir).dataset
     assert isinstance(dataset, isic.IsicFolderDataset)
     assert dataset.with_superpixels and dataset.prediction_dir == pred_dir
     store = make_store(tmp_path)
     dataset = databuild.build_data(
-        port_cfg.DataConfiguration.from_dict({"dataset": store}))
+        port_cfg.DataConfiguration.from_dict({"dataset": store})).dataset
     assert isinstance(dataset, h5.SubjectDataset)
     dataset.close()
     messages = []

@@ -1,6 +1,7 @@
 """The port stands alone: every module of ``rcu_tpu_torch`` imports with JAX,
 flax, optax and the JAX package blocked, and with the packages that the
-card's machine may lack (h5py, msgpack, yaml, PIL); ``chip_smoke.py`` imports
+card's machine may lack (h5py, msgpack, yaml, PIL, tensorboardX, which
+only ``engine.hooks.TensorboardHook`` imports); ``chip_smoke.py`` imports
 none of the blocked packages."""
 import ast
 import os
@@ -10,7 +11,7 @@ import textwrap
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "rcu_tpu", "h5py", "msgpack",
-           "yaml", "PIL")
+           "yaml", "PIL", "tensorboardX")
 NEVER = ("jax", "jaxlib", "flax", "optax", "rcu_tpu")
 
 

@@ -169,9 +169,24 @@ def test_ported_heads_build(model_type, params):
 
 
 def test_training_mode_is_refused():
-    model = get_model("unet", dict(nb_classes=2, in_channels=2, depth=2,
-                                   start_filters=4))
+    """Training mode is for the unfolded float32 models: the BN fold, int8
+    and bf16 are inference variants and refuse it."""
+    params = dict(nb_classes=2, in_channels=2, depth=2, start_filters=4)
+    model = get_model("unet", params)
     assert not model.training
-    with pytest.raises(NotImplementedError):
-        model.train()
+    assert model.train() is model and model.training
+    assert all(m.training for m in model.modules())
     model.eval()
+    assert not model.training
+    postnet = get_model("postnet", dict(nb_classes=2, in_channels=4))
+    assert postnet.train().training
+    for variant in ({"fold_bn": True}, {"dtype": "bfloat16"},
+                    {"quant_scales": {}}):
+        model = get_model("unet", {**params, **variant})
+        with pytest.raises(NotImplementedError):
+            model.train()
+        assert not model.training
+        model.eval()
+    with pytest.raises(NotImplementedError):
+        get_model("postnet", dict(nb_classes=2, in_channels=4,
+                                  dtype="bfloat16")).train()
