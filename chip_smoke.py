@@ -134,11 +134,34 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    on the card and the CPU from the same weights (and in float64 on the
    card as the reference; the bars at ``TRAIN_LOSS_RTOL``); 10 BraTS
    default steps run under torch.profiler (busy share, the 8 costliest
-   kernels).
+   kernels);
+11. staged: the staged chain on the same 2 BraTS subjects (phase 4's,
+   in memory through ``memory_stores``; the raw t2 and the ground truth
+   as NIfTIs in ``Brats17Collector``'s layout), with the seeded models
+   of phases 4 and 6 saved as flax-schema checkpoints by
+   ``engine.checkpoint.save_checkpoint``: the test loops of
+   ``strategies.TEST_STRATEGIES`` through the shipped
+   config/test_brats_{baseline,baseline_mc,aleatoric,ensemble,
+   auxiliary_feat,auxiliary_segm}.yaml (batch 32; MC20; 10 members;
+   auxiliary_segm's baselines the baseline run's ``_prediction``
+   NIfTIs), each a "staged test <id>:" line (s/subject of the loop and
+   of its forwards, the NIfTI writes left at ``flush()``, peak GB); then
+   ``cli.eval_uncertainty.main`` over each run (minmax first, then
+   ece_dice, calib and bnf_ue), each a "staged eval <id>:" line
+   (s/subject, its NIfTI reads and device passes, the eval kernel's
+   launches: one a pass and subject); the kernel against its plain
+   version and timed on the MC run's ece_dice planes (no thresholds) and
+   bnf_ue planes; baseline, ensemble and auxiliary_feat through the
+   direct eval in its ``eval_tree`` layout on the same weights: the
+   planes compared first (bitwise, or their largest difference), then
+   the 14 CSVs, counts exact where the planes are bitwise equal and
+   otherwise within the voxels that lie that close to a bin edge or a
+   threshold or whose prediction differs.
 
 Every path runs with both kernels' launch counts set to 0 before it and
 read after it, and fails unless it launched the eval kernel once per
-subject and the int8 conv once per quantized site and forward (never on a
+subject (a staged eval: once a pass and subject; a staged test loop:
+never) and the int8 conv once per quantized site and forward (never on a
 path that quantizes nothing, never its plain version). The last three
 lines are the training phase's numbers (JSON), the kernels' JSON records
 (``fused_eval_stats`` and ``int8_conv``; ``launches``: the sum over the
@@ -374,12 +397,11 @@ def size_sweep(planes, th):
         f"between them; {ms[2]} ms for one block's {sizes[2]:,} voxels")
 
 
-def time_kernel(planes, label, hbm_rate, ptxas):
+def time_kernel(planes, label, hbm_rate, ptxas, th=DEFAULT_THRESHOLDS):
     """Wrapper, kernel and plain times on one plane set, beside the bound:
     the record's ``ms`` (the wrapper call, CUDA events), ``kernel_ms``
     (torch.profiler) and ``bound_share`` (bound / kernel time)."""
     n = planes[0].numel()
-    th = DEFAULT_THRESHOLDS
 
     def call():
         evalstats.fused_eval_stats(*planes, th)
@@ -591,7 +613,7 @@ def run_path(dataset, out_dir, models, run_id, int8_launches=0, **kwargs):
 
     def keep_planes(*args, **kwargs):
         if not planes:
-            planes.extend(args[:5])
+            planes.extend(evalstats.kernel_planes(*args[:5]))
         return subject_eval(*args, **kwargs)
 
     pipeline.fused_subject_eval = keep_planes
@@ -1864,7 +1886,7 @@ def run_isic_path(dataset, out_dir, models, run_id, transform, batch,
 
     def keep_planes(*args, **kw):
         if not planes:
-            planes.extend(args[:5])
+            planes.extend(evalstats.kernel_planes(*args[:5]))
         return subject_eval(*args, **kw)
 
     pipeline.fused_subject_eval = keep_planes
@@ -2629,6 +2651,12 @@ def train_card_vs_cpu(dataset):
     return max(errs)
 
 
+def _subdir(tmp, name):
+    path = os.path.join(tmp, name)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
 def train_phase(tmp, dataset=None):
     """Training on the card through ``rcu_tpu_torch.strategies``: BraTS
     default (config/train_brats_baseline.yaml at its width and batch, one
@@ -2644,7 +2672,10 @@ def train_phase(tmp, dataset=None):
     from rcu_tpu_torch.engine.config import ParametricNode
     from rcu_tpu_torch.eval.direct import load_model
     t0 = time.perf_counter()
-    data = dataset or BratsLikeDataset(tmp, n_subjects=3, seed=SEED + 7)
+    # the raw t2 NIfTIs in a dir of their own: the main path's subjects
+    # share these names, and the staged phase reads theirs
+    data = dataset or BratsLikeDataset(_subdir(tmp, "train_data"),
+                                       n_subjects=3, seed=SEED + 7)
     train, valid = data.subjects[:2], data.subjects[2:]
     stores = {"brats_train": data.subset(train, os.path.join(tmp, "brats_train")),
               "brats_valid": data.subset(valid, os.path.join(tmp, "brats_valid"))}
@@ -2709,6 +2740,460 @@ def train_phase(tmp, dataset=None):
     return by_path, err, runs
 
 
+# ----------------------------------------------------------- staged chain
+
+# run id -> (shipped test config, test strategy, confidence entry,
+# directories slot)
+STAGED_RUNS = {
+    "baseline": ("config/test_brats_baseline.yaml", "default",
+                 "probabilities", "BASELINE"),
+    "baseline_mc": ("config/test_brats_baseline_mc.yaml", "default",
+                    "probabilities", "BASELINE_MC"),
+    "aleatoric": ("config/test_brats_aleatoric.yaml", "aleatoric", "sigma",
+                  "ALEATORIC"),
+    "ensemble": ("config/test_brats_ensemble.yaml", "ensemble",
+                 "probabilities", "ENSEMBLE"),
+    "auxiliary_feat": ("config/test_brats_auxiliary_feat.yaml",
+                       "auxiliary_feat", "confidence", "AUX_FEAT"),
+    "auxiliary_segm": ("config/test_brats_auxiliary_segm.yaml",
+                       "auxiliary_segm", "confidence", "AUX_SEGM"),
+}
+# the staged chain against the direct eval in its eval_tree layout: run id
+# -> the direct eval's strategy
+STAGED_VS_DIRECT = {"baseline": "deterministic", "ensemble": "ensemble",
+                    "auxiliary_feat": "auxiliary_feat"}
+STAGED_ACTIONS = ("minmax", "ece_dice", "calib", "bnf_ue")
+
+
+def save_flax_checkpoint(model_dir, model_type, record, model):
+    """``model``'s weights as a model dir of the JAX package's schema
+    (model.json, the epoch-0 best checkpoint in flax's msgpack), written
+    by ``engine.checkpoint``; returns the dir."""
+    from rcu_tpu_torch.engine import checkpoint as ckpt_lib
+    from rcu_tpu_torch.engine.config import ParametricNode
+    mf = ckpt_lib.ModelFiles.from_model_dir(model_dir)
+    ckpt_lib.backup_model_parameters(mf, ParametricNode(model_type, record),
+                                     None)
+    params, batch_stats = flax_from_state_dict(model.state_dict())
+    ckpt_lib.save_checkpoint(mf, {"params": params, "batch_stats": batch_stats,
+                                  "epoch": 0, "best_score": 0.0}, 0, best=True)
+    return model_dir
+
+
+def save_staged_checkpoints(tmp, model, families):
+    """The MC flagship and the strategy families' seeded models as
+    checkpoints for the staged phase: {name: model dir (the ensemble: the
+    list of its members')}."""
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "checkpoints")
+    segmenter, postnet = families["auxiliary_feat"]
+    out = {
+        "flagship": save_flax_checkpoint(os.path.join(root, "flagship"),
+                                         "unet", FLAGSHIP, model),
+        "aleatoric": save_flax_checkpoint(
+            os.path.join(root, "aleatoric"), "unet",
+            {**FLAGSHIP, "sigma_out": True}, families["aleatoric"]),
+        "ensemble": [save_flax_checkpoint(os.path.join(root, f"member{k}"),
+                                          "unet", FLAGSHIP, member)
+                     for k, member in enumerate(families["ensemble"])],
+        "segmenter": save_flax_checkpoint(os.path.join(root, "segmenter"),
+                                          "unet", FLAGSHIP, segmenter),
+        "postnet": save_flax_checkpoint(os.path.join(root, "postnet"),
+                                        "postnet", POSTNET, postnet),
+        "error_net": save_flax_checkpoint(
+            os.path.join(root, "error_net"), "unet",
+            {**FLAGSHIP, "in_channels": 5}, families["auxiliary_segm"]),
+    }
+    log(f"staged checkpoints: {3 + len(out['ensemble']) + 2} models in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def gt_tree(root, dataset):
+    """The subjects in the BraTS raw layout ``Brats17Collector`` reads:
+    the raw t2 (the foreground mask's source) and the ground truth as
+    NIfTIs (the other three images link to the t2: the eval reads none)."""
+    for name in dataset.subjects:
+        d = os.path.join(root, "HGG", name)
+        os.makedirs(d)
+        t2 = os.path.join(d, f"{name}_t2.nii.gz")
+        os.symlink(dataset.files(name)["images"]["t2"], t2)
+        for entry in ("flair", "t1", "t1ce"):
+            os.symlink(t2, os.path.join(d, f"{name}_{entry}.nii.gz"))
+        nifti.write(dataset.read_volume(name, "labels"),
+                    os.path.join(d, f"{name}_seg.nii.gz"))
+    return root
+
+
+class StagedTestTimer(train_hooks.TestLoopHook):
+    """A test-loop hook: the device time of each ``predict_fn`` call
+    between CUDA events (no sync: the loop keeps its one batch in flight),
+    and the run's metrics.csv in its own run dir."""
+
+    def __init__(self):
+        self.events, self.metrics = [], None
+
+    def on_startup(self, loop):
+        self.metrics = train_hooks.WriteTestMetricsCsvHook(
+            os.path.join(loop.run_dir, "metrics.csv"))
+        predict = loop.predict_fn
+
+        def timed(*args):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = predict(*args)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        loop.predict_fn = timed
+
+    def on_test_subject_end(self, loop, subject, subject_data, results):
+        self.metrics.on_test_subject_end(loop, subject, subject_data, results)
+
+    def on_test_end(self, loop, subject_results):
+        self.metrics.on_test_end(loop, subject_results)
+
+    def forward_s(self):
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
+
+
+@contextlib.contextmanager
+def timed_flush():
+    """``WriterPool.flush`` timed: the seconds the artifact writes still
+    take when the loop has done its work."""
+    from rcu_tpu_torch.utils import writerpool
+    flush = writerpool.WriterPool.flush
+    seconds = []
+
+    def timed(pool):
+        t0 = time.perf_counter()
+        try:
+            flush(pool)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    writerpool.WriterPool.flush = timed
+    try:
+        yield seconds
+    finally:
+        writerpool.WriterPool.flush = flush
+
+
+@contextlib.contextmanager
+def module_attrs(module, **values):
+    """Module attributes set within the block, the old values back after."""
+    saved = {k: getattr(module, k) for k in values}
+    for k, v in values.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def staged_test(run_id, checkpoints, pred_root, split):
+    """One staged test run through ``strategies.TEST_STRATEGIES`` and the
+    shipped config of ``run_id``: returns (the loop, the record)."""
+    from rcu_tpu_torch import strategies
+    from rcu_tpu_torch.engine import config as cfg_lib
+    from rcu_tpu_torch.engine import hooks as hooks_lib
+    path, strategy, _, _ = STAGED_RUNS[run_id]
+    config = cfg_lib.load(path, expected_type="test-config")
+    config.test_dir, config.split = pred_root, split
+    if run_id == "ensemble":
+        config.model_dir = checkpoints["ensemble"][0]
+        config.others["model_dir"] = checkpoints["ensemble"][1:]
+    elif run_id == "auxiliary_feat":
+        config.model_dir = checkpoints["postnet"]
+        config.others["model_dir"] = checkpoints["segmenter"]
+    else:
+        config.model_dir = checkpoints[{"aleatoric": "aleatoric",
+                                        "auxiliary_segm": "error_net"}.get(
+                                            run_id, "flagship")]
+    timer = StagedTestTimer()
+    evalstats.fused_eval_stats.launches = 0
+    int8conv.int8_conv.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timed_flush() as flush_s:
+        loop = strategies.TEST_STRATEGIES[strategy](
+            config, device=DEVICE, hooks=[hooks_lib.ConsoleTestLogHook(), timer])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if evalstats.fused_eval_stats.launches or int8conv.int8_conv.launches:
+        raise AssertionError(f"staged test {run_id}: a test loop launched "
+                             "an eval or int8 kernel")
+    n = len(loop.test_data.dataset.subjects)
+    files = sorted(os.listdir(loop.run_dir))
+    extra = {"aleatoric": "sigma", "auxiliary_feat": "confidence",
+             "auxiliary_segm": "confidence"}.get(run_id)
+    want = sorted(["config.yaml", "log.txt", "metrics.csv"]
+                  + [f"{s}_{p}.nii.gz" for s in loop.test_data.dataset.subjects
+                     for p in ("prediction", extra or "probabilities")]
+                  + ([f"{s}_probabilities.nii.gz"
+                      for s in loop.test_data.dataset.subjects]
+                     if run_id == "aleatoric" else []))
+    if files != want:
+        raise AssertionError(f"staged test {run_id}: files {files} != {want}")
+    record = {"s_per_subject": seconds / n,
+              "forward_s_per_subject": timer.forward_s() / n,
+              "flush_s": flush_s[-1],
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"staged test {run_id}: {n} subjects {BRATS} in {seconds:.2f} s = "
+        f"{record['s_per_subject']:.3f} s/subject (CUDA-synced), forwards "
+        f"{record['forward_s_per_subject']:.3f} s/subject (CUDA events), "
+        f"NIfTI writes left at flush() {record['flush_s']:.3f} s, peak "
+        f"{record['peak_gb']:.2f} GB, batch {config.test_data.batch_size}")
+    return loop, record
+
+
+class PlaneLog:
+    """Keeps the planes of each ``fused_subject_eval`` call of a module
+    (on the card), in call order: (ECE plane, prediction, uncertainty,
+    the thresholds), and the first call's five kernel planes of each
+    threshold count."""
+
+    def __init__(self, module):
+        self.module, self.calls, self.kernel_planes = module, [], {}
+
+    def __enter__(self):
+        self.subject_eval = self.module.fused_subject_eval
+
+        def keep(fg, target, prediction, uncertainty, mask, thresholds,
+                 **kwargs):
+            self.calls.append((fg, prediction, uncertainty, tuple(thresholds)))
+            self.kernel_planes.setdefault(len(thresholds), evalstats.kernel_planes(
+                fg, target, prediction, uncertainty, mask))
+            return self.subject_eval(fg, target, prediction, uncertainty,
+                                     mask, thresholds, **kwargs)
+
+        self.module.fused_subject_eval = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.module.fused_subject_eval = self.subject_eval
+
+
+def staged_eval(run_id, n):
+    """``cli.eval_uncertainty.main`` over one run, the minmax pass first
+    (the global rescale reads its CSV), then ece_dice, calib and bnf_ue
+    with the eval kernel's counts set to 0: one launch each a subject.
+    Returns (the record, the PlaneLog of the last three passes)."""
+    from rcu_tpu_torch.cli import eval_uncertainty
+    from rcu_tpu_torch.eval import kernels
+    first = eval_uncertainty.main("brats", [run_id], STAGED_ACTIONS[:1],
+                                  device=DEVICE)[run_id]
+    evalstats.fused_eval_stats.launches = 0
+    plain = evalstats.fused_eval_stats.plain_calls
+    with PlaneLog(kernels) as planes:
+        rest = eval_uncertainty.main("brats", [run_id], STAGED_ACTIONS[1:],
+                                     device=DEVICE)[run_id]
+    torch.cuda.synchronize()
+    launches = evalstats.fused_eval_stats.launches
+    if launches != 3 * n or evalstats.fused_eval_stats.plain_calls != plain:
+        raise AssertionError(f"staged eval {run_id}: fused_eval_stats "
+                             f"launched {launches} times for {n} subjects "
+                             "and 3 passes")
+    record = {"launches": launches,
+              "s_per_subject": (first["seconds"] + rest["seconds"]) / n,
+              "read_s_per_subject": (first["read_s"] + rest["read_s"]) / n,
+              "passes_s_per_subject": (first["passes_s"]
+                                       + rest["passes_s"]) / n}
+    log(f"staged eval {run_id}: {n} subjects in "
+        f"{first['seconds'] + rest['seconds']:.2f} s = "
+        f"{record['s_per_subject']:.3f} s/subject; NIfTI reads "
+        f"{record['read_s_per_subject']:.3f} s/subject (Loader, on the "
+        f"read-ahead thread), device passes {record['passes_s_per_subject']:.3f}"
+        f" s/subject (4 passes), fused_eval_stats launches {launches}")
+    return record, planes
+
+
+def run_csvs(root, run_id):
+    """{relative path: rows} of the 14 CSVs of ``run_id`` in an eval tree
+    (BraTS: the ECE on the foreground)."""
+    result_id = run_id + ("_rescale" if run_id.startswith("auxiliary") else
+                          "_globalrescale" if run_id == "aleatoric" else "")
+    names = [f"calibration/eval_calibration_{result_id}.csv",
+             f"ece_foreground/eval_ece_{result_id}.csv",
+             f"minmax/eval_summary_minmax_{run_id}.csv"] + [
+        f"uncertainty/eval_uncertainty_{result_id}_th"
+        f"{t:.2f}".replace(".", "") + ".csv" for t in DEFAULT_THRESHOLDS]
+    out = {}
+    for name in names:
+        with open(os.path.join(root, name)) as f:
+            out[name] = list(csv.reader(f))
+    return out
+
+
+def staged_vs_direct(run_id, staged_planes, direct_planes, got, want,
+                     subjects):
+    """The staged chain's 14 CSVs of ``run_id`` (``got``) against the
+    direct eval's (``want``), each :func:`run_csvs`. Per subject,
+    first the planes: the ECE plane, the uncertainty plane and the
+    prediction of the staged passes (the ece_dice pass's and the bnf_ue
+    pass's) against the direct eval's. Bitwise equal planes must give the
+    same CSVs (counts exact, floats at rtol 1e-4). Otherwise the largest
+    plane difference where the predictions agree is printed, and each
+    count may differ by the voxels that lie that close to a bin edge (0.5
+    among them) or a threshold, and those whose prediction differs; a row whose counts all agree holds its
+    floats at rtol 1e-4 and its booleans exactly."""
+    edges = torch.tensor(np.linspace(0.0, 1.0, 11)[1:-1], device=DEVICE)
+    ths = torch.tensor(DEFAULT_THRESHOLDS, device=DEVICE)
+    staged_ece = [c for c in staged_planes.calls if not c[3]][::2]  # ece_dice
+    staged_unc = [c for c in staged_planes.calls if c[3]]
+    allowance, exact = {}, True
+    for i, subject in enumerate(subjects):
+        fg_s, pred_s = staged_ece[i][0], staged_ece[i][1]
+        unc_s = staged_unc[i][2]
+        fg_d, pred_d, unc_d = direct_planes.calls[i][:3]
+        agree = pred_s.bool() == pred_d.bool()
+        same = (torch.equal(fg_s, fg_d) and torch.equal(unc_s, unc_d)
+                and bool(agree.all()))
+        # a confidence family's ECE plane folds by the prediction: where
+        # the predictions differ it flips, and those voxels count apart
+        d_fg = float(torch.where(agree, (fg_s - fg_d).abs(), 0).max())
+        d_unc = float(torch.where(agree, (unc_s - unc_d).abs(), 0).max())
+        near = int((((fg_d.double()[..., None] - edges).abs() <= d_fg)
+                    .any(-1) & agree).sum()) if d_fg > 0 else 0
+        near += int((((unc_d.double()[..., None] - ths).abs() <= d_unc)
+                     .any(-1) & agree).sum()) if d_unc > 0 else 0
+        near += int((~agree).sum())
+        allowance[subject] = near
+        exact &= same
+        log(f"  staged vs direct {run_id} {subject}: planes "
+            f"{'bitwise equal' if same else 'differ'}: where the "
+            f"predictions agree, ECE plane max diff {d_fg:.3e}, uncertainty "
+            f"{d_unc:.3e}; predictions differing {int((~agree).sum())}; "
+            f"voxels that close to an edge or threshold, or differing: "
+            f"{near}")
+    def as_int(x):
+        try:
+            return int(x)
+        except ValueError:
+            return None
+
+    worst, misses = 0, []
+    for name, rows in want.items():
+        if got[name][0] != rows[0] or len(got[name]) != len(rows):
+            raise AssertionError(f"staged vs direct {run_id} {name}: header "
+                                 "or rows differ")
+        for w_row, g_row in zip(rows[1:], got[name][1:]):
+            subject = w_row[1] if "minmax" not in name else None
+            cells = list(zip(rows[0], g_row, w_row))
+            counts_moved = False
+            for col, a, b in cells:
+                if as_int(a) is not None and as_int(b) is not None:
+                    diff = abs(as_int(a) - as_int(b))
+                    worst, counts_moved = max(worst, diff), counts_moved or diff
+                    if diff > (0 if exact else allowance[subject]):
+                        misses.append((name, subject, col, a, b))
+            if counts_moved:
+                continue  # the row's floats and booleans follow its counts
+            for col, a, b in cells:
+                if a == b or as_int(a) is not None:
+                    continue
+                bools = {a, b} & {"True", "False"}
+                if bools or not ((math.isnan(float(a)) and math.isnan(float(b)))
+                                 or abs(float(a) - float(b))
+                                 <= 1e-4 * abs(float(b)) + 1e-12):
+                    misses.append((name, subject, col, a, b))
+    log(f"staged vs direct {run_id}: 14 CSVs, counts "
+        f"{'exact' if exact else f'within {allowance}'}, the floats and "
+        f"booleans of rows with equal counts at rtol 1e-4 and exact; largest "
+        f"count difference {worst}")
+    if misses:
+        raise AssertionError(f"staged vs direct {run_id}: {len(misses)} cells "
+                             f"miss: {misses[:5]}")
+    return worst
+
+
+def staged_phase(tmp, dataset, checkpoints, hbm_rate, ptxas):
+    """The staged chain at full width on the 2 subjects: the test loops of
+    the six protocols through ``strategies.TEST_STRATEGIES`` and the
+    shipped test configs (batch 32; auxiliary_segm on the baseline run's
+    predictions), the offline engine (``cli.eval_uncertainty``) over their
+    NIfTI trees, the eval kernel on its staged planes, and baseline,
+    ensemble and auxiliary_feat against the direct eval in its eval_tree
+    layout. Returns ({staged_<id>: by_path record, the test run's
+    numbers as ``test_*``}, the kernel checks' max abs error)."""
+    from rcu_tpu_torch import directories as dirs
+    from rcu_tpu_torch.eval.direct import load_model
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "staged")
+    gt_dir = gt_tree(os.path.join(root, "Training"), dataset)
+    split_dir = os.path.join(root, "splits")
+    os.makedirs(split_dir)
+    split = os.path.join(split_dir, "split_brats18_100-25-160.json")
+    with open(split, "w") as f:
+        json.dump({"train": [], "valid": [], "test": list(dataset.subjects)}, f)
+    pred_root, eval_root = os.path.join(root, "pred"), os.path.join(root, "eval")
+    n = len(dataset.subjects)
+    stores = {"in/datasets/brats18_test_reduced_norm.h5":
+              dataset.subset(dataset.subjects, os.path.join(root, "store"))}
+    tests, names, by_path = {}, {}, {}
+    with memory_stores(stores):
+        for run_id in STAGED_RUNS:
+            if run_id == "auxiliary_segm":
+                wpred = dataset.with_baseline()
+                wpred._data = {s: {**d, "baseline": nifti.read(os.path.join(
+                    pred_root, names["baseline"],
+                    f"{s}_prediction.nii.gz"))[0]}
+                    for s, d in dataset._data.items()}
+                stores["in/datasets/brats18_test_wpred_reduced_norm.h5"] = \
+                    wpred.subset(wpred.subjects, os.path.join(root, "wpred"))
+            loop, tests[run_id] = staged_test(run_id, checkpoints, pred_root,
+                                              split)
+            names[run_id] = os.path.basename(loop.run_dir)
+    slots = {f"BRATS_{STAGED_RUNS[r][3]}_PREDICT": names[r] for r in names}
+    errs, planes_of = [], {}
+    with module_attrs(dirs, BRATS_PREDICT_DIR=pred_root,
+                      BRATS_EVAL_DIR=eval_root, BRATS_ORIG_DATA_DIR=gt_dir,
+                      SPLITS_DIR=split_dir, **slots):
+        for run_id in STAGED_RUNS:
+            record, planes_of[run_id] = staged_eval(run_id, n)
+            by_path[f"staged_{run_id}"] = {**record, **{
+                f"test_{k}": v for k, v in tests[run_id].items()}}
+    # the kernel on the staged planes of the first subject of the MC run:
+    # the ece_dice pass's (no thresholds) and the bnf_ue pass's
+    mc_planes = planes_of["baseline_mc"].kernel_planes
+    for th, label in (((), "staged ece_dice"),
+                      (DEFAULT_THRESHOLDS, "staged bnf_ue")):
+        full = f"{label} planes of {dataset.subjects[0]} {BRATS}"
+        errs.append(check_kernel(mc_planes[len(th)], th, full))
+        timed = time_kernel(mc_planes[len(th)], full, hbm_rate, ptxas, th)
+        by_path[f"staged_baseline_mc"][label.split()[1] + "_kernel_ms"] = \
+            timed["kernel_ms"]
+    # the staged chain against the direct eval, eval_tree layout
+    worst = {}
+    for run_id, strategy in STAGED_VS_DIRECT.items():
+        if strategy == "ensemble":
+            models = [load_model(d, "best", DEVICE)
+                      for d in checkpoints["ensemble"]]
+        elif strategy == "auxiliary_feat":
+            models = (load_model(checkpoints["segmenter"], "best", DEVICE,
+                                 provide_features=True),
+                      load_model(checkpoints["postnet"], "best", DEVICE))
+        else:
+            models = load_model(checkpoints["flagship"], "best", DEVICE)
+        direct_dir = os.path.join(root, f"direct_{run_id}")
+        with PlaneLog(pipeline) as direct_planes:
+            evaluate_subjects(models, dataset, direct_dir, strategy=strategy,
+                              run_id=run_id, mc=0, batch_size=BATCH,
+                              seed=SEED, device=DEVICE, layout="eval_tree")
+        worst[run_id] = staged_vs_direct(
+            run_id, planes_of[run_id], direct_planes,
+            run_csvs(eval_root, run_id), run_csvs(direct_dir, run_id),
+            dataset.subjects)
+        by_path[f"staged_{run_id}"]["vs_direct_max_count_diff"] = worst[run_id]
+    log(f"staged phase: {time.perf_counter() - t0:.1f} s")
+    return by_path, max(errs)
+
+
 def main():
     t_start = time.perf_counter()
     hbm_rate = device_phase()
@@ -2734,24 +3219,27 @@ def main():
         profile_phase(model, dataset, os.path.join(tmp, "profile"))
         by_path, err, families = strategies_phase(dataset, tmp, hbm_rate,
                                                   ptxas)
+        checkpoints = save_staged_checkpoints(tmp, model, families)
         variants, variant_err = variants_phase(model, families, dataset, tmp,
                                                hbm_rate, ptxas)
         t0 = time.perf_counter()
         int8_record, int8_paths = int8_phase(model, families, dataset, tmp,
                                              hbm_rate, ptxas)
         log(f"int8 phase: {time.perf_counter() - t0:.1f} s")
-        del dataset, families, model
+        del families, model
         t0 = time.perf_counter()
         isic_paths, isic_int8, axis, isic_err = isic_phase(tmp, hbm_rate,
                                                            ptxas)
         log(f"isic phase: {time.perf_counter() - t0:.1f} s")
         train_paths, train_err, train_runs = train_phase(tmp)
+        staged_paths, staged_err = staged_phase(tmp, dataset, checkpoints,
+                                                hbm_rate, ptxas)
     record["by_path"] = {"mc": {"launches": record["launches"]}, **by_path,
                          **variants, **int8_paths, **isic_paths,
-                         **train_paths}
+                         **train_paths, **staged_paths}
     record["launches"] = sum(p["launches"] for p in record["by_path"].values())
     record["max_abs_err"] = max(record["max_abs_err"], err, variant_err,
-                                isic_err)
+                                isic_err, staged_err)
     record["image_axis"] = axis
     int8_record["by_path"]["isic_mc_bf16_fast_int8"] = isic_int8
     int8_record["launches"] += isic_int8["launches"]

@@ -1,4 +1,4 @@
-"""Shared plumbing of the train entry points (``bin/_cli.py``
+"""Shared plumbing of the train and test entry points (``bin/_cli.py``
 counterpart): ``-config_file`` or ``-config_id`` (a default yaml of
 ``config/``), ``-device`` (default cuda) and ``-devices`` (more than one
 raises until the multi-device slice)."""
@@ -51,3 +51,7 @@ def run_main(main_fn, description: str):
 
 def load_train_config(path) -> cfg_lib.TrainConfiguration:
     return cfg_lib.load(path, expected_type="train-config")
+
+
+def load_test_config(path) -> cfg_lib.TestConfiguration:
+    return cfg_lib.load(path, expected_type="test-config")

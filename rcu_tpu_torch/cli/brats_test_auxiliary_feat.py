@@ -1,0 +1,25 @@
+"""BRATS test script (auxiliary_feat) (``bin/brats_test_auxiliary_feat.py`` counterpart): resolves a config id
+to its default yaml and runs ``rcu_tpu_torch.strategies.test_auxiliary_feat``.
+
+  python -m rcu_tpu_torch.cli.brats_test_auxiliary_feat [-config_file F | -config_id ID] [-device cpu]
+"""
+from rcu_tpu_torch.cli import _cli
+
+DEFAULT_CONFIGS = {'auxiliary_feat': 'test_brats_auxiliary_feat.yaml'}
+
+
+def main(config_file, config_id=None, device=None, devices=None):
+    _cli.check_devices(devices)
+    config_file = _cli.resolve_config(config_file, config_id, DEFAULT_CONFIGS,
+                                      'auxiliary_feat')
+    from rcu_tpu_torch import strategies
+    config = _cli.load_test_config(config_file)
+    return strategies.test_auxiliary_feat(config, device=device)
+
+
+def cli():
+    _cli.run_main(main, 'BRATS test script (auxiliary_feat)')
+
+
+if __name__ == "__main__":
+    cli()

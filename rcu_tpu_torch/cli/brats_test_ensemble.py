@@ -1,0 +1,25 @@
+"""BRATS test script (ensemble) (``bin/brats_test_ensemble.py`` counterpart): resolves a config id
+to its default yaml and runs ``rcu_tpu_torch.strategies.test_ensemble``.
+
+  python -m rcu_tpu_torch.cli.brats_test_ensemble [-config_file F | -config_id ID] [-device cpu]
+"""
+from rcu_tpu_torch.cli import _cli
+
+DEFAULT_CONFIGS = {'ensemble': 'test_brats_ensemble.yaml'}
+
+
+def main(config_file, config_id=None, device=None, devices=None):
+    _cli.check_devices(devices)
+    config_file = _cli.resolve_config(config_file, config_id, DEFAULT_CONFIGS,
+                                      'ensemble')
+    from rcu_tpu_torch import strategies
+    config = _cli.load_test_config(config_file)
+    return strategies.test_ensemble(config, device=device)
+
+
+def cli():
+    _cli.run_main(main, 'BRATS test script (ensemble)')
+
+
+if __name__ == "__main__":
+    cli()

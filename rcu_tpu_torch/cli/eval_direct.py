@@ -20,13 +20,16 @@ only), ``-fold_bn`` (BatchNorms folded into the convs at load; not
 with the mc protocol), ``-quantize`` (int8 trunk convs after a one-batch
 calibration; mc, deterministic and ensemble) and ``-quantize_skip N``
 (with ``-quantize``: the N finest resolution levels stay in the compute
-dtype; default 1).
+dtype; default 1). ``-eval_tree`` writes the staged eval engine's tree
+(``calibration/``, ``ece[_foreground]/``, ``uncertainty/``, ``minmax/``)
+in place of the flat layout.
 
 Usage:
   python -m rcu_tpu_torch.cli.eval_direct -config_file config/test_brats_baseline_mc.yaml \
       [-run_id baseline_mc] [-out_dir out/eval/brats/direct] [-mc 20] \
       [-strategy ensemble] [-unmasked] [-device cpu] \
-      [-dtype bfloat16] [-fast_decoder] [-fold_bn] [-quantize [-quantize_skip 1]]
+      [-dtype bfloat16] [-fast_decoder] [-fold_bn] [-quantize [-quantize_skip 1]] \
+      [-eval_tree]
 """
 import argparse
 import logging
@@ -34,8 +37,9 @@ import os
 
 
 def main(config_file, run_id=None, out_dir=None, mc=None, unmasked=False,
-         device=None, strategy=None, dtype=None, fast_decoder=False,
-         fold_bn=False, quantize=False, quantize_skip=None):
+         device=None, strategy=None, eval_tree=False, dtype=None,
+         fast_decoder=False, fold_bn=False, quantize=False,
+         quantize_skip=None):
     from rcu_tpu_torch.engine import config as cfg_lib
     from rcu_tpu_torch.eval.direct import evaluate_direct
 
@@ -48,7 +52,8 @@ def main(config_file, run_id=None, out_dir=None, mc=None, unmasked=False,
                            device=device, dtype=dtype,
                            fast_decoder=fast_decoder, fold_bn=fold_bn,
                            quantize=quantize,
-                           quantize_skip_levels=quantize_skip)
+                           quantize_skip_levels=quantize_skip,
+                           layout="eval_tree" if eval_tree else "flat")
     for subject, ece in eces.items():
         print(f"{subject}: ece={ece:.5f}")
     print(f"wrote eval CSVs to {out_dir}")
@@ -92,13 +97,16 @@ def cli():
     parser.add_argument("-quantize_skip", type=int, default=None,
                         help="with -quantize: keep the N finest resolution "
                              "levels in the compute dtype (default 1)")
+    parser.add_argument("-eval_tree", action="store_true",
+                        help="write the staged eval engine's directory "
+                             "tree instead of the flat layout")
     args = parser.parse_args()
     if args.quantize_skip is not None and not args.quantize:
         parser.error("-quantize_skip only applies with -quantize")
     logging.basicConfig(level=logging.INFO)
     main(args.config_file, args.run_id, args.out_dir, args.mc, args.unmasked,
-         args.device, args.strategy, args.dtype, args.fast_decoder,
-         args.fold_bn, args.quantize, args.quantize_skip)
+         args.device, args.strategy, args.eval_tree, args.dtype,
+         args.fast_decoder, args.fold_bn, args.quantize, args.quantize_skip)
 
 
 if __name__ == "__main__":

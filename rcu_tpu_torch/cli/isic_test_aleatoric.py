@@ -1,0 +1,25 @@
+"""ISIC test script (aleatoric) (``bin/isic_test_aleatoric.py`` counterpart): resolves a config id
+to its default yaml and runs ``rcu_tpu_torch.strategies.test_aleatoric``.
+
+  python -m rcu_tpu_torch.cli.isic_test_aleatoric [-config_file F | -config_id ID] [-device cpu]
+"""
+from rcu_tpu_torch.cli import _cli
+
+DEFAULT_CONFIGS = {'aleatoric': 'test_isic_aleatoric.yaml'}
+
+
+def main(config_file, config_id=None, device=None, devices=None):
+    _cli.check_devices(devices)
+    config_file = _cli.resolve_config(config_file, config_id, DEFAULT_CONFIGS,
+                                      'aleatoric')
+    from rcu_tpu_torch import strategies
+    config = _cli.load_test_config(config_file)
+    return strategies.test_aleatoric(config, device=device, symlink_inputs=True)
+
+
+def cli():
+    _cli.run_main(main, 'ISIC test script (aleatoric)')
+
+
+if __name__ == "__main__":
+    cli()

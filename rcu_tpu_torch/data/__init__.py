@@ -1,1 +1,2 @@
-"""Host-side data access: NIfTI I/O, the H5 subject store, splits."""
+"""Host-side data access: NIfTI I/O, the H5 subject store, the ISIC folder,
+collectors, splits, the loader and the assemblers."""

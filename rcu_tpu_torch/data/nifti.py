@@ -79,8 +79,10 @@ def _open(path: str, mode: str):
     if str(path).endswith(".gz"):
         if "w" in mode:
             # level 1: ~5x faster than the default 9 on float volumes for a
-            # few % size — artifact writing is on the test-loop critical path
-            return gzip.open(path, mode, compresslevel=1)
+            # few % size — artifact writing is on the test-loop critical path.
+            # mtime 0: the same array gives the same bytes (a rerun of a
+            # seeded test run is byte-identical)
+            return gzip.GzipFile(path, mode, compresslevel=1, mtime=0)
         return gzip.open(path, mode)
     return open(path, mode)
 

@@ -1,1 +1,2 @@
-"""Configs, data building, checkpoints and the protocol's forwards."""
+"""Configs, data building, checkpoints, the forwards and train steps, and
+the train and test loops with their hooks."""

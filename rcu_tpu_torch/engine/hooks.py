@@ -1,6 +1,7 @@
-"""Train-loop hooks (``rcu_tpu.engine.hooks`` counterparts): console logs,
-tensorboard scalars, the per-subject validation CSV and the checkpoint
-retention (one -best checkpoint, the 3 last epochs).
+"""Train- and test-loop hooks (``rcu_tpu.engine.hooks`` counterparts):
+console logs, tensorboard scalars, the per-subject validation CSV, the
+checkpoint retention (one -best checkpoint, the 3 last epochs), and the
+test loop's console log and ``metrics.csv``.
 
 The per-step metrics are tensors on the device; a hook fetches them at
 its own cadence, so the loop never waits on a step. ``tensorboardX`` is
@@ -199,4 +200,67 @@ class WriteValidationMetricsCsvHook(TrainLoopHook):
         with open(self.file_path, "w", newline="") as f:
             writer = csv.writer(f)
             writer.writerow(self._header or ["epoch", "subject"])
+            writer.writerows(self._rows)
+
+
+class TestLoopHook:
+    __test__ = False  # not a pytest class
+
+    def on_startup(self, loop): pass
+    def on_test_batch_end(self, loop, batch_index: int, nb_batches: int): pass
+    def on_test_subject_end(self, loop, subject: str, subject_data: dict,
+                            results: dict): pass
+    def on_test_end(self, loop, subject_results: list): pass
+    def on_termination(self, loop): pass
+
+
+class ComposeTestHook(_ComposeHooks, TestLoopHook):
+    pass
+
+
+def _numeric(results: dict) -> dict:
+    """The results a CSV cell or a log line can hold."""
+    return {k: v for k, v in results.items()
+            if isinstance(v, (int, float, np.floating, np.integer))}
+
+
+class ConsoleTestLogHook(TestLoopHook):
+    def __init__(self):
+        self._t0 = None
+        self._subject_t0 = None
+
+    def on_startup(self, loop):
+        self._t0 = self._subject_t0 = time.time()
+        logging.info("test run %s (%s)", loop.test_id, loop.test_dir)
+
+    def on_test_subject_end(self, loop, subject, subject_data, results):
+        dt = time.time() - self._subject_t0
+        self._subject_t0 = time.time()
+        stats = " ".join(f"{k}={float(v):.4f}"
+                         for k, v in _numeric(results).items())
+        logging.info("  %s %s (%.2fs)", subject, stats, dt)
+
+    def on_test_end(self, loop, subject_results):
+        logging.info("test done in %.1fs (%d subjects)",
+                     time.time() - self._t0, len(subject_results))
+
+
+class WriteTestMetricsCsvHook(TestLoopHook):
+    """metrics.csv: a row per subject, the numeric results sorted by name."""
+
+    def __init__(self, file_path: str):
+        self.file_path = file_path
+        self._rows = []
+        self._header = None
+
+    def on_test_subject_end(self, loop, subject, subject_data, results):
+        numeric = _numeric(results)
+        if self._header is None:
+            self._header = ["subject"] + sorted(numeric.keys())
+        self._rows.append([subject] + [numeric.get(k) for k in self._header[1:]])
+
+    def on_test_end(self, loop, subject_results):
+        with open(self.file_path, "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(self._header or ["subject"])
             writer.writerows(self._rows)

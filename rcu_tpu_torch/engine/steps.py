@@ -76,6 +76,17 @@ def multi_prediction_summary(multi_probabilities):
             "entropy": metrics.entropy(probabilities, dim=-1)}
 
 
+def ensemble_probabilities(members, images):
+    """The members' mean softmax (B, H, W, classes): the members run one
+    after another (the JAX package vmaps them) and their probabilities add
+    in member order before the division by K."""
+    total = None
+    for member in members:
+        probs = predict(member, images)
+        total = probs if total is None else total + probs
+    return total / len(members)
+
+
 def aleatoric_forward(model, images, is_log_sigma: bool):
     """One deterministic forward of a sigma-headed model -> (probabilities
     (B, H, W, classes), sigma (B, H, W, classes), prediction (B, H, W)
@@ -218,6 +229,49 @@ def make_auxiliary_train_step(segm_model=None, remat: str = None, mesh=None):
                        out.logits, target, valid)
 
     return train_step
+
+
+def batch_generators(rng, mc_steps: int, device):
+    """One generator per MC sample of the batch that ``rng`` (a tuple of
+    ints, e.g. ``(seed, batch index)``) names: sample ``t``'s from
+    ``(*rng, t)``, the port's analogue of ``split(fold_in(key, i), T)``."""
+    return [seeded_generator((*rng, t), device) for t in range(mc_steps)]
+
+
+def make_mc_predict_fn(mc_steps: int):
+    """The MC protocol of a batch: ``predict(model, batch, rng)`` -> the
+    mean probabilities and their entropy over ``mc_steps`` dropout
+    forwards (:func:`mc_forward`, generators :func:`batch_generators` of
+    ``rng``), and the weight-scaling forward's ``ws_probabilities``."""
+    def predict_fn(model, batch, rng):
+        images = batch["images"]
+        out = multi_prediction_summary(mc_forward(
+            model, images, batch_generators(rng, mc_steps, images.device)))
+        out["ws_probabilities"] = predict(model, images)
+        return out
+    return predict_fn
+
+
+def make_aleatoric_predict_fn(is_log_sigma: bool):
+    """``predict(model, batch)`` -> softmax ``probabilities``, the per-class
+    ``sigma_all`` and the predicted class's ``sigma``
+    (:func:`aleatoric_forward`)."""
+    def predict_fn(model, batch):
+        probabilities, sigma, _, predicted_sigma = aleatoric_forward(
+            model, batch["images"], is_log_sigma)
+        return {"probabilities": probabilities, "sigma_all": sigma,
+                "sigma": predicted_sigma}
+    return predict_fn
+
+
+def make_ensemble_predict_fn(members):
+    """The members' mean softmax and its entropy: ``predict(model, batch)``
+    (``model`` unused: the members carry their weights)."""
+    def predict_fn(model, batch):
+        probabilities = ensemble_probabilities(members, batch["images"])
+        return {"probabilities": probabilities,
+                "entropy": metrics.entropy(probabilities, dim=-1)}
+    return predict_fn
 
 
 def make_predict_fn():

@@ -1,1 +1,2 @@
-"""The direct eval: volume pipeline, CSV writers and the driver."""
+"""The direct eval (volume pipeline, CSV writers, run loop) and the staged
+chain's offline engine (metric passes, subject loader, run registry)."""

@@ -57,6 +57,7 @@ _CONFIDENCE_ENTRY = {"mc": "probabilities", "deterministic": "probabilities",
                      "auxiliary_feat": "confidence",
                      "auxiliary_segm": "confidence"}
 _ECE_COLUMNS = ("ece", "dice", "tp", "tn", "fp", "fn", "n")
+LAYOUTS = ("flat", "eval_tree")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -70,26 +71,46 @@ def resolve_device(device=None) -> torch.device:
 
 
 class _EvalSinks:
-    """The run's CSV families in ``out_dir``: calibration bins, the ece_dice
-    row and one correction CSV per threshold under the result id (the run
-    id and the strategy's suffix), and the run minmax summary under the
-    bare run id with the strategy's confidence entry."""
+    """The run's CSV families: calibration bins, the ece_dice row and one
+    correction CSV per threshold under the result id (the run id and the
+    strategy's suffix), and the run minmax summary under the bare run id
+    with the strategy's confidence entry.
 
-    def __init__(self, out_dir, run_id, thresholds, strategy):
-        os.makedirs(out_dir, exist_ok=True)
+    ``layout='flat'`` writes every file into ``out_dir``;
+    ``layout='eval_tree'`` writes the staged eval engine's tree under it
+    (``calibration/``, ``ece_foreground/`` (``masked``) or ``ece/``,
+    ``uncertainty/``, ``minmax/``), so that the staged and the direct
+    output compare file by file and the analysis layer reads either."""
+
+    def __init__(self, out_dir, run_id, thresholds, strategy,
+                 layout: str = "flat", masked: bool = True):
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown layout '{layout}'; choose one of "
+                             f"{LAYOUTS}")
+
+        def sub(name):
+            d = out_dir if layout == "flat" else os.path.join(out_dir, name)
+            os.makedirs(d, exist_ok=True)
+            return d
+
+        self.run_id = run_id
         self.result_id = result_id = run_id + _ID_SUFFIX[strategy]
         self.confidence_entry = _CONFIDENCE_ENTRY[strategy]
-        self.calib = ev_hooks.WriteCsvHook(os.path.join(
-            out_dir, dirs.CALIBRATION_PLACEHOLDER.format(result_id)))
+        self.calib = ev_hooks.WriteBinsCsvHook(os.path.join(
+            sub(dirs.CALIB_NAME), dirs.CALIBRATION_PLACEHOLDER.format(result_id)))
+        ece_dir = sub(dirs.ECE_FOREGROUND_NAME if masked else dirs.ECE_NAME)
         self.ece = ev_hooks.WriteCsvHook(
-            os.path.join(out_dir, dirs.ECE_PLACEHOLDER.format(result_id)),
+            os.path.join(ece_dir, dirs.ECE_PLACEHOLDER.format(result_id)),
             entries=_ECE_COLUMNS)
+        corr_dir = sub(dirs.UNCERTAINTY_NAME)
         self.corr = [ev_hooks.WriteCsvHook(os.path.join(
-            out_dir, dirs.UNCERTAINTY_PLACEHOLDER.format(
+            corr_dir, dirs.UNCERTAINTY_PLACEHOLDER.format(
                 result_id, f"{threshold:.2f}".replace(".", ""))))
             for threshold in thresholds]
-        self.minmax_path = os.path.join(
-            out_dir, dirs.MINMAX_PLACEHOLDER.format(run_id))
+        self.minmax = ev_hooks.WriteSummaryCsvHook(
+            os.path.join(sub(dirs.MINMAX_NAME),
+                         dirs.MINMAX_PLACEHOLDER.format(run_id)),
+            confidence_entry=self.confidence_entry)
         self.bounds = {"min": [], "max": []}
         self.nonfinite = []  # subjects with NaN/inf ECE; finish() raises
 
@@ -128,10 +149,9 @@ class _EvalSinks:
 
     def finish(self):
         for hook in (self.calib, self.ece, *self.corr):
-            hook.on_run_end(self.result_id)
+            hook.on_run_end({}, self.result_id)
         if self.bounds["min"]:
-            ev_hooks.write_summary_csv(self.minmax_path, self.bounds,
-                                       self.confidence_entry)
+            self.minmax.on_run_end(self.bounds, self.run_id)
         if self.nonfinite:
             raise ValueError(
                 f"{len(self.nonfinite)} subject(s) produced a non-finite ECE: "
@@ -446,11 +466,13 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
                     device=None, dtype: str = None,
                     fast_decoder: bool = False, fold_bn: bool = False,
                     quantize: bool = False,
-                    quantize_skip_levels: int = None) -> dict:
+                    quantize_skip_levels: int = None,
+                    layout: str = "flat") -> dict:
     """Fused inference + eval for every test-split subject of ``config``;
     writes the ``eval_calibration_*``, ``eval_ece_*``,
     ``eval_uncertainty_*_th*`` and ``eval_summary_minmax_*`` CSVs into
-    ``out_dir`` and returns the per-subject ECE dict.
+    ``out_dir`` (``layout='eval_tree'``: the staged eval engine's tree,
+    see :class:`_EvalSinks`) and returns the per-subject ECE dict.
 
     ``strategy`` is one of :data:`STRATEGIES`, detected from the checkpoint
     and the config by default (:func:`_detect_strategy`). ``mc`` counts
@@ -516,7 +538,7 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
                                  batch_size=config.test_data.batch_size,
                                  seed=config.seed, thresholds=thresholds,
                                  masked=masked, device=device,
-                                 transform=transform)
+                                 transform=transform, layout=layout)
     finally:
         dataset.close()
 
@@ -778,7 +800,7 @@ def evaluate_subjects(models, dataset, out_dir: str, *, strategy: str = "mc",
                       is_log_sigma: bool = False, batch_size: int = 32,
                       seed: int = 20, thresholds=DEFAULT_THRESHOLDS,
                       masked: bool = True, device=None,
-                      transform=None) -> dict:
+                      transform=None, layout: str = "flat") -> dict:
     """The direct eval's core over ``dataset.subjects`` (see module doc).
 
     ``models``: one model for mc, deterministic, aleatoric (sigma head)
@@ -786,7 +808,8 @@ def evaluate_subjects(models, dataset, out_dir: str, *, strategy: str = "mc",
     ensemble; the (segmenter with ``provide_features``, PostNet) pair for
     auxiliary_feat; in float32 or any variant (``model_from_flax``).
     ``transform`` (``engine.databuild.build_transform``) applies per
-    slice of a volume, or per image. The images are cast to the models'
+    slice of a volume, or per image. ``layout`` places the CSVs
+    (:class:`_EvalSinks`). The images are cast to the models'
     compute dtype on the host. ``mc=0`` runs the mc strategy as
     deterministic. aleatoric runs two passes: the sigma bounds of each
     subject (image), then the eval with the run's global bounds (a
@@ -806,6 +829,7 @@ def evaluate_subjects(models, dataset, out_dir: str, *, strategy: str = "mc",
     restored afterwards, also on error."""
     _check_models(strategy, models)
     device = resolve_device(device)
+    sinks = _EvalSinks(out_dir, run_id, thresholds, strategy, layout, masked)
     # native-2D: images (H, W, C) with no slice axis (ISIC)
     is_2d = len(dataset.shape(dataset.subjects[0], "images")) == 3
     reader = _Reader(dataset, transform, strategy, masked,
@@ -814,8 +838,8 @@ def evaluate_subjects(models, dataset, out_dir: str, *, strategy: str = "mc",
     try:
         with _full_float32():
             run = _run_images if is_2d else _run_volumes
-            return run(models, dataset, out_dir, reader, pool, strategy=strategy,
-                       run_id=run_id, mc=mc, is_log_sigma=is_log_sigma,
+            return run(models, dataset, sinks, reader, pool, strategy=strategy,
+                       mc=mc, is_log_sigma=is_log_sigma,
                        batch_size=batch_size, seed=seed, thresholds=thresholds,
                        device=device)
     finally:
@@ -854,9 +878,8 @@ def _to_device(host, device):
     return {k: v.to(device, non_blocking=True) for k, v in host.items()}
 
 
-def _run_volumes(models, dataset, out_dir, reader, pool, *, strategy, run_id,
-                 mc, is_log_sigma, batch_size, seed, thresholds, device):
-    sinks = _EvalSinks(out_dir, run_id, thresholds, strategy)
+def _run_volumes(models, dataset, sinks, reader, pool, *, strategy, mc,
+                 is_log_sigma, batch_size, seed, thresholds, device):
     names = list(dataset.subjects)
     bounds = None
     if strategy == "aleatoric":
@@ -895,13 +918,12 @@ def _run_volumes(models, dataset, out_dir, reader, pool, *, strategy, run_id,
     return eces
 
 
-def _run_images(models, dataset, out_dir, reader, pool, *, strategy, run_id,
-                mc, is_log_sigma, batch_size, seed, thresholds, device):
+def _run_images(models, dataset, sinks, reader, pool, *, strategy, mc,
+                is_log_sigma, batch_size, seed, thresholds, device):
     """The native-2D run (``rcu_tpu.eval.direct._evaluate_direct_2d``).
     A part runs at its own length: an eager program needs no padding to a
     static shape, and the JAX package drops its padded rows before the
     CSVs."""
-    sinks = _EvalSinks(out_dir, run_id, thresholds, strategy)
     k = max(1, int(batch_size))
     names = list(dataset.subjects)
     starts = list(range(0, len(names), k))

@@ -37,9 +37,10 @@ import math
 
 import torch
 
-from rcu_tpu_torch.engine.steps import (aleatoric_forward, mc_forward,
+from rcu_tpu_torch.engine.steps import (aleatoric_forward, batch_generators,
+                                        ensemble_probabilities, mc_forward,
                                         multi_prediction_summary, predict,
-                                        seeded_generator, to_model_layout)
+                                        to_model_layout)
 from rcu_tpu_torch.ops import metrics, prepare
 from rcu_tpu_torch.ops.cuda.evalstats import fused_subject_eval
 
@@ -52,8 +53,7 @@ def _slice_batches(volume, batch_size):
 def sample_generators(rng, batch_index: int, mc_steps: int, device):
     """One Generator per MC sample of batch ``batch_index``; ``rng`` is the
     tuple of ints that names the volume, e.g. ``(seed, subject_index)``."""
-    return [seeded_generator((*rng, batch_index, t), device)
-            for t in range(mc_steps)]
+    return batch_generators((*rng, batch_index), mc_steps, device)
 
 
 def _mc_scan(model, mc_steps: int, volume, batch_size: int, rng,
@@ -88,15 +88,6 @@ def _normalize_entropy(ent):
     return ent / torch.tensor(math.log(2.0), dtype=torch.float32)
 
 
-def _as_u8(x):
-    """A 0/1 plane as uint8 without a copy where it is a bool tensor."""
-    if x.dtype == torch.bool:
-        return x.contiguous().view(torch.uint8)
-    if x.dtype != torch.uint8:
-        raise TypeError(f"expected a bool or uint8 plane, got {x.dtype}")
-    return x.contiguous()
-
-
 def _eval_row(fg, uncertainty, prediction, target, mask, thresholds,
               per_image=False):
     """One kernel pass: ECE bins on ``fg`` (masked), the threshold
@@ -109,12 +100,10 @@ def _eval_row(fg, uncertainty, prediction, target, mask, thresholds,
             raise TypeError(f"the eval's {name} plane must be float32, got "
                             f"{plane.dtype}")
     bins, confusion, correction = fused_subject_eval(
-        fg.contiguous(), _as_u8(target), _as_u8(prediction),
-        uncertainty.contiguous(), None if mask is None else _as_u8(mask),
-        thresholds, per_image=per_image)
-    return {**bins, "dice": correction["dice"][..., 0],
-            "correction": correction,
-            **{k: confusion[k] for k in ("tp", "tn", "fp", "fn", "n")}}
+        fg, target, prediction, uncertainty, mask, thresholds,
+        per_image=per_image)
+    return {**bins, "correction": correction,
+            **{k: confusion[k] for k in ("dice", "tp", "tn", "fp", "fn", "n")}}
 
 
 def _min_max(x, per_image):
@@ -223,16 +212,11 @@ def volume_aleatoric_eval(model, batch_size: int, volume, target, mask,
 @torch.inference_mode()
 def volume_ensemble_eval(members, batch_size: int, volume, target, mask,
                          thresholds, per_image: bool = False):
-    """Member-mean softmax, then the entropy protocol. The members run one
-    after another (the JAX package vmaps them) and their probabilities add
-    in member order before the division by K."""
+    """Member-mean softmax (``steps.ensemble_probabilities``), then the
+    entropy protocol."""
     fg, ent = [], []
     for images in _slice_batches(volume, batch_size):
-        total = None
-        for member in members:
-            probs = predict(member, images)
-            total = probs if total is None else total + probs
-        probabilities = total / len(members)
+        probabilities = ensemble_probabilities(members, images)
         fg.append(probabilities[..., 1])
         ent.append(metrics.entropy(probabilities, dim=-1))
     return _entropy_eval(torch.cat(fg), _normalize_entropy(torch.cat(ent)),

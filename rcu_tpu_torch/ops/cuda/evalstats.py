@@ -303,19 +303,47 @@ fused_eval_stats.launches = 0
 fused_eval_stats.plain_calls = 0
 
 
+def _plane(x, dtype):
+    """``x`` as the kernel reads a plane: ``dtype`` (a bool plane as its
+    uint8 view), contiguous, and on a card aligned for its vector loads
+    (a view into another tensor may start anywhere)."""
+    if dtype == torch.uint8 and x.dtype == torch.bool:
+        x = x.contiguous().view(torch.uint8)
+    if x.dtype != dtype:
+        raise TypeError(f"expected a {dtype} plane"
+                        f"{' or a bool one' if dtype == torch.uint8 else ''}, "
+                        f"got {x.dtype}")
+    x = x.contiguous()
+    if x.device.type == "cuda" and x.data_ptr() % _ALIGN[dtype]:
+        x = x.clone()
+    return x
+
+
+def kernel_planes(fg, target, prediction, uncertainty, mask):
+    """The five planes of :func:`fused_subject_eval`'s arguments as
+    :func:`fused_eval_stats` takes them; ``mask`` None is all ones."""
+    target = _plane(target, torch.uint8)
+    weight = torch.ones_like(target) if mask is None \
+        else _plane(mask, torch.uint8)
+    return (_plane(fg, torch.float32), target, _plane(prediction, torch.uint8),
+            _plane(uncertainty, torch.float32), weight)
+
+
 def fused_subject_eval(fg, target, prediction, uncertainty, mask, thresholds,
                        per_image: bool = False):
     """Everything the eval CSVs need from one pass over a subject, or with
     ``per_image`` over each image of the planes' leading axis.
 
-    Returns ``(bins, confusion, correction)`` like the JAX
+    ``fg`` and ``uncertainty`` float32, ``target``, ``prediction`` and
+    ``mask`` bool or uint8 0/1, of any strides (a plane is made what the
+    kernel reads). Returns ``(bins, confusion, correction)`` like the JAX
     ``fused_subject_eval``: bins with the proportion-weighted ``ece``;
     confusion with ``n`` and ``dice``; correction a dict of
     ``(len(thresholds),)`` tensors; with ``per_image`` every entry gains a
     leading image axis. ``mask`` (None = all voxels) reaches the ECE bins
     only."""
-    weight = mask if mask is not None else torch.ones_like(target)
-    stats = fused_eval_stats(fg, target, prediction, uncertainty, weight,
+    stats = fused_eval_stats(*kernel_planes(fg, target, prediction,
+                                            uncertainty, mask),
                              thresholds, per_image)
     count = stats["bins_count"]
     pos_frac, mean_conf, nonzero = bin_statistics(

@@ -1,5 +1,7 @@
-"""Uncertainty-vs-error counts and correction analysis on tensors
-(``rcu_tpu.ops.uncertainty`` counterparts).
+"""Uncertainty-vs-error counts, error metrics and correction analysis on
+tensors (``rcu_tpu.ops.uncertainty`` counterparts).
+
+The error dice, recall and precision map 0/0 to 1, as the reference does.
 
 The corrected dice/accuracy are derived from the 8 counts:
 
@@ -26,6 +28,29 @@ def uncertainty_counts(prediction, target, thresholded_uncertainty, mask=None):
     return (tp_m.sum(), tn_m.sum(), fp_m.sum(), fn_m.sum(),
             (tp_m & u).sum(), (tn_m & u).sum(), (fp_m & u).sum(),
             (fn_m & u).sum())
+
+
+def _f32(x):
+    return torch.as_tensor(x).to(torch.float32)
+
+
+def error_dice(fp, fn, tpu, tnu, fpu, fnu):
+    """2(fnu+fpu) / (fn+fp+fnu+fpu+tnu+tpu), 0/0 -> 1."""
+    num = _f32(fnu + fpu)
+    den = _f32(fn + fp + fnu + fpu + tnu + tpu)
+    return torch.where((num == 0) & (den == 0), 1.0, (2.0 * num) / den)
+
+
+def error_recall(fp, fn, fpu, fnu):
+    num = _f32(fnu + fpu)
+    den = _f32(fn + fp)
+    return torch.where((num == 0) & (den == 0), 1.0, num / den)
+
+
+def error_precision(tpu, tnu, fpu, fnu):
+    num = _f32(fnu + fpu)
+    den = _f32(fnu + fpu + tpu + tnu)
+    return torch.where((num == 0) & (den == 0), 1.0, num / den)
 
 
 def _correction_from_counts(counts):
@@ -79,3 +104,23 @@ def correction_eval(prediction, target, uncertainty, thresholds, weight=None):
             for i in range(th.numel())]
     return {k: torch.stack([torch.as_tensor(r[k]) for r in rows])
             for k in rows[0]}
+
+
+def uncertainty_error_metrics(prediction, target, uncertainty, thresholds,
+                              mask=None):
+    """Error precision, recall and dice over a threshold vector
+    (``u > threshold``): a dict of ``(len(thresholds),)`` tensors."""
+    p = prediction.reshape(-1)
+    t = target.reshape(-1)
+    u = uncertainty.reshape(-1).float()
+    m = mask.reshape(-1) if mask is not None else None
+    th = torch.as_tensor(thresholds, dtype=torch.float32, device=u.device)
+    rows = []
+    for i in range(th.numel()):
+        tp, tn, fp, fn, tpu, tnu, fpu, fnu = uncertainty_counts(
+            p, t, u > th[i], m)
+        rows.append({"precision": error_precision(tpu, tnu, fpu, fnu),
+                     "recall": error_recall(fp, fn, fpu, fnu),
+                     "dice": error_dice(fp, fn, tpu, tnu, fpu, fnu)})
+    return {k: torch.stack([r[k] for r in rows]) for k in
+            ("precision", "recall", "dice")}

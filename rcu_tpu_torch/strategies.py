@@ -1,5 +1,6 @@
-"""The training half of ``rcu_tpu.strategies``: the four train entry
-functions of the paper's strategies, and their validation metrics.
+"""The strategy runners (``rcu_tpu.strategies`` counterpart): the four train
+entry functions of the paper's strategies with their validation metrics,
+and the five test entry functions of the staged test loop.
 
 - baseline, center, the cv folds and the ensemble members ->
   :func:`train_default` (CE loss, Dice + log loss validation);
@@ -13,17 +14,33 @@ functions of the paper's strategies, and their validation metrics.
 
 Each returns the finished :class:`engine.train.TrainLoop`. ``hooks`` and
 ``device`` go to it (the default hooks need ``tensorboardX``); ``mesh``
-raises ``NotImplementedError``. The test half is the direct eval
-(``eval.direct``); the staged test loop is a later slice.
+raises ``NotImplementedError``.
+
+Testing (each returns the finished :class:`engine.test.TestLoop`, whose
+run dir holds the NIfTI artifacts; ``hooks`` and ``device`` go to it):
+- baseline, center, cv -> :func:`test_default` (``others.mc: T`` runs the
+  MC protocol, T dropout forwards a batch);
+- aleatoric -> :func:`test_aleatoric` (``_sigma``: the predicted class's);
+- the ensemble -> :func:`test_ensemble` (``model_dir`` at ``test_at`` and
+  the ``others.model_dir`` members at ``others.test_at``; their mean
+  softmax);
+- auxiliary feat. / segm. -> :func:`test_auxiliary_feat` /
+  :func:`test_auxiliary_segm` (``_confidence``, and the frozen
+  segmenter's or the baseline's ``_prediction``).
+``symlink_inputs`` links each subject's raw inputs into the run dir (the
+ISIC CLIs).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from rcu_tpu_torch.engine import config as cfg_lib
 from rcu_tpu_torch.engine import steps as steps_lib
+from rcu_tpu_torch.engine.test import TestLoop, write_artifact
 from rcu_tpu_torch.engine.train import TrainLoop
-from rcu_tpu_torch.eval.direct import load_model, resolve_device
+from rcu_tpu_torch.eval.direct import _load_ensemble, load_model, resolve_device
 from rcu_tpu_torch.ops import metrics as metrics_lib
 
 
@@ -133,9 +150,121 @@ def train_auxiliary_segm(config: cfg_lib.TrainConfiguration, mesh=None,
                      hooks=hooks, device=device).run()
 
 
+# ---------------------------------------------------------------------------
+# testing
+# ---------------------------------------------------------------------------
+
+def test_default(config: cfg_lib.TestConfiguration, mesh=None,
+                 symlink_inputs: bool = False, hooks=None,
+                 device=None) -> TestLoop:
+    mc = int(config.others.get("mc") or 0)
+    if mc:
+        return TestLoop(config, predict_fn=steps_lib.make_mc_predict_fn(mc),
+                        needs_rng=True, mesh=mesh,
+                        symlink_inputs=symlink_inputs, hooks=hooks,
+                        device=device).run()
+    return TestLoop(config, mesh=mesh, symlink_inputs=symlink_inputs,
+                    hooks=hooks, device=device).run()
+
+
+def test_aleatoric(config: cfg_lib.TestConfiguration, mesh=None,
+                   symlink_inputs: bool = False, hooks=None,
+                   device=None) -> TestLoop:
+    predict = steps_lib.make_aleatoric_predict_fn(
+        cfg_lib.require_log_sigma(config))
+    return TestLoop(config, predict_fn=predict,
+                    entries=("probabilities", "sigma"), mesh=mesh,
+                    symlink_inputs=symlink_inputs, hooks=hooks,
+                    device=device).run()
+
+
+def test_ensemble(config: cfg_lib.TestConfiguration, mesh=None,
+                  symlink_inputs: bool = False, hooks=None,
+                  device=None) -> TestLoop:
+    """The primary model (``model_dir`` at ``test_at``, where set) and the
+    ``others.model_dir`` members at ``others.test_at``; an empty member
+    list raises. The run dir goes under the first model's train dir."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "testing on a mesh is not ported to rcu_tpu_torch yet "
+            "(ROADMAP.md queue 1, item 5: multi-device)")
+    members = _load_ensemble(config, resolve_device(device), {})
+    anchor = config.model_dir or config.others["model_dir"]
+    anchor = anchor if isinstance(anchor, str) else anchor[0]
+    return TestLoop(config, predict_fn=steps_lib.make_ensemble_predict_fn(members),
+                    entries=("probabilities", "entropy"), external_state=True,
+                    run_dir_base=os.path.join(os.path.dirname(anchor), "test"),
+                    symlink_inputs=symlink_inputs, hooks=hooks,
+                    device=device).run()
+
+
+def _aux_feat_test_eval_fn(subject_data: dict, info: dict) -> dict:
+    """The test metric of auxiliary feat.: the Dice of the frozen
+    segmenter."""
+    prediction = np.argmax(subject_data["segm_probabilities"], axis=-1)
+    return {"dice": metrics_lib.dice(prediction, _binary_target(info))}
+
+
+def _aux_feat_artifact_fn(loop: TestLoop, subject: str, subject_data: dict,
+                          info: dict):
+    """``_confidence`` (the PostNet's foreground) and ``_prediction`` (the
+    frozen segmenter's argmax)."""
+    props = info["properties"]
+    write_artifact(loop, np.squeeze(subject_data["probabilities"][..., 1])
+                   .astype(np.float32), subject, "confidence", props)
+    write_artifact(loop, np.squeeze(np.argmax(
+        subject_data["segm_probabilities"], axis=-1)).astype(np.uint8),
+        subject, "prediction", props)
+
+
+def test_auxiliary_feat(config: cfg_lib.TestConfiguration, mesh=None,
+                        symlink_inputs: bool = False, hooks=None,
+                        device=None) -> TestLoop:
+    segm_model = _frozen_segmenter(config.others, resolve_device(device))
+    return TestLoop(config,
+                    predict_fn=steps_lib.make_auxiliary_feat_predict_fn(segm_model),
+                    entries=("probabilities", "segm_probabilities"),
+                    eval_subject_fn=_aux_feat_test_eval_fn,
+                    artifact_fn=_aux_feat_artifact_fn, mesh=mesh,
+                    symlink_inputs=symlink_inputs, hooks=hooks,
+                    device=device).run()
+
+
+def _aux_segm_artifact_fn(loop: TestLoop, subject: str, subject_data: dict,
+                          info: dict):
+    """``_confidence`` (the error net's foreground) and the baseline's
+    ``_prediction``, passed through."""
+    props = info["properties"]
+    labels = np.squeeze(np.asarray(info["labels"]))
+    write_artifact(loop, np.squeeze(subject_data["probabilities"][..., 1])
+                   .astype(np.float32), subject, "confidence", props)
+    write_artifact(loop, (labels[..., 1] > 0.5).astype(np.uint8), subject,
+                   "prediction", props)
+
+
+def test_auxiliary_segm(config: cfg_lib.TestConfiguration, mesh=None,
+                        symlink_inputs: bool = False, hooks=None,
+                        device=None) -> TestLoop:
+    return TestLoop(config,
+                    predict_fn=steps_lib.make_auxiliary_segm_predict_fn(),
+                    eval_subject_fn=lambda sd, info:
+                        _aux_segm_eval_subject_fn(sd, info)[0],
+                    artifact_fn=_aux_segm_artifact_fn, mesh=mesh,
+                    symlink_inputs=symlink_inputs, hooks=hooks,
+                    device=device).run()
+
+
 TRAIN_STRATEGIES = {
     "default": train_default,
     "aleatoric": train_aleatoric,
     "auxiliary_feat": train_auxiliary_feat,
     "auxiliary_segm": train_auxiliary_segm,
+}
+
+TEST_STRATEGIES = {
+    "default": test_default,
+    "aleatoric": test_aleatoric,
+    "ensemble": test_ensemble,
+    "auxiliary_feat": test_auxiliary_feat,
+    "auxiliary_segm": test_auxiliary_segm,
 }

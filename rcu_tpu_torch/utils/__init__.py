@@ -1,1 +1,1 @@
-"""Run ids and logging."""
+"""Run ids, logging, the artifact writer pool and label helpers."""
