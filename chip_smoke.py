@@ -3,8 +3,8 @@ hand-written kernels (``csrc/evalstats.cu``, the fused eval statistics;
 ``csrc/int8conv.cu``, the int8 convolution), holds each against its plain
 PyTorch version, then drives the main path, the BraTS MC-dropout direct
 eval, the four other strategy families of the direct eval, the
-inference variants, int8 included, the native-2D (ISIC) direct eval and
-training, at full width.
+inference variants, int8 included, the native-2D (ISIC) direct eval,
+training, the staged chain and serving, at full width.
 
   python3 chip_smoke.py
 
@@ -156,7 +156,29 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    planes compared first (bitwise, or their largest difference), then
    the 14 CSVs, counts exact where the planes are bitwise equal and
    otherwise within the voxels that lie that close to a bin edge or a
-   threshold or whose prediction differs.
+   threshold or whose prediction differs;
+12. serving: the staged phase's checkpoints behind
+   ``rcu_tpu_torch.serve.make_http_server`` on 127.0.0.1 (a thread each),
+   driven by a stdlib client (``np.savez_compressed`` bodies, urllib) with
+   the 2 subjects: MC20 f32 unscored, then scored (target and the t2>0
+   mask) from a fresh service at the same request index (the maps
+   bitwise the unscored ones); deterministic f32 scored, whose ECE and 11
+   correction rows must equal ``evaluate_subjects``' row of the subject,
+   counts exact; MC20 in bf16 + fast decoder unscored and scored; MC20 in
+   bf16 + fast + int8 (the first request calibrates; the ECE against the
+   f32 service's for information); aleatoric scored with the subject's
+   sigma range (``volume_sigma_minmax``) as its bounds; the 10-member
+   ensemble in f32 and in bf16 + fast + fold, auxiliary_feat and
+   auxiliary_segm (the dilated baseline) scored; one per_image request of 32 ISIC images with
+   phase 9's ISIC flagship; 4 client threads of 2 deterministic f32
+   requests, each answer bitwise the serial one (requests/s); the health
+   keys, 400 for a corrupt body and a bad shape, 404 for an unknown path.
+   Each request's "serve <path>:" line: the client's encode, round trip
+   and decode seconds, the server's npz decode, device (CUDA events) and
+   npz encode seconds (its ``Server-Timing`` header), request and response
+   MB, peak GB, both kernels' launches (the eval kernel once a scored
+   request, never an unscored one; the int8 conv once a quantized site
+   and forward).
 
 Every path runs with both kernels' launch counts set to 0 before it and
 read after it, and fails unless it launched the eval kernel once per
@@ -169,16 +191,21 @@ paths, ``by_path``: each path's launches and numbers; the int8 record's
 ``sites``: each site shape's numbers) and ``{"ok": true, "device":
 {...}}``.
 """
+import concurrent.futures
 import contextlib
 import copy
 import csv
+import io
 import json
 import math
 import os
 import re
 import subprocess
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -186,9 +213,9 @@ import torch
 from rcu_tpu_torch.data import nifti
 from rcu_tpu_torch.engine import hooks as train_hooks
 from rcu_tpu_torch.engine import steps
+from rcu_tpu_torch.eval.device import fp32_switches
 from rcu_tpu_torch.eval.direct import (DEFAULT_THRESHOLDS,
                                        _calibrated_quant_model,
-                                       _fp32_switches,
                                        evaluate_subjects, model_from_flax)
 from rcu_tpu_torch.models import FAST_DECODER_KWARGS, get_model
 from rcu_tpu_torch.models.convert import flax_from_state_dict
@@ -219,9 +246,9 @@ def log(*args):
 
 def full_float32():
     """Every switch that lets cuDNN or cuBLAS round float32 to TF32 off,
-    for the rest of the run (``eval.direct._full_float32`` within a
+    for the rest of the run (``eval.device.full_float32`` within a
     block)."""
-    for holder, name, value in _fp32_switches():
+    for holder, name, value in fp32_switches():
         setattr(holder, name, value)
 
 
@@ -3194,6 +3221,377 @@ def staged_phase(tmp, dataset, checkpoints, hbm_rate, ptxas):
     return by_path, max(errs)
 
 
+# ------------------------------------------------------------------ serving
+
+# the /v1/health keys of rcu_tpu.serve's HTTP front
+HEALTH_KEYS = {"status", "model_dir", "strategy", "mc", "members",
+               "batch_size", "compiled_shapes"}
+SERVE_CONCURRENT = (4, 2)  # client threads, requests each
+
+
+def npz_body(**arrays):
+    """A request body as the service's stdlib client makes it
+    (``np.savez_compressed``); returns (bytes, encode seconds)."""
+    t0 = time.perf_counter()
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **arrays)
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def http_call(url, path, body=None):
+    """One stdlib HTTP call -> (status, headers, body bytes, seconds);
+    an HTTP error status comes back as a result."""
+    req = urllib.request.Request(url + path, data=body,
+                                 method="GET" if body is None else "POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status, headers, raw = resp.status, resp.headers, resp.read()
+    except urllib.error.HTTPError as err:
+        status, headers, raw = err.code, err.headers, err.read()
+    return status, headers, raw, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def http_front(service):
+    """``make_http_server(service, "127.0.0.1", 0)`` serving from a thread
+    within the block; yields its URL. The server stops after the block."""
+    from rcu_tpu_torch.serve import make_http_server
+    httpd = make_http_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+
+def predict_over_http(url, body):
+    """POST one request -> (its arrays, the client's and the server's
+    times and sizes)."""
+    status, headers, raw, round_trip = http_call(url, "/v1/predict", body)
+    if status != 200:
+        raise AssertionError(f"serve: HTTP {status}: {raw[:300]!r}")
+    t0 = time.perf_counter()
+    with np.load(io.BytesIO(raw)) as payload:
+        arrays = {k: payload[k] for k in payload.files}
+    server = {name.strip(): float(ms) / 1e3 for name, ms in
+              (part.split(";dur=") for part in
+               headers["Server-Timing"].split(","))}
+    return arrays, {"round_trip_s": round_trip,
+                    "client_decode_s": time.perf_counter() - t0,
+                    "device_s": server["device"],
+                    "server_decode_s": server["decode"],
+                    "server_encode_s": server["encode"],
+                    "request_mb": len(body) / 1e6,
+                    "response_mb": len(raw) / 1e6}
+
+
+def serve_path(label, url, body, eval_launches, int8_launches=0):
+    """One request over HTTP with both kernels' counts set to 0 before it
+    and read after it: the eval kernel must launch ``eval_launches`` times
+    (1 scored, 0 unscored) and the int8 conv ``int8_launches`` times, and
+    neither its plain version. Prints the ``serve <label>:`` line; returns
+    (the arrays, the by_path record)."""
+    body, encode_s = body
+    evalstats.fused_eval_stats.launches = 0
+    int8conv.int8_conv.launches = 0
+    plain = (evalstats.fused_eval_stats.plain_calls,
+             int8conv.int8_conv.plain_calls)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, record = predict_over_http(url, body)
+    torch.cuda.synchronize()
+    launches = (evalstats.fused_eval_stats.launches,
+                int8conv.int8_conv.launches)
+    if launches != (eval_launches, int8_launches) or plain != (
+            evalstats.fused_eval_stats.plain_calls,
+            int8conv.int8_conv.plain_calls):
+        raise AssertionError(
+            f"serve {label}: launches (eval, int8) {launches}, expected "
+            f"{(eval_launches, int8_launches)}; plain versions called "
+            f"{evalstats.fused_eval_stats.plain_calls - plain[0]}, "
+            f"{int8conv.int8_conv.plain_calls - plain[1]} times")
+    for key, value in out.items():
+        if value.dtype.kind == "f" and not np.isfinite(value).all():
+            raise AssertionError(f"serve {label}: non-finite {key}")
+    record = {"launches": launches[0], "int8_launches": launches[1],
+              "client_encode_s": encode_s, **record,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if "ece" in out:
+        record["ece"] = float(np.mean(out["ece"]))
+    log(f"serve {label}: client encode {encode_s:.3f} s, round trip "
+        f"{record['round_trip_s']:.3f} s, decode {record['client_decode_s']:.3f}"
+        f" s; server: npz decode {record['server_decode_s']:.3f} s, device "
+        f"{record['device_s']:.3f} s (CUDA events), npz encode "
+        f"{record['server_encode_s']:.3f} s; request {record['request_mb']:.1f}"
+        f" MB, response {record['response_mb']:.1f} MB, peak "
+        f"{record['peak_gb']:.2f} GB; fused_eval_stats launches {launches[0]},"
+        f" int8_conv launches {launches[1]}"
+        + (f", ECE {record['ece']:.6f}" if "ece" in record else ""))
+    return out, record
+
+
+def same_arrays(label, got, want):
+    """Every array of ``want`` bitwise in ``got``."""
+    for key, value in want.items():
+        if got[key].dtype != value.dtype or not np.array_equal(
+                got[key], value, equal_nan=True):
+            raise AssertionError(f"serve {label}: {key} differs")
+
+
+def served_vs_direct(served, out_dir, run_id):
+    """The served deterministic scored request against the direct eval's
+    row of the same subject: the ECE and the 11 correction rows, counts
+    exactly, the rest at rtol 1e-6."""
+    from rcu_tpu_torch.eval.hooks import CORRECTION_KEYS
+
+    def row(name):
+        with open(os.path.join(out_dir, name)) as f:
+            rows = list(csv.reader(f))
+        return dict(zip(rows[0], rows[1]))
+
+    pairs = [("ece", row(f"eval_ece_{run_id}.csv")["ece"], served["ece"])]
+    for ti, th in enumerate(DEFAULT_THRESHOLDS):
+        cells = row(f"eval_uncertainty_{run_id}_th"
+                    f"{th:.2f}".replace(".", "") + ".csv")
+        pairs += [(f"{key}@{th}", cells[key], served[f"correction_{key}"][ti])
+                  for key in CORRECTION_KEYS]
+    worst = 0.0
+    for name, cell, value in pairs:
+        if cell in ("True", "False"):
+            ok = (cell == "True") == bool(value)
+        elif name.split("@")[0] in ("tp", "tn", "fp", "fn", "tpu", "tnu",
+                                    "fpu", "fnu"):
+            ok = int(cell) == int(value)
+        else:
+            diff = abs(float(cell) - float(value))
+            worst = max(worst, diff)
+            ok = diff <= 1e-6 * abs(float(cell)) or (
+                math.isnan(float(cell)) and math.isnan(float(value)))
+        if not ok:
+            raise AssertionError(f"serve vs direct: {name}: direct {cell}, "
+                                 f"served {value}")
+    log(f"serve deterministic vs evaluate_subjects: ECE and 11 correction "
+        f"rows equal, counts exact ({len(pairs)} cells, largest float "
+        f"difference {worst:.3e})")
+
+
+def isic_per_image_request(tmp):
+    """Phase 9's ISIC flagship (seeded as ``isic_models`` seeds it) as a
+    checkpoint and a per_image request of its first 32 images through
+    config/test_isic_baseline_mc.yaml's transform: (model dir, mc, the
+    body)."""
+    from rcu_tpu_torch.engine import config as cfg_lib
+    from rcu_tpu_torch.engine import databuild
+    config = cfg_lib.load(ISIC_CONFIG)
+    transform = databuild.build_transform(config.test_data.transform)
+    batch = config.test_data.batch_size
+    dataset = IsicLikeDataset(n=batch)
+    model = prepared_unet(ISIC_FLAGSHIP, SEED + 100,
+                          isic_batch(dataset, transform, 16))
+    model_dir = save_flax_checkpoint(os.path.join(tmp, "serve_isic"), "unet",
+                                     ISIC_FLAGSHIP, model)
+    images, targets = [], []
+    for subject in dataset.subjects:
+        out = transform({"images": dataset.read_volume(subject, "images"),
+                         "labels": dataset.read_volume(subject, "labels")})
+        images.append(np.asarray(out["images"], np.float32))
+        targets.append(np.asarray(out["labels"]) > 0.5)
+    body = npz_body(images=np.stack(images), target=np.stack(targets),
+                    per_image=np.bool_(True))
+    return model_dir, int(config.others["mc"]), body, batch
+
+
+def serve_phase(tmp, dataset, checkpoints):
+    """The serving phase: ``rcu_tpu_torch.serve`` services of the saved
+    flagship checkpoints behind their HTTP fronts on 127.0.0.1, driven by
+    a stdlib client with the subjects of phase 4: MC20 f32 unscored and
+    scored (a fresh service at the same request index: the scored fg
+    bitwise the unscored one), deterministic f32 scored (equal to the
+    direct eval's row), MC20 in bf16 + fast decoder unscored and scored,
+    MC20 in bf16 + fast + int8 (the first request calibrates; ECE against
+    f32 for information), aleatoric scored with its bounds, the 10-member
+    ensemble in f32 and in bf16 + fast + fold, auxiliary_feat
+    and auxiliary_segm scored, a per_image request of 32 ISIC images, 4
+    client threads of 2 deterministic f32 requests each (equal to the
+    serial answers), and the HTTP front's health, 400s and 404. Returns
+    ({serve_<path>: the eval kernel's by_path record}, the int8 path's
+    record for the int8 kernel)."""
+    from rcu_tpu_torch.eval.direct import foreground_mask, load_model
+    from rcu_tpu_torch.serve import VolumeInferenceService
+    t_phase = time.perf_counter()
+    s0, s1 = dataset.subjects[:2]
+
+    def subject_arrays(s):
+        target = dataset.read_volume(s, "labels")
+        return {"images": dataset.read_volume(s, "images"), "target": target,
+                "mask": foreground_mask(dataset, s, target.shape)}
+
+    def service(model_dir, **kw):
+        return VolumeInferenceService(model_dir, batch_size=BATCH, seed=SEED,
+                                      device=DEVICE, **kw)
+
+    a0, a1 = subject_arrays(s0), subject_arrays(s1)
+    # the aleatoric request's global bounds: pass A of the protocol (the
+    # subject's predicted-class sigma range), as a client's minmax run
+    # over its subjects gives them
+    sigma_range = pipeline.volume_sigma_minmax(
+        load_model(checkpoints["aleatoric"], "best", DEVICE), BATCH,
+        torch.from_numpy(a0["images"]).to(DEVICE), False)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+        jobs = {"unscored": pool.submit(npz_body, images=a0["images"]),
+                "scored": pool.submit(npz_body, **a0),
+                "scored_1": pool.submit(npz_body, **a1),
+                "baseline": pool.submit(npz_body, baseline=dataset.read_volume(
+                    s0, "baseline"), **a0),
+                "bounds": pool.submit(
+                    npz_body, sigma_min=np.float32(sigma_range[0].item()),
+                    sigma_max=np.float32(sigma_range[1].item()), **a0)}
+        bodies = {k: f.result() for k, f in jobs.items()}
+    log(f"serve request bodies: {len(bodies)} in "
+        f"{time.perf_counter() - t0:.1f} s (np.savez_compressed, 5 threads)")
+    by_path, int8_record = {}, None
+    flagship = checkpoints["flagship"]
+    n_batches = -(-BRATS[0] // BATCH)
+
+    # MC20 f32: unscored, then scored at the same request index
+    with http_front(service(flagship, mc=MC_STEPS)) as url:
+        unscored, by_path["serve_mc"] = serve_path("mc", url,
+                                                   bodies["unscored"], 0)
+    fresh = service(flagship, mc=MC_STEPS)
+    with http_front(fresh) as url:
+        scored, by_path["serve_mc_scored"] = serve_path(
+            "mc_scored", url, bodies["scored"], 1)
+    for key in ("probabilities", "entropy", "prediction"):
+        if not np.array_equal(scored[key], unscored[key]):
+            raise AssertionError(f"serve mc: the scored {key} is not the "
+                                 "unscored one at the same request index")
+    log("serve mc: scored and unscored maps bitwise equal at request 1")
+    mc_ece = float(scored["ece"])
+    del fresh, scored, unscored
+
+    # deterministic f32: the direct eval's protocol, row for row
+    det = service(flagship, mc=0)
+    with http_front(det) as url:
+        serial = {}
+        serial[s0], by_path["serve_deterministic"] = serve_path(
+            "deterministic", url, bodies["scored"], 1)
+        serial[s1], _ = serve_path("deterministic_1", url, bodies["scored_1"],
+                                   1)
+        direct_dir = os.path.join(tmp, "serve_direct")
+        run_path(dataset.subset([s0], os.path.join(tmp, "serve_store")),
+                 direct_dir, load_model(flagship, "best", DEVICE),
+                 "serve_direct", mc=0)
+        served_vs_direct(serial[s0], direct_dir, "serve_direct")
+        # concurrency: the answers of 4 client threads equal the serial ones
+        threads, each = SERVE_CONCURRENT
+        order = [(s0 if (k + i) % 2 == 0 else s1) for k in range(threads)
+                 for i in range(each)]
+
+        def client(k):
+            return [(s, predict_over_http(
+                url, bodies["scored" if s == s0 else "scored_1"][0])[0])
+                for s in order[k * each:(k + 1) * each]]
+
+        evalstats.fused_eval_stats.launches = 0
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+            answers = [a for r in pool.map(client, range(threads)) for a in r]
+        seconds = time.perf_counter() - t0
+        if evalstats.fused_eval_stats.launches != len(answers):
+            raise AssertionError(
+                f"serve concurrent: fused_eval_stats launched "
+                f"{evalstats.fused_eval_stats.launches} times for "
+                f"{len(answers)} scored requests")
+        for s, out in answers:
+            same_arrays("concurrent", out, serial[s])
+        by_path["serve_concurrent"] = {
+            "launches": len(answers), "requests": len(answers),
+            "seconds": seconds, "requests_per_s": len(answers) / seconds}
+        log(f"serve concurrent: {threads} client threads x {each} "
+            f"deterministic f32 scored requests in {seconds:.2f} s = "
+            f"{len(answers) / seconds:.3f} requests/s, every answer bitwise "
+            "the serial one")
+        # the HTTP front
+        status, _, raw, _ = http_call(url, "/v1/health")
+        health = json.loads(raw)
+        if status != 200 or set(health) != HEALTH_KEYS \
+                or health["strategy"] != "mc" or health["mc"] != 0:
+            raise AssertionError(f"serve health: {status} {health}")
+        small = np.zeros((2, 8, 8, 4), np.float32)
+        codes = {
+            "corrupt body": http_call(url, "/v1/predict",
+                                      b"PK\x03\x04 not a real zip")[0],
+            "bad shape": http_call(url, "/v1/predict", npz_body(
+                images=small, target=np.zeros((2, 4, 4), np.uint8))[0])[0],
+            "bad channels": http_call(url, "/v1/predict", npz_body(
+                images=small[..., :3])[0])[0],
+            "unknown path": http_call(url, "/v1/nothing")[0]}
+        if codes != {"corrupt body": 400, "bad shape": 400,
+                     "bad channels": 400, "unknown path": 404}:
+            raise AssertionError(f"serve HTTP codes: {codes}")
+        log(f"serve http: health keys {sorted(health)}, served shapes "
+            f"{health['compiled_shapes']}; codes {codes}")
+    del det
+
+    # the production configuration, and its int8 trunk
+    with http_front(service(flagship, mc=MC_STEPS, **BF16_FAST)) as url:
+        _, by_path["serve_mc_bf16_fast"] = serve_path(
+            "mc_bf16_fast", url, bodies["unscored"], 0)
+        _, by_path["serve_mc_bf16_fast_scored"] = serve_path(
+            "mc_bf16_fast_scored", url, bodies["scored"], 1)
+    expected = int8_sites_per_forward() * n_batches
+    with http_front(service(flagship, mc=MC_STEPS, quantize=True,
+                            **BF16_FAST)) as url:
+        _, record = serve_path("mc_bf16_fast_int8", url, bodies["scored"], 1,
+                               int8_launches=expected)
+    record["ece_delta_vs_f32"] = abs(record["ece"] - mc_ece)
+    by_path["serve_mc_bf16_fast_int8"] = record
+    int8_record = {"launches": expected, **{
+        k: v for k, v in record.items() if k not in ("launches",
+                                                     "int8_launches")}}
+    log(f"serve mc_bf16_fast_int8: first request calibrated and quantized "
+        f"({int8_sites_per_forward()} int8 launches a forward x {n_batches} "
+        f"forwards); ECE {record['ece']:.6f} against the f32 service's "
+        f"{mc_ece:.6f}: delta {record['ece_delta_vs_f32']:.2e} (information)")
+
+    # the other families, scored
+    with http_front(service(checkpoints["aleatoric"],
+                            is_log_sigma=False)) as url:
+        _, by_path["serve_aleatoric"] = serve_path("aleatoric", url,
+                                                   bodies["bounds"], 1)
+    members = checkpoints["ensemble"]
+    for label, flags in (("ensemble", {}),
+                         ("ensemble_bf16_fast_fold", BF16_FAST_FOLD)):
+        with http_front(service(members[0], members=members[1:],
+                                **flags)) as url:
+            _, by_path[f"serve_{label}"] = serve_path(label, url,
+                                                      bodies["scored"], 1)
+    with http_front(service(checkpoints["postnet"],
+                            segm_model_dir=checkpoints["segmenter"])) as url:
+        _, by_path["serve_auxiliary_feat"] = serve_path(
+            "auxiliary_feat", url, bodies["scored"], 1)
+    with http_front(service(checkpoints["error_net"], aux_segm=True)) as url:
+        _, by_path["serve_auxiliary_segm"] = serve_path(
+            "auxiliary_segm", url, bodies["baseline"], 1)
+    del bodies
+
+    # per-image scoring: 32 ISIC images, one launch of the eval kernel
+    model_dir, mc, body, k = isic_per_image_request(tmp)
+    with http_front(VolumeInferenceService(model_dir, mc=mc, seed=SEED,
+                                           device=DEVICE)) as url:
+        out, by_path["serve_isic_per_image"] = serve_path(
+            "isic_per_image", url, body, 1)
+    if out["ece"].shape != (k,) or out["correction_tp"].shape != (k, 11):
+        raise AssertionError(f"serve isic_per_image: rows {out['ece'].shape}")
+    log(f"serving phase: {time.perf_counter() - t_phase:.1f} s")
+    return by_path, int8_record
+
+
 def main():
     t_start = time.perf_counter()
     hbm_rate = device_phase()
@@ -3234,15 +3632,17 @@ def main():
         train_paths, train_err, train_runs = train_phase(tmp)
         staged_paths, staged_err = staged_phase(tmp, dataset, checkpoints,
                                                 hbm_rate, ptxas)
+        serve_paths, serve_int8 = serve_phase(tmp, dataset, checkpoints)
     record["by_path"] = {"mc": {"launches": record["launches"]}, **by_path,
                          **variants, **int8_paths, **isic_paths,
-                         **train_paths, **staged_paths}
+                         **train_paths, **staged_paths, **serve_paths}
     record["launches"] = sum(p["launches"] for p in record["by_path"].values())
     record["max_abs_err"] = max(record["max_abs_err"], err, variant_err,
                                 isic_err, staged_err)
     record["image_axis"] = axis
     int8_record["by_path"]["isic_mc_bf16_fast_int8"] = isic_int8
-    int8_record["launches"] += isic_int8["launches"]
+    int8_record["by_path"]["serve_mc_bf16_fast_int8"] = serve_int8
+    int8_record["launches"] += isic_int8["launches"] + serve_int8["launches"]
     log(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"training": train_runs,
                     "card_vs_cpu_grad_err": train_err}))

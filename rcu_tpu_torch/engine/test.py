@@ -35,8 +35,8 @@ from rcu_tpu_torch.data.loader import prefetch
 from rcu_tpu_torch.data.split import load_split
 from rcu_tpu_torch.engine import config as cfg_lib
 from rcu_tpu_torch.engine import databuild, hooks as hooks_lib, steps as steps_lib
-from rcu_tpu_torch.eval.direct import (_Fetch, _full_float32,
-                                       _primary_test_at, load_model,
+from rcu_tpu_torch.eval.device import Fetch, full_float32
+from rcu_tpu_torch.eval.direct import (_primary_test_at, load_model,
                                        resolve_device)
 from rcu_tpu_torch.ops import metrics as metrics_lib
 from rcu_tpu_torch.utils import ids as ids_lib
@@ -189,7 +189,7 @@ class TestLoop:
         dataset = self.test_data.dataset
         subject_results = []
         try:
-            with _full_float32(), torch.inference_mode():
+            with full_float32(), torch.inference_mode():
                 self.load_state()
                 self.hook.on_startup(self)
                 self._predict(dataset, subject_results)
@@ -211,7 +211,7 @@ class TestLoop:
             args = (self.model, batch) + \
                 (((self.config.seed, i),) if self.needs_rng else ())
             outputs = self.predict_fn(*args)
-            fetch = _Fetch({**{e: outputs[e] for e in self.entries},
+            fetch = Fetch({**{e: outputs[e] for e in self.entries},
                             **{k: batch[k] for k in
                                ("subject_index", "slice_index", "valid")}})
             if pending is not None:

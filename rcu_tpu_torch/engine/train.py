@@ -34,7 +34,8 @@ from rcu_tpu_torch.engine import checkpoint as ckpt_lib
 from rcu_tpu_torch.engine import config as cfg_lib
 from rcu_tpu_torch.engine import databuild, hooks as hooks_lib, steps as steps_lib
 from rcu_tpu_torch.engine.state import TrainState, create_train_state
-from rcu_tpu_torch.eval.direct import _full_float32, resolve_device
+from rcu_tpu_torch.eval.device import full_float32
+from rcu_tpu_torch.eval.direct import resolve_device
 from rcu_tpu_torch.models import get_model, get_optimizer
 from rcu_tpu_torch.ops import metrics as metrics_lib
 from rcu_tpu_torch.utils import ids as ids_lib
@@ -187,7 +188,7 @@ class TrainLoop:
             self.setup_directory()
         logs_lib.setup_logging(self.run_dir)
 
-        with _full_float32():
+        with full_float32():
             self.load_data()
             self.init_state()
             if resume_at is not None:

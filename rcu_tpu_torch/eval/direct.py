@@ -23,9 +23,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
-import contextlib
 import logging
-import math
 import os
 import time
 
@@ -40,6 +38,7 @@ from rcu_tpu_torch.engine import config as cfg_lib
 from rcu_tpu_torch.engine import databuild
 from rcu_tpu_torch.eval import hooks as ev_hooks
 from rcu_tpu_torch.eval import pipeline
+from rcu_tpu_torch.eval.device import Fetch, full_float32
 from rcu_tpu_torch.models import (FAST_DECODER_KWARGS, fold_bn_params,
                                   get_model, precast_params)
 from rcu_tpu_torch.models.convert import state_dict_from_flax
@@ -270,11 +269,12 @@ def _calibrated_quant_model(models, dataset, batch_size: int, seed: int,
     The calibration batch (:func:`_calibration_images`, through the
     config's ``transform``) is the centre slices of the first subject, or
     on a native-2D dataset its first ``batch_size`` images, through the
-    plain model as loaded (dtype, decoder, fold). One model calibrates
-    under one dropout sample drawn from a generator seeded with ``seed``
-    (a folded model deterministically); the ensemble union-calibrates:
-    each member runs its own deterministic pass, the scales merge by max,
-    and every member keeps its own int8 weights. ``skip_levels`` (None:
+    plain model as loaded (dtype, decoder, fold), through
+    ``ops.quant.calibrate_and_quantize``. One model calibrates under one
+    dropout sample drawn from a generator seeded with ``seed`` (a folded
+    model deterministically); the ensemble union-calibrates: each member
+    runs its own deterministic pass, the scales merge by max, and every
+    member keeps its own int8 weights. ``skip_levels`` (None:
     ``ops.quant.DEFAULT_SKIP_LEVELS``) is clamped to the model's levels.
     With ``RCU_QUANT_CLIP_DEBUG`` set, the quantized model (member 0) runs
     a batch the calibration did not see (:func:`_clip_debug`) and logs
@@ -286,29 +286,16 @@ def _calibrated_quant_model(models, dataset, batch_size: int, seed: int,
     batch, is_2d = _calibration_images(dataset, subjects[:max(1, batch_size)],
                                        batch_size, transform)
     batch = torch.from_numpy(batch).to(first.dtype).to(device)
+    scales, skip_levels = quant_ops.calibrate_and_quantize(
+        members, batch, None if ensemble or first.fold_bn else seed,
+        skip_levels)
     if ensemble:
-        scales = {}
-        for member in members:
-            member_scales = quant_ops.calibrate_scales(member, [batch],
-                                                       mc_dropout=False)
-            if scales and set(member_scales) != set(scales):
-                raise ValueError(
-                    "ensemble members sowed different quant sites — the "
-                    "stacked members must share one architecture")
-            for key, val in member_scales.items():
-                scales[key] = max(scales.get(key, 0.0), val)
         logging.info("int8 union calibration: %d conv sites over %d members "
                      "from subject '%s' (%d items)", len(scales),
                      len(members), subjects[0], len(batch))
     else:
-        scales = quant_ops.calibrate_scales(
-            first, [batch], [_seeded_generator(seed, device)],
-            mc_dropout=not first.fold_bn)
         logging.info("int8 calibration: %d conv sites from subject '%s' "
                      "(%d items)", len(scales), subjects[0], len(batch))
-    skip_levels = quant_ops.clamp_skip_levels(first, skip_levels)
-    for member in members:
-        member.quantize(scales, skip_levels)
     if os.environ.get("RCU_QUANT_CLIP_DEBUG"):
         _clip_debug(first, dataset, batch_size, seed, ensemble, skip_levels,
                     transform, is_2d)
@@ -543,94 +530,6 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
         dataset.close()
 
 
-def _fp32_switches():
-    """(holder, attribute, float32 value) of each switch that decides
-    whether cuDNN's convolutions and cuBLAS's matmuls may round float32
-    to TF32: the ``allow_tf32`` flags and, on a PyTorch that has them,
-    the ``fp32_precision`` ones, legacy first."""
-    backends = torch.backends
-    switches = [(backends.cudnn, "allow_tf32", False),
-                (backends.cuda.matmul, "allow_tf32", False)]
-    for holder in (getattr(backends.cudnn, "conv", None),
-                   backends.cuda.matmul):
-        if holder is not None and hasattr(holder, "fp32_precision"):
-            switches.append((holder, "fp32_precision", "ieee"))
-    return switches
-
-
-@contextlib.contextmanager
-def _full_float32():
-    """cuDNN and matmul TF32 off within the block; the caller's flags come
-    back afterwards, also on error."""
-    switches = _fp32_switches()
-    saved = [getattr(holder, name) for holder, name, _ in switches]
-    for holder, name, value in switches:
-        setattr(holder, name, value)
-    try:
-        yield
-    finally:
-        for (holder, name, _), value in zip(switches, saved):
-            setattr(holder, name, value)
-
-
-def _flatten(tree, prefix=()):
-    if isinstance(tree, dict):
-        for key, value in tree.items():
-            yield from _flatten(value, prefix + (key,))
-    else:
-        yield prefix, tree
-
-
-def _flat(leaf):
-    """A contiguous tensor as 1-D with unit stride (a one-element slice of
-    a row keeps the row's stride through ``contiguous``)."""
-    flat = leaf.reshape(-1)
-    return flat.as_strided((1,), (1,)) if flat.numel() == 1 else flat
-
-
-class _Fetch:
-    """The eval results of one dispatch on their way to the host in ONE
-    device-to-host copy: every leaf's bytes packed into one uint8 buffer
-    on the device, queued right after the work that makes them, then
-    copied into pinned host memory without blocking (on the CPU the packed
-    buffer is the host copy). :meth:`result` waits for that copy only and
-    unpacks the leaves as numpy arrays, in the tree's shape."""
-
-    def __init__(self, tree):
-        # the widest leaves first: every leaf then starts at a multiple of
-        # its own element size in the buffer
-        leaves = sorted(((path, leaf.detach().contiguous())
-                         for path, leaf in _flatten(tree)),
-                        key=lambda pl: -pl[1].element_size())
-        self.spec = [(path, leaf.dtype, tuple(leaf.shape))
-                     for path, leaf in leaves]
-        packed = torch.cat([_flat(leaf).view(torch.uint8)
-                            for _, leaf in leaves])
-        self.event = None
-        if packed.device.type == "cuda":
-            self.host = torch.empty(packed.shape, dtype=torch.uint8,
-                                    pin_memory=True)
-            self.host.copy_(packed, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = packed
-
-    def result(self) -> dict:
-        if self.event is not None:
-            self.event.synchronize()
-        out, offset = {}, 0
-        for path, dtype, shape in self.spec:
-            size = math.prod(shape) * dtype.itemsize
-            leaf = self.host[offset:offset + size].view(dtype).reshape(shape)
-            offset += size
-            node = out
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = leaf.numpy().copy()
-        return out
-
-
 def _drive(pool, items, load_fn, dispatch_fn, fetch_fn, window: int = 2):
     """The direct eval's loop (``rcu_tpu.eval.direct._drive``): the pool's
     threads read ``window`` items ahead (``load_fn(i, item)``: decode,
@@ -836,7 +735,7 @@ def evaluate_subjects(models, dataset, out_dir: str, *, strategy: str = "mc",
                      _input_dtype(strategy, models), device, is_2d)
     pool = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="direct")
     try:
-        with _full_float32():
+        with full_float32():
             run = _run_images if is_2d else _run_volumes
             return run(models, dataset, sinks, reader, pool, strategy=strategy,
                        mc=mc, is_log_sigma=is_log_sigma,
@@ -887,7 +786,7 @@ def _run_volumes(models, dataset, sinks, reader, pool, *, strategy, mc,
             images = _to_device(host, device)["images"]
             mn, mx = pipeline.volume_sigma_minmax(models, batch_size, images,
                                                   is_log_sigma)
-            return _Fetch({"min": mn, "max": mx})
+            return Fetch({"min": mn, "max": mx})
 
         def minmax_fetch(subject, out, t0):
             got = out.result()
@@ -901,7 +800,7 @@ def _run_volumes(models, dataset, sinks, reader, pool, *, strategy, mc,
     eces = {}
 
     def dispatch(si, subject, host):
-        return _Fetch(_eval_call(strategy, models, _to_device(host, device),
+        return Fetch(_eval_call(strategy, models, _to_device(host, device),
                                  thresholds, mc, bounds, is_log_sigma,
                                  (seed, si), batch_size))
 
@@ -935,7 +834,7 @@ def _run_images(models, dataset, sinks, reader, pool, *, strategy, mc,
             for _, subjects, host in parts:
                 mn, mx = pipeline.image_batch_sigma_minmax(
                     models, _to_device(host, device)["images"], is_log_sigma)
-                outs.append((subjects, _Fetch({"min": mn, "max": mx})))
+                outs.append((subjects, Fetch({"min": mn, "max": mx})))
             return outs
 
         def minmax_fetch(group, outs, t0):
@@ -953,7 +852,7 @@ def _run_images(models, dataset, sinks, reader, pool, *, strategy, mc,
     eces = {}
 
     def dispatch(ci, group, parts):
-        return [(subjects, _Fetch(_eval_call(
+        return [(subjects, Fetch(_eval_call(
             strategy, models, _to_device(host, device), thresholds, mc,
             bounds, is_log_sigma, (seed, starts[ci] + start))))
             for start, subjects, host in parts]

@@ -30,6 +30,14 @@ An image batch is one batch named by its first image's offset in the run
 (``rng=(seed, offset)``), as the JAX driver names a chunk's key.
 It cannot equal flax's threefry stream; MC parity with the JAX package is
 distributional.
+
+Serving (``rcu_tpu_torch.serve``) reads the same forwards: each family's
+loop over the slice batches lives in one ``_*_scan`` helper, which its
+unscored function (``volume_mc``, ``volume_aleatoric``,
+``volume_ensemble``, ``volume_aux_feat``, ``volume_aux_segm``: the
+per-voxel artifacts only, the ``make_volume_*_fn`` programs) and its
+scored one (``volume_*_eval``; ``artifacts=True`` adds the per-voxel maps
+to the eval dict under the JAX programs' keys) share.
 """
 from __future__ import annotations
 
@@ -56,31 +64,26 @@ def sample_generators(rng, batch_index: int, mc_steps: int, device):
     return batch_generators((*rng, batch_index), mc_steps, device)
 
 
-def _mc_scan(model, mc_steps: int, volume, batch_size: int, rng,
-             weight_scaling: bool = False):
+def _mc_scan(model, mc_steps: int, volume, batch_size: int, rng):
     """MC protocol over a volume's slice batches. ``volume`` (Z, H, W, C).
 
-    Returns per-slice (fg probability, entropy in nats, weight-scaling fg or
-    None), each (Z, H, W). ``mc_steps=0`` is the deterministic protocol:
-    the single weight-scaling forward is the probability map. Otherwise the
-    weight-scaling forward runs only when ``weight_scaling`` asks for its
-    output (the eval path never reads it)."""
-    fg, ent, ws = [], [], []
+    Returns per-slice (fg probability, entropy in nats), each (Z, H, W).
+    ``mc_steps=0`` is the deterministic protocol: the single
+    weight-scaling forward is the probability map. With MC samples the
+    weight-scaling forward of the JAX ``_mc_scan`` is not run: neither the
+    eval nor the service's result reads its map."""
+    fg, ent = [], []
     for b, images in enumerate(_slice_batches(volume, batch_size)):
         if mc_steps:
             gens = sample_generators(rng, b, mc_steps, volume.device)
             summary = multi_prediction_summary(mc_forward(model, images, gens))
-            if weight_scaling:
-                ws.append(predict(model, images)[..., 1])
         else:
             probs = predict(model, images)
             summary = {"probabilities": probs,
                        "entropy": metrics.entropy(probs, dim=-1)}
-            ws.append(probs[..., 1])
         fg.append(summary["probabilities"][..., 1])
         ent.append(summary["entropy"])
-    return (torch.cat(fg), torch.cat(ent),
-            torch.cat(ws) if ws else None)
+    return torch.cat(fg), torch.cat(ent)
 
 
 def _normalize_entropy(ent):
@@ -126,11 +129,12 @@ def _entropy_eval(fg, ent, target, mask, thresholds, per_image=False):
 def _folded_eval(rescaled, prediction, target, mask, thresholds,
                  per_image=False):
     """Fold the rescaled map by the prediction; the folded map is the ECE
-    plane, the rescaled one the uncertainty plane."""
+    plane, the rescaled one the uncertainty plane. -> (the eval row, the
+    folded map)."""
     folded = prepare.uncertainty_to_foreground_probabilities(rescaled,
                                                              prediction)
     return _eval_row(folded, rescaled, prediction, target, mask, thresholds,
-                     per_image)
+                     per_image), folded
 
 
 def _confidence_eval(confidence, prediction, target, mask, thresholds,
@@ -145,45 +149,54 @@ def _confidence_eval(confidence, prediction, target, mask, thresholds,
                                           conf_max.view(view))
     else:
         rescaled = prepare.rescale_subject_min_max(confidence)
-    return {**_folded_eval(rescaled, prediction, target, mask, thresholds,
-                           per_image),
-            "conf_min": conf_min, "conf_max": conf_max}
+    row, _ = _folded_eval(rescaled, prediction, target, mask, thresholds,
+                          per_image)
+    return {**row, "conf_min": conf_min, "conf_max": conf_max}
 
 
 @torch.inference_mode()
 def volume_mc_eval(model, mc_steps: int, batch_size: int, volume, target,
-                   mask, thresholds, rng, per_image: bool = False):
+                   mask, thresholds, rng, per_image: bool = False,
+                   artifacts: bool = False):
     """MC inference + eval reductions of one volume -> the eval dict.
 
     ``volume`` (Z, H, W, C) float32 or the model's compute dtype,
     ``target``/``mask`` (Z, H, W) bool or uint8, all on the model's device;
     ``rng`` names the volume's MC stream. With ``per_image`` each slice is
-    an image with its own eval row."""
-    fg, ent, _ = _mc_scan(model, mc_steps, volume, batch_size, rng)
-    return _entropy_eval(fg, _normalize_entropy(ent), target, mask, thresholds,
-                         per_image)
+    an image with its own eval row. ``artifacts`` adds the per-voxel
+    ``fg`` and ``entropy`` (bits), bitwise those of :func:`volume_mc` on
+    the same stream."""
+    fg, ent = _mc_scan(model, mc_steps, volume, batch_size, rng)
+    ent = _normalize_entropy(ent)
+    out = _entropy_eval(fg, ent, target, mask, thresholds, per_image)
+    if artifacts:
+        out.update(fg=fg, entropy=ent)
+    return out
 
 
 @torch.inference_mode()
 def volume_mc(model, mc_steps: int, batch_size: int, volume, rng):
-    """Inference only: the per-voxel artifacts {fg, entropy, ws_fg,
-    prediction}, with the same MC stream as :func:`volume_mc_eval`."""
-    fg, ent, ws_fg = _mc_scan(model, mc_steps, volume, batch_size, rng,
-                              weight_scaling=True)
-    return {"fg": fg, "entropy": _normalize_entropy(ent), "ws_fg": ws_fg,
+    """Inference only: the per-voxel artifacts {fg, entropy, prediction},
+    with the same MC stream as :func:`volume_mc_eval`. The JAX program
+    also returns the weight-scaling map ``ws_fg`` (a 21st forward under
+    MC), which its service never sends, so the port does not compute
+    it."""
+    fg, ent = _mc_scan(model, mc_steps, volume, batch_size, rng)
+    return {"fg": fg, "entropy": _normalize_entropy(ent),
             "prediction": fg > 0.5}
 
 
 def _aleatoric_scan(model, is_log_sigma: bool, volume, batch_size: int):
-    """One deterministic forward per slice batch -> (prediction uint8,
-    predicted-class sigma), each (Z, H, W)."""
-    pred, sigma = [], []
+    """One deterministic forward per slice batch -> (softmax fg, prediction
+    uint8, predicted-class sigma), each (Z, H, W)."""
+    fg, pred, sigma = [], [], []
     for images in _slice_batches(volume, batch_size):
-        _, _, prediction, predicted_sigma = aleatoric_forward(
+        probabilities, _, prediction, predicted_sigma = aleatoric_forward(
             model, images, is_log_sigma)
+        fg.append(probabilities[..., 1])
         pred.append(prediction.to(torch.uint8))
         sigma.append(predicted_sigma)
-    return torch.cat(pred), torch.cat(sigma)
+    return torch.cat(fg), torch.cat(pred), torch.cat(sigma)
 
 
 @torch.inference_mode()
@@ -192,64 +205,139 @@ def volume_sigma_minmax(model, batch_size: int, volume, is_log_sigma: bool,
     """Pass A of the aleatoric protocol: the subject's predicted-class
     sigma (min, max), its share of the run's global rescale bounds (with
     ``per_image``, each slice's)."""
-    _, sigma = _aleatoric_scan(model, is_log_sigma, volume, batch_size)
+    _, _, sigma = _aleatoric_scan(model, is_log_sigma, volume, batch_size)
     return _min_max(sigma, per_image)
 
 
 @torch.inference_mode()
 def volume_aleatoric_eval(model, batch_size: int, volume, target, mask,
                           thresholds, sigma_min, sigma_max,
-                          is_log_sigma: bool, per_image: bool = False):
+                          is_log_sigma: bool, per_image: bool = False,
+                          artifacts: bool = False):
     """Pass B: sigma rescaled by the run's f32 global bounds, folded, one
-    kernel pass. No conf_min/conf_max: the minmax CSV holds pass A's."""
-    prediction, sigma = _aleatoric_scan(model, is_log_sigma, volume,
-                                        batch_size)
+    kernel pass. No conf_min/conf_max: the minmax CSV holds pass A's.
+    ``artifacts`` adds the ``prediction``, the raw predicted-class
+    ``sigma`` and the folded ``confidence``."""
+    _, prediction, sigma = _aleatoric_scan(model, is_log_sigma, volume,
+                                           batch_size)
     rescaled = prepare.rescale_linear(sigma, sigma_min, sigma_max)
-    return _folded_eval(rescaled, prediction, target, mask, thresholds,
-                        per_image)
+    out, folded = _folded_eval(rescaled, prediction, target, mask,
+                               thresholds, per_image)
+    if artifacts:
+        out.update(prediction=prediction, sigma=sigma, confidence=folded)
+    return out
 
 
 @torch.inference_mode()
-def volume_ensemble_eval(members, batch_size: int, volume, target, mask,
-                         thresholds, per_image: bool = False):
-    """Member-mean softmax (``steps.ensemble_probabilities``), then the
-    entropy protocol."""
+def volume_aleatoric(model, batch_size: int, volume, is_log_sigma: bool):
+    """Inference only (``make_volume_aleatoric_fn``): the softmax ``fg``,
+    the ``prediction`` and the unrescaled predicted-class ``sigma``."""
+    fg, prediction, sigma = _aleatoric_scan(model, is_log_sigma, volume,
+                                            batch_size)
+    return {"fg": fg, "prediction": prediction, "sigma": sigma}
+
+
+def _ensemble_scan(members, volume, batch_size: int):
+    """Member-mean softmax (``steps.ensemble_probabilities``) per slice
+    batch -> (fg, entropy in nats), each (Z, H, W)."""
     fg, ent = [], []
     for images in _slice_batches(volume, batch_size):
         probabilities = ensemble_probabilities(members, images)
         fg.append(probabilities[..., 1])
         ent.append(metrics.entropy(probabilities, dim=-1))
-    return _entropy_eval(torch.cat(fg), _normalize_entropy(torch.cat(ent)),
-                         target, mask, thresholds, per_image)
+    return torch.cat(fg), torch.cat(ent)
 
 
 @torch.inference_mode()
-def volume_aux_feat_eval(segmenter, postnet, batch_size: int, volume, target,
-                         mask, thresholds, per_image: bool = False):
-    """The frozen segmenter's argmax (of its logits) is the prediction, the
-    PostNet's softmax fg on the segmenter's features the confidence."""
+def volume_ensemble_eval(members, batch_size: int, volume, target, mask,
+                         thresholds, per_image: bool = False,
+                         artifacts: bool = False):
+    """Member-mean softmax, then the entropy protocol; ``artifacts`` adds
+    the per-voxel ``fg`` and ``entropy`` (bits)."""
+    fg, ent = _ensemble_scan(members, volume, batch_size)
+    ent = _normalize_entropy(ent)
+    out = _entropy_eval(fg, ent, target, mask, thresholds, per_image)
+    if artifacts:
+        out.update(fg=fg, entropy=ent)
+    return out
+
+
+@torch.inference_mode()
+def volume_ensemble(members, batch_size: int, volume):
+    """Inference only (``make_volume_ensemble_fn``): the member-mean
+    ``fg``, its ``entropy`` in bits and the ``prediction``."""
+    fg, ent = _ensemble_scan(members, volume, batch_size)
+    return {"fg": fg, "entropy": _normalize_entropy(ent),
+            "prediction": fg > 0.5}
+
+
+def _aux_feat_scan(segmenter, postnet, volume, batch_size: int):
+    """The frozen segmenter and the PostNet on its features per slice
+    batch -> (the PostNet's softmax fg, the segmenter's argmax (of its
+    logits) uint8), each (Z, H, W)."""
     conf, pred = [], []
     for images in _slice_batches(volume, batch_size):
         out = segmenter(to_model_layout(images, segmenter))
         pred.append(torch.argmax(out.logits, dim=1).to(torch.uint8))
         conf.append(torch.softmax(postnet(out.features).logits, dim=1)[:, 1])
-    return _confidence_eval(torch.cat(conf), torch.cat(pred), target, mask,
-                            thresholds, per_image)
+    return torch.cat(conf), torch.cat(pred)
 
 
 @torch.inference_mode()
-def volume_aux_segm_eval(model, batch_size: int, volume, baseline, target,
-                         mask, thresholds, per_image: bool = False):
-    """The error net reads the images and the baseline prediction as a 5th
-    channel (0/1, exact in the images' dtype); the baseline itself (uint8,
-    (Z, H, W)) is the prediction."""
+def volume_aux_feat_eval(segmenter, postnet, batch_size: int, volume, target,
+                         mask, thresholds, per_image: bool = False,
+                         artifacts: bool = False):
+    """The frozen segmenter's argmax is the prediction, the PostNet's
+    softmax fg on the segmenter's features the confidence; ``artifacts``
+    adds both maps (``confidence``, ``prediction``)."""
+    conf, pred = _aux_feat_scan(segmenter, postnet, volume, batch_size)
+    out = _confidence_eval(conf, pred, target, mask, thresholds, per_image)
+    if artifacts:
+        out.update(confidence=conf, prediction=pred)
+    return out
+
+
+@torch.inference_mode()
+def volume_aux_feat(segmenter, postnet, batch_size: int, volume):
+    """Inference only (``make_volume_aux_feat_fn``): the ``confidence``
+    and the segmenter's ``prediction``."""
+    conf, pred = _aux_feat_scan(segmenter, postnet, volume, batch_size)
+    return {"confidence": conf, "prediction": pred}
+
+
+def _aux_segm_scan(model, volume, baseline, batch_size: int):
+    """The error net per slice batch over the images and the baseline
+    prediction as a 5th channel (0/1, exact in the images' dtype) -> its
+    softmax fg (Z, H, W)."""
     conf = []
     for images, base in zip(_slice_batches(volume, batch_size),
                             _slice_batches(baseline, batch_size)):
         inputs = torch.cat([images, base[..., None].to(images.dtype)], dim=-1)
         conf.append(predict(model, inputs)[..., 1])
-    return _confidence_eval(torch.cat(conf), baseline, target, mask,
-                            thresholds, per_image)
+    return torch.cat(conf)
+
+
+@torch.inference_mode()
+def volume_aux_segm_eval(model, batch_size: int, volume, baseline, target,
+                         mask, thresholds, per_image: bool = False,
+                         artifacts: bool = False):
+    """The error net's confidence; the baseline itself (uint8, (Z, H, W))
+    is the prediction. ``artifacts`` adds ``confidence`` and the baseline
+    passed through as ``prediction``."""
+    conf = _aux_segm_scan(model, volume, baseline, batch_size)
+    out = _confidence_eval(conf, baseline, target, mask, thresholds,
+                           per_image)
+    if artifacts:
+        out.update(confidence=conf, prediction=baseline)
+    return out
+
+
+@torch.inference_mode()
+def volume_aux_segm(model, batch_size: int, volume, baseline):
+    """Inference only (``make_volume_aux_segm_fn``): the error net's
+    ``confidence`` and the baseline passed through as ``prediction``."""
+    return {"confidence": _aux_segm_scan(model, volume, baseline, batch_size),
+            "prediction": baseline}
 
 
 # ---------------------------------------------------------------------------

@@ -164,3 +164,38 @@ def calibrate_scales(model, batches, generators=None, mc_dropout: bool = True,
             "calibration pass sowed no quant_stats — the model has no "
             "instrumented conv sites")
     return {key: activation_scale(val, margin) for key, val in agg.items()}
+
+
+def calibrate_and_quantize(members, batch, dropout_seed=None,
+                           skip_levels=None) -> tuple:
+    """Make the plain ``members`` (one model, or an ensemble's) int8 models
+    in place, calibrated on ``batch`` (NHWC on their device, in their
+    compute dtype): each member runs its own calibration pass, under one
+    dropout sample drawn from a generator seeded with ``dropout_seed``
+    where one is given and deterministically otherwise, and the members'
+    scales merge by max (the union); every member then keeps its own int8
+    weights of the one scale dict. ``skip_levels`` (None:
+    :data:`DEFAULT_SKIP_LEVELS`) is clamped to the first member's levels.
+    The direct eval's and the service's calibration both come here.
+    Returns (the scales, the clamped skip levels)."""
+    scales = None
+    for member in members:
+        generators = None
+        if dropout_seed is not None:
+            generators = [torch.Generator(device=batch.device)]
+            generators[0].manual_seed(dropout_seed)
+        member_scales = calibrate_scales(member, [batch], generators,
+                                         mc_dropout=generators is not None)
+        if scales is None:
+            scales = member_scales
+            continue
+        if set(member_scales) != set(scales):
+            raise ValueError(
+                "ensemble members sowed different quant sites — the "
+                "stacked members must share one architecture")
+        for key, val in member_scales.items():
+            scales[key] = max(scales[key], val)
+    skip_levels = clamp_skip_levels(members[0], skip_levels)
+    for member in members:
+        member.quantize(scales, skip_levels)
+    return scales, skip_levels

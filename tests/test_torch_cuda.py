@@ -637,7 +637,7 @@ def test_cuda_train_step_matches_cpu(cuda_device, kind):
     TF32 off and the caller's flags back afterwards."""
     import chip_smoke
     from rcu_tpu_torch.engine import steps
-    from rcu_tpu_torch.eval.direct import _full_float32
+    from rcu_tpu_torch.eval.device import full_float32
     batch, frozen, noise = train_batch(1), None, None
     if kind == "ce":
         model = chip_smoke.seeded_train_model(TRAIN_UNET, 1)
@@ -660,7 +660,7 @@ def test_cuda_train_step_matches_cpu(cuda_device, kind):
                                                "in_channels": 5}, 6)
         batch = train_batch(7, labels_channels=2)
         make = lambda f: steps.make_auxiliary_train_step()  # noqa: E731
-    with _full_float32():
+    with full_float32():
         chip_smoke.train_step_card_vs_cpu(kind, model, make, batch,
                                           frozen=frozen, noise=noise)
 

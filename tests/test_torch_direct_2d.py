@@ -35,6 +35,7 @@ from rcu_tpu.eval.direct import evaluate_direct as jax_evaluate_direct
 from rcu_tpu_torch.cli import eval_direct as port_cli
 from rcu_tpu_torch.data.transforms import Rescale
 from rcu_tpu_torch.engine import config as port_cfg
+from rcu_tpu_torch.eval import device as eval_device
 from rcu_tpu_torch.eval import direct as port_direct
 from rcu_tpu_torch.eval import pipeline
 from rcu_tpu_torch.ops.cuda import evalstats
@@ -388,7 +389,7 @@ def test_mc_stream_is_named_by_the_chunk_offset(env, tmp_path):
         chunk = arrays[offset:offset + 2]
         images = torch.from_numpy(np.stack([a[0] for a in chunk]))
         targets = torch.from_numpy(np.stack([a[1] for a in chunk]) > 0)
-        with port_direct._full_float32():
+        with eval_device.full_float32():
             out = pipeline.image_batch_mc_eval(
                 model, 3, images, targets, torch.ones_like(targets),
                 port_direct.DEFAULT_THRESHOLDS, (20, offset))

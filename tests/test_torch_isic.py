@@ -38,6 +38,7 @@ from rcu_tpu.parallel.ensemble import stack_states
 from rcu_tpu_torch.data import h5, isic, transforms
 from rcu_tpu_torch.engine import config as port_cfg
 from rcu_tpu_torch.engine import databuild
+from rcu_tpu_torch.eval import device as eval_device
 from rcu_tpu_torch.eval import direct as port_direct
 from rcu_tpu_torch.eval import pipeline
 from rcu_tpu_torch.ops.cuda import evalstats
@@ -470,8 +471,8 @@ def test_fetch_returns_the_tree_in_one_buffer():
             "correction": {"tp": torch.arange(3)[:, None].expand(3, 11),
                            "dice_benefit": torch.zeros(3, 11, dtype=torch.bool)},
             "row": torch.arange(40, dtype=torch.int64).view(4, 10)[:, 3]}
-    got = port_direct._Fetch(tree).result()
-    for path, leaf in port_direct._flatten(tree):
+    got = eval_device.Fetch(tree).result()
+    for path, leaf in eval_device._flatten(tree):
         value = got
         for key in path:
             value = value[key]

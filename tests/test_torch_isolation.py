@@ -49,7 +49,8 @@ def test_every_module_imports_with_jax_blocked():
             "rcu_tpu_torch.eval.evaldata", "rcu_tpu_torch.utils.labels",
             "rcu_tpu_torch.utils.writerpool",
             "rcu_tpu_torch.cli.eval_uncertainty",
-            "rcu_tpu_torch.cli.isic_test_auxiliary_segm"} <= walked
+            "rcu_tpu_torch.cli.isic_test_auxiliary_segm",
+            "rcu_tpu_torch.serve", "rcu_tpu_torch.cli.serve"} <= walked
 
 
 def test_chip_smoke_imports_no_jax():

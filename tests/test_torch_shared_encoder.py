@@ -103,7 +103,7 @@ def test_volume_mc_eval_shared_equals_full():
                               .astype(np.float32))
     shared = pipeline.volume_mc(model, 3, 2, volume, rng=(20, 0))
     full = pipeline.volume_mc(Unshared(model), 3, 2, volume, rng=(20, 0))
-    for key in ("fg", "entropy", "ws_fg", "prediction"):
+    for key in ("fg", "entropy", "prediction"):
         assert torch.equal(shared[key], full[key]), key
 
 
