@@ -4,7 +4,8 @@ hand-written kernels (``csrc/evalstats.cu``, the fused eval statistics;
 PyTorch version, then drives the main path, the BraTS MC-dropout direct
 eval, the four other strategy families of the direct eval, the
 inference variants, int8 included, the native-2D (ISIC) direct eval,
-training, the staged chain and serving, at full width.
+training, the staged chain, serving and the inference paths on a device
+mesh, at full width.
 
   python3 chip_smoke.py
 
@@ -178,18 +179,44 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    npz encode seconds (its ``Server-Timing`` header), request and response
    MB, peak GB, both kernels' launches (the eval kernel once a scored
    request, never an unscored one; the int8 conv once a quantized site
-   and forward).
+   and forward);
+13. mesh (``rcu_tpu_torch.parallel``): a 2-entry mesh, the machine's first
+   two cards where it has them, else ``cuda:0`` twice (a virtual mesh:
+   one card and one stream, so its times are the split's overhead, not
+   scaling; the "mesh devices" line says which), on the staged phase's
+   checkpoints and phase 4's subjects, each path's "mesh <mode> <path>:"
+   line (s/subject, peak GB per device, both kernels' launches, ECE/Dice
+   against the single device's run of the same weights): MC20 f32 with no
+   mesh (the reference), on a one-card mesh, in latency mode (each batch
+   split over the devices: the eval kernel once per data device and
+   subject) and in throughput mode (a subject a device: once per
+   subject; the CSVs byte for byte the reference's); MC20 in bf16 + fast
+   + int8 with no mesh and in latency mode (the int8 conv 20 a forward
+   and device, 400 for the 2 subjects); the 10-member ensemble in bf16 +
+   fast + fold with no mesh and on a 2 x 1 model x data mesh (5 members
+   a row); each mesh path's eval planes and every CSV cell against the
+   reference: the planes within 1e-5 (f32) or 1e-3 (bf16), the counts
+   exact where the planes are bitwise equal, else within the voxels that
+   close to a bin edge or threshold, the floats of rows with equal counts
+   within 1e-8 past the planes' difference; the sharded eval (one launch per shard, the sums added)
+   on the reference's planes against one launch, counts equal, both
+   timed (the record's ``sharded``); a throughput-mode service (a pool of
+   2) answering 4 client threads of 2 deterministic requests through
+   ``predict_timed``, each bitwise the single-device service's.
 
 Every path runs with both kernels' launch counts set to 0 before it and
 read after it, and fails unless it launched the eval kernel once per
 subject (a staged eval: once a pass and subject; a staged test loop:
-never) and the int8 conv once per quantized site and forward (never on a
+never; a latency mesh: once per data device and subject) and the int8
+conv once per quantized site and forward (a latency mesh: and device;
+never on a
 path that quantizes nothing, never its plain version). The last three
 lines are the training phase's numbers (JSON), the kernels' JSON records
 (``fused_eval_stats`` and ``int8_conv``; ``launches``: the sum over the
-paths, ``by_path``: each path's launches and numbers; the int8 record's
-``sites``: each site shape's numbers) and ``{"ok": true, "device":
-{...}}``.
+paths, ``by_path``: each path's launches and numbers, the mesh paths
+as ``mesh_<mode>_<path>``; ``sharded``: the sharded eval's times; the
+int8 record's ``sites``: each site shape's numbers) and ``{"ok": true,
+"device": {...}}``.
 """
 import concurrent.futures
 import contextlib
@@ -628,22 +655,37 @@ def gpu_vs_cpu_check(model, dataset):
     return x, want
 
 
-def run_path(dataset, out_dir, models, run_id, int8_launches=0, **kwargs):
+def run_path(dataset, out_dir, models, run_id, int8_launches=0,
+             eval_launches=None, keep=None, **kwargs):
     """``evaluate_subjects`` with both kernels' launch counts set to 0
     before it and read after it; the path fails unless it launched the
-    eval kernel once per subject and the int8 conv ``int8_launches`` times
-    (never its plain version), and every ECE is finite. Returns (launches,
-    seconds, eces, the first subject's eval planes (ECE plane, target,
-    prediction, uncertainty, mask))."""
+    eval kernel once per subject (or ``eval_launches`` times: a latency
+    mesh launches once per data device and subject) and the int8 conv
+    ``int8_launches`` times (never its plain version), and every ECE is
+    finite. Returns (launches, seconds, eces, the first subject's eval
+    planes (ECE plane, target, prediction, uncertainty, mask); none on a
+    mesh that splits the subject). With ``keep`` (a list) every subject's
+    planes are appended to it: per device, its (ECE plane, prediction,
+    uncertainty) as the eval read them."""
     planes = []
     subject_eval = pipeline.fused_subject_eval
+    sharded_eval = pipeline.sharded_subject_eval
 
     def keep_planes(*args, **kwargs):
         if not planes:
             planes.extend(evalstats.kernel_planes(*args[:5]))
+        if keep is not None:
+            keep.append([(args[0], args[2], args[3])])
         return subject_eval(*args, **kwargs)
 
+    def keep_shards(shards, *args, **kwargs):
+        if keep is not None:
+            keep.append([None if p is None else (p[0], p[2], p[3])
+                         for p in shards])
+        return sharded_eval(shards, *args, **kwargs)
+
     pipeline.fused_subject_eval = keep_planes
+    pipeline.sharded_subject_eval = keep_shards
     evalstats.fused_eval_stats.launches = 0
     int8conv.int8_conv.launches = 0
     plain_int8 = int8conv.int8_conv.plain_calls
@@ -657,12 +699,14 @@ def run_path(dataset, out_dir, models, run_id, int8_launches=0, **kwargs):
         torch.cuda.synchronize()
     finally:
         pipeline.fused_subject_eval = subject_eval
+        pipeline.sharded_subject_eval = sharded_eval
     seconds = time.perf_counter() - t0
     launches = evalstats.fused_eval_stats.launches
     n = len(dataset.subjects)
-    if launches != n:
+    if launches != (n if eval_launches is None else eval_launches):
         raise AssertionError(f"{run_id}: fused_eval_stats launched {launches} "
-                             f"times for {n} subjects")
+                             f"times for {n} subjects (expected "
+                             f"{eval_launches or n})")
     if (int8conv.int8_conv.launches != int8_launches
             or int8conv.int8_conv.plain_calls != plain_int8):
         raise AssertionError(
@@ -3057,34 +3101,27 @@ def run_csvs(root, run_id):
     return out
 
 
-def staged_vs_direct(run_id, staged_planes, direct_planes, got, want,
-                     subjects):
-    """The staged chain's 14 CSVs of ``run_id`` (``got``) against the
-    direct eval's (``want``), each :func:`run_csvs`. Per subject,
-    first the planes: the ECE plane, the uncertainty plane and the
-    prediction of the staged passes (the ece_dice pass's and the bnf_ue
-    pass's) against the direct eval's. Bitwise equal planes must give the
-    same CSVs (counts exact, floats at rtol 1e-4). Otherwise the largest
-    plane difference where the predictions agree is printed, and each
-    count may differ by the voxels that lie that close to a bin edge (0.5
-    among them) or a threshold, and those whose prediction differs; a row whose counts all agree holds its
-    floats at rtol 1e-4 and its booleans exactly."""
+def plane_allowance(label, pairs, agree_only=True):
+    """Per subject, the eval planes of two runs, ``pairs[subject] = ((fg,
+    prediction, uncertainty) got, (...) want)``, each plane flat and in
+    the same voxel order. -> (every plane bitwise equal, {subject: the
+    voxels that lie as close to a bin edge (0.5 among them) or a
+    threshold as the planes' largest difference, and those whose
+    prediction differs}, the largest plane difference). With
+    ``agree_only`` the difference is taken where the predictions agree
+    (a confidence family's ECE plane folds by the prediction: where the
+    predictions differ it flips, and those voxels count apart)."""
     edges = torch.tensor(np.linspace(0.0, 1.0, 11)[1:-1], device=DEVICE)
     ths = torch.tensor(DEFAULT_THRESHOLDS, device=DEVICE)
-    staged_ece = [c for c in staged_planes.calls if not c[3]][::2]  # ece_dice
-    staged_unc = [c for c in staged_planes.calls if c[3]]
-    allowance, exact = {}, True
-    for i, subject in enumerate(subjects):
-        fg_s, pred_s = staged_ece[i][0], staged_ece[i][1]
-        unc_s = staged_unc[i][2]
-        fg_d, pred_d, unc_d = direct_planes.calls[i][:3]
+    allowance, exact, largest = {}, True, 0.0
+    for subject, ((fg_s, pred_s, unc_s), (fg_d, pred_d, unc_d)) in \
+            pairs.items():
         agree = pred_s.bool() == pred_d.bool()
         same = (torch.equal(fg_s, fg_d) and torch.equal(unc_s, unc_d)
                 and bool(agree.all()))
-        # a confidence family's ECE plane folds by the prediction: where
-        # the predictions differ it flips, and those voxels count apart
-        d_fg = float(torch.where(agree, (fg_s - fg_d).abs(), 0).max())
-        d_unc = float(torch.where(agree, (unc_s - unc_d).abs(), 0).max())
+        where = agree if agree_only else torch.ones_like(agree)
+        d_fg = float(torch.where(where, (fg_s - fg_d).abs(), 0).max())
+        d_unc = float(torch.where(where, (unc_s - unc_d).abs(), 0).max())
         near = int((((fg_d.double()[..., None] - edges).abs() <= d_fg)
                     .any(-1) & agree).sum()) if d_fg > 0 else 0
         near += int((((unc_d.double()[..., None] - ths).abs() <= d_unc)
@@ -3092,12 +3129,22 @@ def staged_vs_direct(run_id, staged_planes, direct_planes, got, want,
         near += int((~agree).sum())
         allowance[subject] = near
         exact &= same
-        log(f"  staged vs direct {run_id} {subject}: planes "
-            f"{'bitwise equal' if same else 'differ'}: where the "
-            f"predictions agree, ECE plane max diff {d_fg:.3e}, uncertainty "
-            f"{d_unc:.3e}; predictions differing {int((~agree).sum())}; "
-            f"voxels that close to an edge or threshold, or differing: "
-            f"{near}")
+        largest = max(largest, d_fg, d_unc)
+        log(f"  {label} {subject}: planes "
+            f"{'bitwise equal' if same else 'differ'}: "
+            f"{'where the predictions agree, ' if agree_only else ''}"
+            f"ECE plane max diff {d_fg:.3e}, uncertainty {d_unc:.3e}; "
+            f"predictions differing {int((~agree).sum())}; voxels that close "
+            f"to an edge or threshold, or differing: {near}")
+    return exact, allowance, largest
+
+
+def hold_csvs(label, got, want, exact, allowance, close):
+    """CSVs (``{name: rows}``) of two runs, cell by cell: counts exact
+    where the planes were bitwise equal (``exact``), else each within its
+    subject's ``allowance``; a row whose counts all agree holds its
+    booleans exactly and its floats to ``close(got, want)``. -> the
+    largest count difference."""
     def as_int(x):
         try:
             return int(x)
@@ -3107,8 +3154,7 @@ def staged_vs_direct(run_id, staged_planes, direct_planes, got, want,
     worst, misses = 0, []
     for name, rows in want.items():
         if got[name][0] != rows[0] or len(got[name]) != len(rows):
-            raise AssertionError(f"staged vs direct {run_id} {name}: header "
-                                 "or rows differ")
+            raise AssertionError(f"{label} {name}: header or rows differ")
         for w_row, g_row in zip(rows[1:], got[name][1:]):
             subject = w_row[1] if "minmax" not in name else None
             cells = list(zip(rows[0], g_row, w_row))
@@ -3126,16 +3172,40 @@ def staged_vs_direct(run_id, staged_planes, direct_planes, got, want,
                     continue
                 bools = {a, b} & {"True", "False"}
                 if bools or not ((math.isnan(float(a)) and math.isnan(float(b)))
-                                 or abs(float(a) - float(b))
-                                 <= 1e-4 * abs(float(b)) + 1e-12):
+                                 or close(float(a), float(b))):
                     misses.append((name, subject, col, a, b))
+    if misses:
+        raise AssertionError(f"{label}: {len(misses)} cells miss: "
+                             f"{misses[:5]}")
+    return worst
+
+
+def staged_vs_direct(run_id, staged_planes, direct_planes, got, want,
+                     subjects):
+    """The staged chain's 14 CSVs of ``run_id`` (``got``) against the
+    direct eval's (``want``), each :func:`run_csvs`. Per subject,
+    first the planes: the ECE plane, the uncertainty plane and the
+    prediction of the staged passes (the ece_dice pass's and the bnf_ue
+    pass's) against the direct eval's. Bitwise equal planes must give the
+    same CSVs (counts exact, floats at rtol 1e-4). Otherwise the largest
+    plane difference where the predictions agree is printed, and each
+    count may differ by the voxels that lie that close to a bin edge (0.5
+    among them) or a threshold, and those whose prediction differs; a row
+    whose counts all agree holds its floats at rtol 1e-4 and its booleans
+    exactly (:func:`plane_allowance`, :func:`hold_csvs`)."""
+    staged_ece = [c for c in staged_planes.calls if not c[3]][::2]  # ece_dice
+    staged_unc = [c for c in staged_planes.calls if c[3]]
+    pairs = {subject: ((staged_ece[i][0], staged_ece[i][1], staged_unc[i][2]),
+                       direct_planes.calls[i][:3])
+             for i, subject in enumerate(subjects)}
+    exact, allowance, _ = plane_allowance(f"staged vs direct {run_id}", pairs)
+    worst = hold_csvs(f"staged vs direct {run_id}", got, want, exact,
+                      allowance,
+                      lambda a, b: abs(a - b) <= 1e-4 * abs(b) + 1e-12)
     log(f"staged vs direct {run_id}: 14 CSVs, counts "
         f"{'exact' if exact else f'within {allowance}'}, the floats and "
         f"booleans of rows with equal counts at rtol 1e-4 and exact; largest "
         f"count difference {worst}")
-    if misses:
-        raise AssertionError(f"staged vs direct {run_id}: {len(misses)} cells "
-                             f"miss: {misses[:5]}")
     return worst
 
 
@@ -3592,6 +3662,324 @@ def serve_phase(tmp, dataset, checkpoints):
     return by_path, int8_record
 
 
+# the largest difference of an eval plane (ECE plane, uncertainty) of a
+# latency mesh path from the single device's on the same weights: a part's
+# forward may take another conv algorithm than the whole batch's, which
+# moves an f32 plane in its last bits and a bf16 one in bf16's; a part that
+# drew other dropout masks moves the MC mean by sampling noise, far past
+# either bar
+MESH_F32_PLANE_BAR = 1e-5
+MESH_BF16_PLANE_BAR = 1e-3
+# a float CSV cell (ECE, a bin's mean confidence, a minmax bound) of a row
+# whose counts equal the single device's, beyond the largest plane
+# difference: the confidence sums add in another lane order when a subject
+# is split (the sharded eval reads 2.2e-9 relative, the latency paths' ECE
+# 4.8e-11 to 7.5e-10 in smoke run 2 on the H100; PERF.md)
+MESH_FLOAT_BAR = 1e-8
+# the sharded eval's confidence sums against one launch's, relative: the
+# kernel's lanes sum in float32 (check_kernel holds it to the float64
+# plain version at 1e-5)
+SHARDED_CONF_RTOL = 1e-6
+SERVE_POOL_REQUESTS = (4, 2)  # client threads, requests each
+
+
+def mesh_devices():
+    """Two devices for the mesh phase: the machine's first two cards where
+    it has them, else ``cuda:0`` twice, a virtual mesh whose entries share
+    one card and one stream (it measures the split's overhead, not
+    scaling). -> (devices, what they are)."""
+    if torch.cuda.device_count() >= 2:
+        return [torch.device("cuda", i) for i in range(2)], "two cards"
+    return [torch.device("cuda", 0)] * 2, (
+        "virtual: cuda:0 twice (one card, one stream: the split's overhead, "
+        "not scaling)")
+
+
+def reset_peaks(devices):
+    for d in dict.fromkeys(devices):
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def peaks_gb(devices):
+    return {str(d): torch.cuda.max_memory_allocated(d) / 1e9
+            for d in dict.fromkeys(devices)}
+
+
+def csv_texts(out_dir, run_id):
+    """Every CSV of a run, its run id replaced, for a byte comparison."""
+    return {name.replace(run_id, "ID"): open(os.path.join(out_dir, name))
+            .read().replace(run_id, "ID")
+            for name in sorted(os.listdir(out_dir))}
+
+
+def csv_rows(out_dir, run_id):
+    """{file: rows} of every CSV of a run, its run id replaced."""
+    return {name: list(csv.reader(io.StringIO(text)))
+            for name, text in csv_texts(out_dir, run_id).items()}
+
+
+def subject_planes(kept, mesh):
+    """Each subject's eval planes as :func:`run_path` kept them (per
+    device, its slices' planes) -> per subject (ECE plane, prediction,
+    uncertainty), each (Z, H, W) on the host in slice order (a latency
+    mesh's devices hold the rows of its ``Split``), so that a reference
+    run's planes take no room on the card in the runs after it."""
+    from rcu_tpu_torch.parallel.mesh import Split, pad_batch_size_to_mesh
+    out = []
+    for per_device in kept:
+        if len(per_device) == 1:
+            out.append(tuple(p.cpu() for p in per_device[0]))
+            continue
+        split = Split(BRATS[0], pad_batch_size_to_mesh(BATCH, mesh),
+                      mesh.data_devices)
+        joined = []
+        for k in range(3):
+            pieces = []
+            for shard, ranges in zip(per_device, split.ranges):
+                offset = 0
+                for a, b in ranges:
+                    pieces.append((a, shard[k][offset:offset + b - a]))
+                    offset += b - a
+            joined.append(torch.cat([p.cpu() for _, p in
+                                     sorted(pieces, key=lambda x: x[0])]))
+        out.append(tuple(joined))
+    return out
+
+
+def mesh_path(label, dataset, tmp, models, devices, reference, plane_bar,
+              eval_launches, int8_launches=0, **kwargs):
+    """One ``evaluate_subjects`` run (``run_path``'s launch checks) on the
+    mesh phase's devices: prints the ``mesh <label>:`` line with its
+    s/subject, peak GB per device, launches and the ECE/Dice deltas
+    against ``reference`` (out dir, run id, planes), the single device's
+    run of the same weights. Against it every CSV cell is held
+    (:func:`hold_csvs`): counts exact where the eval planes are bitwise
+    equal, else within the voxels near a bin edge or threshold; the
+    floats of rows with equal counts within :data:`MESH_FLOAT_BAR` beyond
+    the planes' largest difference, which must stay within
+    ``plane_bar``. -> (its by_path record, (out dir, run id, planes), the
+    first subject's planes where one device held them)."""
+    run_id = "mesh_" + label.replace(" ", "_")
+    out_dir = os.path.join(tmp, run_id)
+    reset_peaks(devices)
+    kept = []
+    launches, seconds, eces, planes = run_path(
+        dataset, out_dir, models, run_id, int8_launches=int8_launches,
+        eval_launches=eval_launches, keep=kept, **kwargs)
+    kept = subject_planes(kept, kwargs.get("mesh"))
+    n = len(dataset.subjects)
+    peaks = peaks_gb(devices)
+    record = {"launches": launches, "int8_launches": int8_launches,
+              "s_per_subject": seconds / n, "peak_gb": peaks,
+              "first_ece": eces[dataset.subjects[0]]}
+    delta = ""
+    if reference is not None:
+        got, want = ece_dice(out_dir, run_id), ece_dice(*reference[:2])
+        record["ece_delta"] = max(abs(got[s][0] - want[s][0]) for s in want)
+        record["dice_delta"] = max(abs(got[s][1] - want[s][1]) for s in want)
+        pairs = {s: (tuple(p.to(DEVICE).reshape(-1) for p in g),
+                     tuple(p.to(DEVICE).reshape(-1) for p in w))
+                 for s, g, w in zip(dataset.subjects, kept, reference[2])}
+        exact, allowance, largest = plane_allowance(f"mesh {label}", pairs,
+                                                    agree_only=False)
+        record["plane_delta"] = largest
+        if largest > plane_bar:
+            raise AssertionError(f"mesh {label}: an eval plane {largest:.3e} "
+                                 f"from the single device's (bar {plane_bar})")
+        float_bar = MESH_FLOAT_BAR + largest
+        worst = hold_csvs(f"mesh {label}", csv_rows(out_dir, run_id),
+                          csv_rows(*reference[:2]), exact, allowance,
+                          lambda a, b: abs(a - b) <= float_bar)
+        record["count_delta"] = worst
+        delta = (f"; against the single device: eval planes "
+                 f"{'bitwise equal' if exact else f'{largest:.3e} apart'} "
+                 f"(bar {plane_bar}), every CSV cell held: counts "
+                 f"{'exact' if exact else f'within {allowance}'} (largest "
+                 f"difference {worst}), the floats of rows with equal counts "
+                 f"within {float_bar:.3e}; ECE / Dice max delta "
+                 f"{record['ece_delta']:.2e} / {record['dice_delta']:.2e}")
+    log(f"mesh {label}: {n} subjects {BRATS} in {seconds:.2f} s = "
+        f"{seconds / n:.3f} s/subject (CUDA-synced), peak GB per device "
+        f"{peaks}, fused_eval_stats launches {launches}, int8_conv launches "
+        f"{int8_launches}{delta}")
+    return record, (out_dir, run_id, kept), planes
+
+
+def sharded_eval_check(planes, devices):
+    """``parallel.inference.sharded_eval_stats`` on a subject's planes
+    split in two contiguous shards, one per mesh device, against one
+    launch over the whole subject: counts equal, confidence sums within
+    :data:`SHARDED_CONF_RTOL` relative (a lane sums in float32, so a
+    shard's lane sums round apart from the whole subject's); both timed
+    (CUDA events, median of 30)."""
+    from rcu_tpu_torch.parallel.inference import sharded_eval_stats
+    th = DEFAULT_THRESHOLDS
+    shards = [tuple(p.reshape(-1).tensor_split(len(devices))[d].to(dev)
+                    for p in planes) for d, dev in enumerate(devices)]
+    one = evalstats.fused_eval_stats(*planes, th)
+    got = sharded_eval_stats(shards, th)
+    torch.cuda.synchronize()
+    for key, value in one.items():
+        if key == "bins_conf_sum":
+            err = float(((got[key] - value).abs()
+                         / value.abs().clamp_min(1e-300)).max())
+            if err > SHARDED_CONF_RTOL:
+                raise AssertionError(f"sharded eval: conf sums {err:.2e} "
+                                     "relative apart")
+        elif not torch.equal(got[key], value):
+            raise AssertionError(f"sharded eval {key}: {got[key].tolist()} "
+                                 f"!= one launch's {value.tolist()}")
+    single_ms = cuda_ms(lambda: evalstats.fused_eval_stats(*planes, th), 30)
+    sharded_ms = cuda_ms(lambda: sharded_eval_stats(shards, th), 30)
+    log(f"mesh sharded eval: {len(devices)} shards of {planes[0].numel():,} "
+        f"voxels, counts equal to one launch, conf sums within {err:.1e} "
+        f"relative; {sharded_ms:.4f} ms for the {len(devices)} launches and "
+        f"the add against {single_ms:.4f} ms for one launch (CUDA events, "
+        "median of 30)")
+    return {"devices": len(devices), "ms": sharded_ms, "single_ms": single_ms,
+            "conf_sum_rel_err": err}
+
+
+def pooled_service_check(flagship, dataset, devices):
+    """A throughput-mode service (a copy of the model per mesh device, a
+    device checked out per request) answering 4 client threads of 2
+    deterministic f32 scored requests through ``predict_timed``: each
+    answer bitwise the single-device service's serial one, the eval
+    kernel once a request."""
+    from rcu_tpu_torch.eval.direct import foreground_mask
+    from rcu_tpu_torch.parallel import Mesh
+    from rcu_tpu_torch.serve import VolumeInferenceService
+    subjects = dataset.subjects[:2]
+    arrays = {}
+    for s in subjects:
+        target = dataset.read_volume(s, "labels")
+        arrays[s] = {"images": dataset.read_volume(s, "images"),
+                     "target": target,
+                     "mask": foreground_mask(dataset, s, target.shape)}
+    single = VolumeInferenceService(flagship, mc=0, batch_size=BATCH,
+                                    seed=SEED, device=DEVICE)
+    serial = {s: single.predict(**arrays[s]) for s in subjects}
+    del single
+    pooled = VolumeInferenceService(flagship, mc=0, batch_size=BATCH,
+                                    seed=SEED, device=DEVICE,
+                                    mesh=Mesh(devices), subject_parallel=True)
+    threads, each = SERVE_POOL_REQUESTS
+    order = [subjects[(k + i) % 2] for k in range(threads)
+             for i in range(each)]
+
+    def client(k):
+        return [(s, *pooled.predict_timed(**arrays[s]))
+                for s in order[k * each:(k + 1) * each]]
+
+    evalstats.fused_eval_stats.launches = 0
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        answers = [a for r in pool.map(client, range(threads)) for a in r]
+    seconds = time.perf_counter() - t0
+    if evalstats.fused_eval_stats.launches != len(answers):
+        raise AssertionError(
+            f"mesh throughput serve: fused_eval_stats launched "
+            f"{evalstats.fused_eval_stats.launches} times for {len(answers)} "
+            "scored requests")
+    for s, out, _ in answers:
+        same_arrays("mesh throughput", out, serial[s])
+    device_s = float(np.mean([d for _, _, d in answers]))
+    log(f"mesh throughput serve_deterministic: pool of {pooled.pool_size}, "
+        f"{threads} client threads x {each} scored requests in {seconds:.2f} "
+        f"s = {len(answers) / seconds:.3f} requests/s, mean device "
+        f"{device_s:.3f} s a request (CUDA events), every answer bitwise the "
+        "single-device service's")
+    return {"launches": len(answers), "requests": len(answers),
+            "seconds": seconds, "requests_per_s": len(answers) / seconds,
+            "device_s": device_s}
+
+
+def mesh_phase(tmp, dataset, checkpoints):
+    """The mesh phase: the inference paths on a 2-entry mesh
+    (:func:`mesh_devices`) against the single device on the same weights
+    (the staged phase's checkpoints) and subjects: MC20 f32 with no mesh
+    (the reference), on a one-card mesh, in latency mode (the eval kernel
+    once per data device and subject) and in throughput mode (once per
+    subject; the CSVs byte for byte the reference's); MC20 in bf16 + fast
+    + int8 single and in latency mode (the int8 conv 20 a forward and
+    device); the 10-member ensemble in bf16 + fast + fold single and on a
+    2 x 1 model x data mesh; the sharded eval on the reference's planes;
+    a throughput-mode service. Each mesh path's eval planes and every CSV
+    cell are held against its single device's (:func:`mesh_path`).
+    Returns ({mesh path: the eval kernel's
+    by_path record}, {int8 path: the int8 kernel's record}, the sharded
+    eval's record)."""
+    from rcu_tpu_torch.eval.direct import load_model
+    from rcu_tpu_torch.parallel import Mesh, make_mesh
+    from rcu_tpu_torch.parallel.ensemble import make_ensemble_mesh
+    t_phase = time.perf_counter()
+    devices, what = mesh_devices()
+    log(f"mesh devices: {[str(d) for d in devices]} ({what})")
+    n = len(dataset.subjects)
+    by_path, int8_paths = {}, {}
+    flagship = load_model(checkpoints["flagship"], "best", DEVICE)
+
+    def path(label, models, reference, plane_bar, eval_launches, **kwargs):
+        record, ref, planes = mesh_path(label, dataset, tmp, models, devices,
+                                        reference, plane_bar, eval_launches,
+                                        **kwargs)
+        by_path["mesh_" + label.replace(" ", "_")] = record
+        return record, ref, planes
+
+    # MC20 f32: the single device, one card as a mesh, latency, throughput
+    mc = dict(mc=MC_STEPS)
+    single, ref, planes = path("none mc", flagship, None, 0.0, n, **mc)
+    one, _, _ = path("one_card mc", flagship, ref, MESH_F32_PLANE_BAR, n,
+                     mesh=make_mesh(devices=devices[:1]), **mc)
+    path("latency mc", flagship, ref, MESH_F32_PLANE_BAR, 2 * n,
+         mesh=Mesh(devices), **mc)
+    _, out, _ = path("throughput mc", flagship, ref, 0.0, n,
+                     mesh=Mesh(devices), subject_parallel=True, **mc)
+    if csv_texts(*out[:2]) != csv_texts(*ref[:2]):
+        raise AssertionError("mesh throughput mc: the CSVs are not the "
+                             "single device's byte for byte")
+    log(f"mesh throughput mc: the CSVs byte for byte the single device's; "
+        f"one card as a mesh {one['s_per_subject']:.3f} s/subject against "
+        f"{single['s_per_subject']:.3f} with no mesh")
+    sharded = sharded_eval_check(planes, devices)
+    del planes
+
+    # MC20 bf16 + fast + int8: one calibration, then the single device and
+    # the latency mesh (a forward of each part on each device)
+    quant = _calibrated_quant_model(
+        load_model(checkpoints["flagship"], "best", DEVICE, **BF16_FAST),
+        dataset, BATCH, SEED, skip_levels=INT8_SKIP)
+    launches = int8_sites_per_forward() * -(-BRATS[0] // BATCH) * n
+    _, int8_ref, _ = path("none mc_bf16_fast_int8", quant, None, 0.0, n,
+                          int8_launches=launches, **mc)
+    path("latency mc_bf16_fast_int8", quant, int8_ref, MESH_BF16_PLANE_BAR,
+         2 * n,
+         int8_launches=2 * launches, mesh=Mesh(devices), **mc)
+    for label in ("mesh_none_mc_bf16_fast_int8",
+                  "mesh_latency_mc_bf16_fast_int8"):
+        record = by_path[label]
+        int8_paths[label] = {"launches": record["int8_launches"],
+                             "s_per_subject": record["s_per_subject"],
+                             "peak_gb": record["peak_gb"]}
+    del quant
+
+    # the 10-member ensemble, bf16 + fast + fold: members over the model
+    # axis, one data device
+    members = [load_model(d, "best", DEVICE, **BF16_FAST_FOLD)
+               for d in checkpoints["ensemble"]]
+    _, ens_ref, _ = path("none ensemble_bf16_fast_fold", members, None, 0.0,
+                         n, strategy="ensemble")
+    path("latency ensemble_bf16_fast_fold_model2x1", members, ens_ref,
+         MESH_BF16_PLANE_BAR, n, strategy="ensemble",
+         mesh=make_ensemble_mesh(2, devices))
+    del members
+
+    by_path["mesh_throughput_serve_deterministic"] = pooled_service_check(
+        checkpoints["flagship"], dataset, devices)
+    log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return by_path, int8_paths, sharded
+
+
 def main():
     t_start = time.perf_counter()
     hbm_rate = device_phase()
@@ -3633,16 +4021,22 @@ def main():
         staged_paths, staged_err = staged_phase(tmp, dataset, checkpoints,
                                                 hbm_rate, ptxas)
         serve_paths, serve_int8 = serve_phase(tmp, dataset, checkpoints)
+        mesh_paths, mesh_int8, sharded = mesh_phase(tmp, dataset,
+                                                    checkpoints)
     record["by_path"] = {"mc": {"launches": record["launches"]}, **by_path,
                          **variants, **int8_paths, **isic_paths,
-                         **train_paths, **staged_paths, **serve_paths}
+                         **train_paths, **staged_paths, **serve_paths,
+                         **mesh_paths}
+    record["sharded"] = sharded
     record["launches"] = sum(p["launches"] for p in record["by_path"].values())
     record["max_abs_err"] = max(record["max_abs_err"], err, variant_err,
                                 isic_err, staged_err)
     record["image_axis"] = axis
     int8_record["by_path"]["isic_mc_bf16_fast_int8"] = isic_int8
     int8_record["by_path"]["serve_mc_bf16_fast_int8"] = serve_int8
-    int8_record["launches"] += isic_int8["launches"] + serve_int8["launches"]
+    int8_record["by_path"].update(mesh_int8)
+    int8_record["launches"] += isic_int8["launches"] + serve_int8["launches"] \
+        + sum(p["launches"] for p in mesh_int8.values())
     log(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"training": train_runs,
                     "card_vs_cpu_grad_err": train_err}))

@@ -1,7 +1,8 @@
 """Shared plumbing of the train and test entry points (``bin/_cli.py``
 counterpart): ``-config_file`` or ``-config_id`` (a default yaml of
-``config/``), ``-device`` (default cuda) and ``-devices`` (more than one
-raises until the multi-device slice)."""
+``config/``), ``-device`` (default cuda) and ``-devices`` (a test runs on
+a mesh of that many devices; training on more than one raises until its
+slice)."""
 import argparse
 import logging
 import os
@@ -22,10 +23,23 @@ def resolve_config(config_file, config_id, default_map: dict, default_id: str):
 
 
 def check_devices(devices):
+    """The train entry points' refusal of ``-devices`` above 1."""
     if devices is not None and devices > 1:
         raise NotImplementedError(
-            "-devices > 1 is not ported to rcu_tpu_torch yet (ROADMAP.md "
-            "queue 1, item 5: multi-device)")
+            "-devices > 1 trains on a mesh, which is not ported to "
+            "rcu_tpu_torch yet (ROADMAP.md queue 1, item 1b: multi-device "
+            "training)")
+
+
+def mesh_from_devices(devices, device=None):
+    """``-devices N`` -> a 1-D data mesh of N devices of ``-device``'s
+    kind (``parallel.make_mesh``: cuda takes cuda:0..N-1 and raises where
+    there are fewer; cpu is the virtual mesh of N CPU entries); None or 1
+    -> no mesh."""
+    if not devices or devices <= 1:
+        return None
+    from rcu_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(n_devices=devices, device=device or "cuda")
 
 
 def run_main(main_fn, description: str):
@@ -37,8 +51,8 @@ def run_main(main_fn, description: str):
     parser.add_argument("-device", type=str, default=None,
                         help="torch device (default cuda)")
     parser.add_argument("-devices", type=int, nargs="?", default=None,
-                        help="devices to train on (one until the "
-                             "multi-device slice)")
+                        help="devices to run on: a test runs on a mesh "
+                             "of N (training: one until its slice)")
     args = parser.parse_args()
     logging.basicConfig(level=logging.INFO)
     try:

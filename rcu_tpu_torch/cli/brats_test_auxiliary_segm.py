@@ -2,6 +2,10 @@
 to its default yaml and runs ``rcu_tpu_torch.strategies.test_auxiliary_segm``.
 
   python -m rcu_tpu_torch.cli.brats_test_auxiliary_segm [-config_file F | -config_id ID] [-device cpu]
+      [-devices N]
+
+``-devices N`` runs on a mesh of N cards (with ``-device cpu``, N
+entries of the CPU: the virtual mesh).
 """
 from rcu_tpu_torch.cli import _cli
 
@@ -9,12 +13,12 @@ DEFAULT_CONFIGS = {'auxiliary_segm': 'test_brats_auxiliary_segm.yaml'}
 
 
 def main(config_file, config_id=None, device=None, devices=None):
-    _cli.check_devices(devices)
+    mesh = _cli.mesh_from_devices(devices, device)
     config_file = _cli.resolve_config(config_file, config_id, DEFAULT_CONFIGS,
                                       'auxiliary_segm')
     from rcu_tpu_torch import strategies
     config = _cli.load_test_config(config_file)
-    return strategies.test_auxiliary_segm(config, device=device)
+    return strategies.test_auxiliary_segm(config, device=device, mesh=mesh)
 
 
 def cli():

@@ -22,14 +22,18 @@ calibration; mc, deterministic and ensemble) and ``-quantize_skip N``
 (with ``-quantize``: the N finest resolution levels stay in the compute
 dtype; default 1). ``-eval_tree`` writes the staged eval engine's tree
 (``calibration/``, ``ece[_foreground]/``, ``uncertainty/``, ``minmax/``)
-in place of the flat layout.
+in place of the flat layout. ``-devices N`` runs on a mesh of N devices
+of ``-device``'s kind (cuda: cuda:0..N-1; cpu: the virtual mesh):
+each volume's batches split over them (latency), or with
+``-throughput`` whole subjects round-robin onto them; the CSVs are the
+single device's.
 
 Usage:
   python -m rcu_tpu_torch.cli.eval_direct -config_file config/test_brats_baseline_mc.yaml \
       [-run_id baseline_mc] [-out_dir out/eval/brats/direct] [-mc 20] \
       [-strategy ensemble] [-unmasked] [-device cpu] \
       [-dtype bfloat16] [-fast_decoder] [-fold_bn] [-quantize [-quantize_skip 1]] \
-      [-eval_tree]
+      [-eval_tree] [-devices N [-throughput]]
 """
 import argparse
 import logging
@@ -37,11 +41,16 @@ import os
 
 
 def main(config_file, run_id=None, out_dir=None, mc=None, unmasked=False,
-         device=None, strategy=None, eval_tree=False, dtype=None,
-         fast_decoder=False, fold_bn=False, quantize=False,
-         quantize_skip=None):
+         device=None, strategy=None, eval_tree=False, devices=None,
+         throughput=False, dtype=None, fast_decoder=False, fold_bn=False,
+         quantize=False, quantize_skip=None):
+    from rcu_tpu_torch.cli import _cli
     from rcu_tpu_torch.engine import config as cfg_lib
     from rcu_tpu_torch.eval.direct import evaluate_direct
+
+    mesh = _cli.mesh_from_devices(devices, device)
+    if throughput and mesh is None:
+        raise ValueError("-throughput needs -devices N > 1")
 
     config = cfg_lib.load(config_file, expected_type="test-config")
     run_id = run_id or config.test_name or "baseline"
@@ -53,7 +62,8 @@ def main(config_file, run_id=None, out_dir=None, mc=None, unmasked=False,
                            fast_decoder=fast_decoder, fold_bn=fold_bn,
                            quantize=quantize,
                            quantize_skip_levels=quantize_skip,
-                           layout="eval_tree" if eval_tree else "flat")
+                           layout="eval_tree" if eval_tree else "flat",
+                           mesh=mesh, subject_parallel=throughput)
     for subject, ece in eces.items():
         print(f"{subject}: ece={ece:.5f}")
     print(f"wrote eval CSVs to {out_dir}")
@@ -97,6 +107,14 @@ def cli():
     parser.add_argument("-quantize_skip", type=int, default=None,
                         help="with -quantize: keep the N finest resolution "
                              "levels in the compute dtype (default 1)")
+    parser.add_argument("-devices", type=int, default=None,
+                        help="run on a mesh of N devices of -device's kind "
+                             "(default: one device)")
+    parser.add_argument("-throughput", action="store_true",
+                        help="with -devices N: whole subjects round-robin "
+                             "across the devices (fastest testset wall "
+                             "clock) instead of splitting each volume "
+                             "(fastest single answer)")
     parser.add_argument("-eval_tree", action="store_true",
                         help="write the staged eval engine's directory "
                              "tree instead of the flat layout")
@@ -105,8 +123,9 @@ def cli():
         parser.error("-quantize_skip only applies with -quantize")
     logging.basicConfig(level=logging.INFO)
     main(args.config_file, args.run_id, args.out_dir, args.mc, args.unmasked,
-         args.device, args.strategy, args.eval_tree, args.dtype,
-         args.fast_decoder, args.fold_bn, args.quantize, args.quantize_skip)
+         args.device, args.strategy, args.eval_tree, args.devices,
+         args.throughput, args.dtype, args.fast_decoder, args.fold_bn,
+         args.quantize, args.quantize_skip)
 
 
 if __name__ == "__main__":

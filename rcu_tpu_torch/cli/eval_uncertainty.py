@@ -5,12 +5,14 @@ families (``minmax/``, ``ece[_foreground]/``, ``calibration/``,
 
 The same flags and defaults: ``--ds {brats,isic} --ids <strategy ids>
 --act {minmax,ece_dice,calib,bnf_ue}``; ``--device`` (default cuda; cpu
-runs the eval kernel's plain version) and ``--devices`` (more than one
-raises until the multi-device slice). A subject's files are read once
-for every pass; one thread reads the next subject while the passes run.
+runs the eval kernel's plain version) and ``--devices N`` (each subject's
+reductions split over a mesh of N devices of ``--device``'s kind, one
+kernel launch each: ``eval.actions.MetricPass``). A subject's files are
+read once for every pass; one thread reads the next subject while the
+passes run.
 
   python -m rcu_tpu_torch.cli.eval_uncertainty --ds brats --ids baseline \\
-      --act minmax ece_dice calib bnf_ue [--device cpu]
+      --act minmax ece_dice calib bnf_ue [--device cpu] [--devices N]
 """
 import argparse
 import concurrent.futures
@@ -33,7 +35,7 @@ def main(dataset, to_eval, action_names, n_devices=None, device=None) -> dict:
 
     if dataset not in ("brats", "isic"):
         raise ValueError('chose "brats" or "isic" as dataset')
-    _cli.check_devices(n_devices)
+    mesh = _cli.mesh_from_devices(n_devices, device)
     if dataset == "brats":
         eval_data_list = evdata.get_brats_eval_data(to_eval)
         ece_details, base_dir = "foreground", dirs.BRATS_EVAL_DIR
@@ -43,7 +45,7 @@ def main(dataset, to_eval, action_names, n_devices=None, device=None) -> dict:
 
     min_max_dir = os.path.join(base_dir, dirs.MINMAX_NAME)
     actions = act_lib.get_actions(action_names, min_max_dir, base_dir,
-                                  ece_details, device=device)
+                                  ece_details, mesh=mesh, device=device)
     timings = {}
     for entry in eval_data_list:
         for action in actions:
@@ -94,8 +96,8 @@ def cli():
     parser.add_argument("--act", type=str, nargs="*",
                         help="the names of the evaluation configuration")
     parser.add_argument("--devices", type=int, default=None,
-                        help="devices to shard the eval over (one until the "
-                             "multi-device slice)")
+                        help="shard each subject's eval reductions over "
+                             "a mesh of N devices (default: one device)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default cuda)")
     args = parser.parse_args()

@@ -11,11 +11,13 @@ requests carry a ``baseline`` volume).
       [-port 8475] [-prewarm 155x240x240] [-member DIR ...]
       [-is_log_sigma | -no_log_sigma] [-segm_model_dir DIR | -aux_segm]
       [-dtype bfloat16] [-fast_decoder] [-fold_bn] [-quantize]
-      [-device cuda|cpu]
+      [-device cuda|cpu] [-devices N [-throughput]]
 
-Runs on the card unless ``-device`` names another device. ``-devices``
-above 1 and ``-throughput`` raise until the multi-device slice (ROADMAP.md
-queue 1, item 5). ``-prewarm`` sends zero volumes through the service
+Runs on the card unless ``-device`` names another device. ``-devices N``
+serves on a mesh of N devices of ``-device``'s kind (cpu: the virtual
+mesh): each request split over them (latency), or with ``-throughput``
+a model copy per device and concurrent requests on different devices.
+``-prewarm`` sends zero volumes through the service
 before the port binds: eager PyTorch compiles no per-shape program, but
 the CUDA context, cuDNN's handles and the allocator's pool are set up
 before the first client waits on them. It is refused with ``-quantize``:
@@ -44,11 +46,9 @@ def main(model_dir, test_at="best", mc=20, batch_size=32, devices=None,
 
     from rcu_tpu_torch.serve import VolumeInferenceService, make_http_server
 
-    _cli.check_devices(devices)
-    if throughput:
-        raise NotImplementedError(
-            "-throughput is not ported to rcu_tpu_torch yet (ROADMAP.md "
-            "queue 1, item 5: multi-device)")
+    mesh = _cli.mesh_from_devices(devices, device)
+    if throughput and mesh is None:
+        raise ValueError("-throughput needs -devices N > 1")
     if prewarm and quantize:
         raise ValueError(
             "-prewarm with -quantize would calibrate int8 on zero volumes "
@@ -62,20 +62,23 @@ def main(model_dir, test_at="best", mc=20, batch_size=32, devices=None,
                                      aux_segm=aux_segm,
                                      fast_decoder=fast_decoder,
                                      fold_bn=fold_bn, quantize=quantize,
-                                     device=device)
+                                     device=device, mesh=mesh,
+                                     subject_parallel=throughput)
     if prewarm:
         for spec in prewarm.split(","):
             z, h, w = (int(v) for v in spec.lower().split("x"))
             logging.info("prewarming %dx%dx%d (unscored request)...", z, h, w)
             kw = {"baseline": np.zeros((z, h, w), np.uint8)} \
                 if service.strategy == "auxiliary_segm" else {}
-            service.predict(np.zeros((z, h, w, service.in_channels),
-                                     np.float32), **kw)
+            # one request per pool device warms every copy of the model
+            for _ in range(service.pool_size):
+                service.predict(np.zeros((z, h, w, service.in_channels),
+                                         np.float32), **kw)
         logging.info("prewarmed shapes: %s", service.compiled_shapes())
     server = make_http_server(service, host, port)
     logging.info("serving %s [%s] (mc=%d, batch=%d) on %s at http://%s:%d",
                  model_dir, service.strategy, service.mc, service.batch_size,
-                 service.device, host, port)
+                 mesh or service.device, host, port)
     try:
         server.serve_forever()
     finally:
@@ -90,8 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-mc", type=int, default=20)
     parser.add_argument("-batch_size", type=int, default=32)
     parser.add_argument("-devices", type=int, default=None,
-                        help="devices to serve on (one until the "
-                             "multi-device slice)")
+                        help="serve on a mesh of N devices of -device's "
+                             "kind (default: one device)")
     parser.add_argument("-host", type=str, default="0.0.0.0")
     parser.add_argument("-port", type=int, default=8475)
     parser.add_argument("-prewarm", type=str, default=None,
@@ -127,8 +130,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "only): calibrates on the first request's "
                              "centre slices")
     parser.add_argument("-throughput", action="store_true",
-                        help="a model replica per device (raises until the "
-                             "multi-device slice)")
+                        help="with -devices N: a model copy per device "
+                             "and concurrent requests on different devices "
+                             "instead of splitting each request")
     parser.add_argument("-device", type=str, default=None,
                         help="torch device (default cuda)")
     return parser

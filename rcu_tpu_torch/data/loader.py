@@ -164,17 +164,19 @@ def _host_tensors(batch: dict, pin: bool) -> dict:
     return out
 
 
-def prefetch(iterator, device, size: int = 2):
+def prefetch(iterator, device, size: int = 2, pin: bool = None):
     """Yield the batches of ``iterator`` as tensors on ``device``.
 
     A thread reads ahead up to ``size`` batches and turns each into torch
-    tensors, pinned when ``device`` is a card (it touches no CUDA stream);
+    tensors, pinned when ``device`` is a card or ``pin`` asks for it (host
+    batches that a mesh's devices copy their parts of; it touches no CUDA
+    stream);
     this thread copies each batch with ``non_blocking`` and keeps the last
     ``size`` host batches referenced, so that no pinned buffer is freed
     under a copy in flight. An exception of the reader is raised here;
     leaving the loop early stops the reader."""
     device = torch.device(device)
-    pin = device.type == "cuda"
+    pin = device.type == "cuda" if pin is None else pin
     q: "queue.Queue" = queue.Queue(maxsize=size)
     end = object()
     stop = threading.Event()

@@ -21,11 +21,15 @@ import torch
 from torch.nn import functional as F
 
 from rcu_tpu_torch.ops import losses, metrics
+from rcu_tpu_torch.parallel.ensemble import (ensemble_summary, member_sums,
+                                             shard_ensemble_predict_fn)
+from rcu_tpu_torch.parallel.mesh import mesh_predict, replicate
 
-# the JAX package's remat policies and its mesh wait for the multi-device
-# slice (ROADMAP.md, queue 1 item 5); remat is a measured negative there
+# training on a mesh and the JAX package's remat policies wait for their
+# slices (ROADMAP.md queue 1 item 1b and queue 1 item 4); remat is a
+# measured negative there
 _LATER = ("{} is not ported to rcu_tpu_torch yet (ROADMAP.md queue 1, "
-          "item 5: multi-device and the remat policies)")
+          "item 1b: training on a mesh; item 4: the remat policies)")
 
 
 def to_model_layout(images, model):
@@ -74,17 +78,6 @@ def multi_prediction_summary(multi_probabilities):
     probabilities = torch.mean(multi_probabilities, dim=0)
     return {"probabilities": probabilities,
             "entropy": metrics.entropy(probabilities, dim=-1)}
-
-
-def ensemble_probabilities(members, images):
-    """The members' mean softmax (B, H, W, classes): the members run one
-    after another (the JAX package vmaps them) and their probabilities add
-    in member order before the division by K."""
-    total = None
-    for member in members:
-        probs = predict(member, images)
-        total = probs if total is None else total + probs
-    return total / len(members)
 
 
 def aleatoric_forward(model, images, is_log_sigma: bool):
@@ -231,82 +224,115 @@ def make_auxiliary_train_step(segm_model=None, remat: str = None, mesh=None):
     return train_step
 
 
-def batch_generators(rng, mc_steps: int, device):
+class ShardGenerators(list):
+    """The generators of a forward on rows ``start:stop`` of a batch of
+    ``total`` rows (``rows``), as a device of a mesh runs its part:
+    dropout draws the whole batch's masks and keeps these rows, so a
+    part's masks are bitwise those rows of the whole batch's, whatever
+    the split (a shorter draw would not be: on a card the values depend
+    on the draw's shape)."""
+
+    def __init__(self, generators, rows):
+        super().__init__(generators)
+        self.rows = rows
+
+
+def batch_generators(rng, mc_steps: int, device, rows=None):
     """One generator per MC sample of the batch that ``rng`` (a tuple of
     ints, e.g. ``(seed, batch index)``) names: sample ``t``'s from
-    ``(*rng, t)``, the port's analogue of ``split(fold_in(key, i), T)``."""
-    return [seeded_generator((*rng, t), device) for t in range(mc_steps)]
+    ``(*rng, t)``, the port's analogue of ``split(fold_in(key, i), T)``.
+    ``rows=(start, stop, total)``: for a part of the batch on a mesh
+    device (:class:`ShardGenerators`); the same seeds, so the
+    stream does not depend on the mesh."""
+    gens = [seeded_generator((*rng, t), device) for t in range(mc_steps)]
+    return gens if rows is None else ShardGenerators(gens, rows)
 
 
-def make_mc_predict_fn(mc_steps: int):
+def make_mc_predict_fn(mc_steps: int, mesh=None):
     """The MC protocol of a batch: ``predict(model, batch, rng)`` -> the
     mean probabilities and their entropy over ``mc_steps`` dropout
     forwards (:func:`mc_forward`, generators :func:`batch_generators` of
-    ``rng``), and the weight-scaling forward's ``ws_probabilities``."""
-    def predict_fn(model, batch, rng):
+    ``rng``), and the weight-scaling forward's ``ws_probabilities``. On a
+    ``mesh`` (``parallel.mesh.mesh_predict``) a part draws its rows of the
+    whole batch's masks."""
+    def predict_fn(model, batch, rows, rng):
         images = batch["images"]
         out = multi_prediction_summary(mc_forward(
-            model, images, batch_generators(rng, mc_steps, images.device)))
+            model, images,
+            batch_generators(rng, mc_steps, images.device, rows)))
         out["ws_probabilities"] = predict(model, images)
         return out
-    return predict_fn
+    return mesh_predict(predict_fn, mesh)
 
 
-def make_aleatoric_predict_fn(is_log_sigma: bool):
+def make_aleatoric_predict_fn(is_log_sigma: bool, mesh=None):
     """``predict(model, batch)`` -> softmax ``probabilities``, the per-class
     ``sigma_all`` and the predicted class's ``sigma``
     (:func:`aleatoric_forward`)."""
-    def predict_fn(model, batch):
+    def predict_fn(model, batch, rows):
         probabilities, sigma, _, predicted_sigma = aleatoric_forward(
             model, batch["images"], is_log_sigma)
         return {"probabilities": probabilities, "sigma_all": sigma,
                 "sigma": predicted_sigma}
-    return predict_fn
+    return mesh_predict(predict_fn, mesh)
 
 
-def make_ensemble_predict_fn(members):
+def make_ensemble_predict_fn(members, mesh=None):
     """The members' mean softmax and its entropy: ``predict(model, batch)``
-    (``model`` unused: the members carry their weights)."""
+    (``model`` unused: the members carry their weights), their softmax
+    added in member order (``parallel.ensemble.member_sums``) before the
+    division by K. On a mesh the members shard over its model axis
+    (``parallel.ensemble.shard_ensemble_predict_fn``); on a 1-D mesh each
+    data device holds every member."""
+    if mesh is not None:
+        return shard_ensemble_predict_fn(members, mesh)
+    members = list(members)
+
     def predict_fn(model, batch):
-        probabilities = ensemble_probabilities(members, batch["images"])
-        return {"probabilities": probabilities,
-                "entropy": metrics.entropy(probabilities, dim=-1)}
+        return ensemble_summary(member_sums([members], batch["images"],
+                                            predict), len(members))
     return predict_fn
 
 
-def make_predict_fn():
+def make_predict_fn(mesh=None):
     """Deterministic softmax forward of a batch: ``predict(model, batch)``
     -> {probabilities}."""
-    def predict_fn(model, batch):
+    def predict_fn(model, batch, rows):
         return {"probabilities": predict(model, batch["images"])}
-    return predict_fn
+    return mesh_predict(predict_fn, mesh)
 
 
-def make_auxiliary_feat_predict_fn(segm_model):
+def make_auxiliary_feat_predict_fn(segm_model, mesh=None):
     """The frozen segmenter and the PostNet on its features:
     ``predict(post_model, batch)`` -> the PostNet's softmax
     (``probabilities``) and foreground column (``confidence``), the
     segmenter's softmax (``segm_probabilities``) and its argmax
-    (``net_predictions``)."""
-    def predict_fn(post_model, batch):
-        segm_out = segm_model(to_model_layout(batch["images"], segm_model))
+    (``net_predictions``). On a mesh the segmenter is replicated here,
+    and ``post_model`` is the PostNet's replicas."""
+    segmenters = {} if mesh is None else dict(zip(
+        mesh.data_devices, replicate(segm_model, mesh.data_devices)))
+
+    def predict_fn(post_model, batch, rows):
+        images = batch["images"]
+        segmenter = segmenters.get(images.device, segm_model)
+        segm_out = segmenter(to_model_layout(images, segmenter))
         segm_probabilities = torch.softmax(segm_out.logits, dim=1)
         confidence = torch.softmax(post_model(segm_out.features).logits, dim=1)
         return {"probabilities": confidence.permute(0, 2, 3, 1),
                 "net_predictions": torch.argmax(segm_probabilities, dim=1),
                 "segm_probabilities": segm_probabilities.permute(0, 2, 3, 1),
                 "confidence": confidence[:, 1]}
-    return predict_fn
+    return mesh_predict(predict_fn, mesh)
 
 
-def make_auxiliary_segm_predict_fn():
+def make_auxiliary_segm_predict_fn(mesh=None):
     """The error net over the images and the baseline prediction:
     ``predict(model, batch)`` -> {probabilities, confidence,
     baseline_prediction}."""
-    def predict_fn(model, batch):
+    def predict_fn(model, batch, rows):
         _, baseline, inputs = _aux_segm_inputs(batch)
         confidence = predict(model, inputs)
         return {"probabilities": confidence,
                 "confidence": confidence[..., 1],
                 "baseline_prediction": batch["labels"][..., 1]}
-    return predict_fn
+    return mesh_predict(predict_fn, mesh)

@@ -39,6 +39,7 @@ from rcu_tpu_torch.eval.device import Fetch, full_float32
 from rcu_tpu_torch.eval.direct import (_primary_test_at, load_model,
                                        resolve_device)
 from rcu_tpu_torch.ops import metrics as metrics_lib
+from rcu_tpu_torch.parallel.mesh import pad_batch_size_to_mesh, replicate
 from rcu_tpu_torch.utils import ids as ids_lib
 from rcu_tpu_torch.utils import logs as logs_lib
 from rcu_tpu_torch.utils.writerpool import WriterPool
@@ -101,7 +102,15 @@ class TestLoop:
     epoch 0 is an epoch). ``external_state``: ``predict_fn`` carries its
     models (the ensemble), and no model is loaded. ``eval_subject_fn``
     gives a subject's ``metrics.csv`` row, ``artifact_fn`` writes its
-    artifacts. ``mesh`` raises ``NotImplementedError``."""
+    artifacts.
+
+    ``mesh`` (a ``parallel.Mesh``): the batch size rounds up to its data
+    axis, the model is replicated on the data devices
+    (``parallel.replicate``; ``model`` is then the list of copies that a
+    mesh predict function takes, ``steps.make_*predict_fn(mesh=)``), the
+    loader's batches stay on the host and each splits over the devices,
+    and the outputs come back joined in batch order: the artifacts are
+    the single device's."""
     __test__ = False  # not a pytest class
 
     def __init__(self, config: cfg_lib.TestConfiguration, predict_fn=None,
@@ -110,10 +119,6 @@ class TestLoop:
                  mesh=None, needs_rng: bool = False,
                  symlink_inputs: bool = False, external_state: bool = False,
                  run_dir_base: str = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "testing on a mesh is not ported to rcu_tpu_torch yet "
-                "(ROADMAP.md queue 1, item 5: multi-device)")
         if model is None:
             if external_state and predict_fn is None:
                 raise ValueError("external_state without a model requires an "
@@ -122,7 +127,9 @@ class TestLoop:
                 raise ValueError("config.model_dir or an explicit model is "
                                  "required")
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.devices[0])
         self.needs_rng = needs_rng
         self.symlink_inputs = symlink_inputs
         self.entries = tuple(entries)
@@ -130,7 +137,7 @@ class TestLoop:
         self.artifact_fn = artifact_fn or default_artifact_fn
         self.external_state = external_state
         self.model = model
-        self.predict_fn = predict_fn or steps_lib.make_predict_fn()
+        self.predict_fn = predict_fn or steps_lib.make_predict_fn(mesh)
 
         test_dir = config.test_dir
         if not test_dir and config.model_dir:
@@ -175,6 +182,8 @@ class TestLoop:
                                     _primary_test_at(self.config), self.device)
         if self.model is not None:
             self.model.eval()
+            if self.mesh is not None:
+                self.model = replicate(self.model, self.mesh.data_devices)
 
     def run(self):
         logs_lib.setup_logging(self.run_dir)
@@ -183,8 +192,12 @@ class TestLoop:
         subjects = None
         if cfg.split:
             _, _, subjects = load_split(cfg.split, cfg.others.get("split_k"))
+        batch_size = cfg.test_data.batch_size
+        if self.mesh is not None:
+            batch_size = pad_batch_size_to_mesh(batch_size, self.mesh)
         self.test_data = databuild.build_data(
             cfg.test_data, subjects=subjects, seed=cfg.seed,
+            batch_size=batch_size,
             prediction_dir=cfg.others.get("prediction_dir"))
         dataset = self.test_data.dataset
         subject_results = []
@@ -206,8 +219,12 @@ class TestLoop:
                                         self.entries)
         nb_batches = self.test_data.nb_batches
         pending = None  # the last batch's outputs, on their way to the host
+        # on a mesh the batches stay on the host (pinned where the mesh
+        # holds a card): the predict function copies each device its part
+        device, pin = (self.device, None) if self.mesh is None else \
+            ("cpu", self.device.type == "cuda")
         for i, batch in enumerate(prefetch(iter(self.test_data.loader),
-                                           self.device)):
+                                           device, pin=pin)):
             args = (self.model, batch) + \
                 (((self.config.seed, i),) if self.needs_rng else ())
             outputs = self.predict_fn(*args)

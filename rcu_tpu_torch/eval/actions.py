@@ -8,6 +8,9 @@ the pass's device as tensors; preparation is torch ops there, and each of
 the ``ece_dice``, ``calib`` and ``bnf_ue`` passes is one launch of the
 hand-written eval kernel a subject (``eval.kernels``; all 11 thresholds
 of ``bnf_ue`` in that one launch), ``minmax`` one ``torch.aminmax``.
+On a mesh (``get_actions(mesh=)``) each of those is one launch (one
+``aminmax``) per data device on its share of the voxels, the sums added
+on the first device (``parallel.inference.ShardedSubjectEval``).
 
 The four-step protocol (``setup_eval``, ``start_eval``, ``eval_subject``,
 ``finish_eval``) and the CSV names, columns and result-id suffixes are the
@@ -25,12 +28,9 @@ from rcu_tpu_torch.eval import analysis, hooks as ev_hooks, kernels
 from rcu_tpu_torch.eval.direct import resolve_device
 from rcu_tpu_torch.eval.evaldata import EvalData
 from rcu_tpu_torch.eval.hooks import CORRECTION_KEYS, csv_value
+from rcu_tpu_torch.parallel.inference import ShardedSubjectEval
 
 ALL_THRESHOLDS = (0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95)
-
-_MESH = ("{} is not ported to rcu_tpu_torch yet (ROADMAP.md queue 1, "
-         "item 5: multi-device)")
-
 
 def _on(device, sample: dict) -> dict:
     """The Loader's numpy arrays as tensors on ``device``; other values
@@ -43,11 +43,18 @@ class MetricPass:
     """A configurable eval pass. ``configure(pass_, eval_data)`` is called
     once per run (when the run's confidence entry and result id are known)
     and sets ``id_``, ``load_spec``, ``prepare``, ``sinks`` and
-    ``measure`` (the prepared tensors -> one row dict per sink)."""
+    ``measure`` (the prepared tensors -> one row dict per sink).
 
-    def __init__(self, configure, device=None):
+    ``kern`` is the reductions' suite: ``eval.kernels`` on ``device``, or
+    with a ``mesh`` ``parallel.inference.ShardedSubjectEval`` (the
+    subject prepared on the mesh's first device, its voxels split over
+    the data devices, one kernel launch each)."""
+
+    def __init__(self, configure, device=None, mesh=None):
         self._configure = configure
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.devices[0])
+        self.kern = kernels if mesh is None else ShardedSubjectEval(mesh)
         self.id_ = ""
         self.load_spec = {}
         self.prepare = None
@@ -85,7 +92,7 @@ def _host(out: dict) -> dict:
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
-def minmax_pass(min_max_dir: str, device=None) -> MetricPass:
+def minmax_pass(min_max_dir: str, device=None, mesh=None) -> MetricPass:
     """Min and max of the run's confidence entry; its summary CSV is what
     every ``global`` rescale pass reads."""
     os.makedirs(min_max_dir, exist_ok=True)
@@ -100,11 +107,11 @@ def minmax_pass(min_max_dir: str, device=None) -> MetricPass:
             confidence_entry=eval_data.confidence_entry),)
 
         def measure(sample):
-            out = _host(kernels.min_max(sample["probabilities"]))
+            out = _host(p.kern.min_max(sample["probabilities"]))
             return [{"min": float(out["min"]), "max": float(out["max"])}]
         p.measure = measure
 
-    return MetricPass(configure, device)
+    return MetricPass(configure, device, mesh)
 
 
 def _masked(details: str) -> bool:
@@ -113,7 +120,7 @@ def _masked(details: str) -> bool:
 
 def ece_pass(base_dir: str, details: str, rescale_confidence="subject",
              rescale_sigma="subject", min_max_dir: str = None,
-             device=None) -> MetricPass:
+             device=None, mesh=None) -> MetricPass:
     """ECE (on the t2 foreground for BraTS), Dice and confusion counts."""
     masked = _masked(details)
     out_dir = os.path.join(
@@ -131,18 +138,19 @@ def ece_pass(base_dir: str, details: str, rescale_confidence="subject",
             entries=columns),)
 
         def measure(sample):
-            out = _host(kernels.ece_dice_confusion(
+            out = _host(p.kern.ece_dice_confusion(
                 sample["probabilities"], sample["target"],
                 sample["prediction"], sample["mask"] if masked else None))
             return [{k: csv_value(k, out[k]) for k in columns}]
         p.measure = measure
 
-    return MetricPass(configure, device)
+    return MetricPass(configure, device, mesh)
 
 
 def calibration_pass(base_dir: str, details: str = "",
                      rescale_confidence="subject", rescale_sigma="subject",
-                     min_max_dir: str = None, device=None) -> MetricPass:
+                     min_max_dir: str = None, device=None,
+                     mesh=None) -> MetricPass:
     """ECE, the 4 x 10 reliability-bin columns (``bins_*_00..09``) and
     Dice."""
     masked = _masked(details)
@@ -158,7 +166,7 @@ def calibration_pass(base_dir: str, details: str = "",
             out_dir, dirs.CALIBRATION_PLACEHOLDER.format(p.id_))),)
 
         def measure(sample):
-            out = _host(kernels.calibration_bins(
+            out = _host(p.kern.calibration_bins(
                 sample["probabilities"], sample["target"],
                 sample["prediction"], sample["mask"] if masked else None))
             # the bin vectors first, then ece, then dice: the column order
@@ -173,7 +181,7 @@ def calibration_pass(base_dir: str, details: str = "",
             }]
         p.measure = measure
 
-    return MetricPass(configure, device)
+    return MetricPass(configure, device, mesh)
 
 
 def threshold_codes(thresholds) -> list:
@@ -191,7 +199,7 @@ def threshold_codes(thresholds) -> list:
 
 def correction_pass(thresholds, base_dir: str, rescale_confidence="",
                     rescale_sigma="global", min_max_dir: str = None,
-                    device=None) -> MetricPass:
+                    device=None, mesh=None) -> MetricPass:
     """The uncertainty / correction analysis: every threshold's row from
     one kernel launch, one CSV sink per threshold."""
     thresholds = tuple(thresholds)
@@ -210,40 +218,38 @@ def correction_pass(thresholds, base_dir: str, rescale_confidence="",
             for code in codes)
 
         def measure(sample):
-            out = _host(kernels.correction_eval(
+            out = _host(p.kern.correction_eval(
                 sample["prediction"], sample["target"], sample["uncertainty"],
                 thresholds))
             return [{k: csv_value(k, out[k][ti]) for k in CORRECTION_KEYS}
                     for ti in range(len(thresholds))]
         p.measure = measure
 
-    return MetricPass(configure, device)
+    return MetricPass(configure, device, mesh)
 
 
 _PASS_BUILDERS = {
-    "minmax": lambda min_max_dir, base_dir, details, device:
-        minmax_pass(min_max_dir, device=device),
-    "ece_dice": lambda min_max_dir, base_dir, details, device:
+    "minmax": lambda min_max_dir, base_dir, details, **where:
+        minmax_pass(min_max_dir, **where),
+    "ece_dice": lambda min_max_dir, base_dir, details, **where:
         ece_pass(base_dir, details, rescale_confidence="subject",
-                 rescale_sigma="global", min_max_dir=min_max_dir,
-                 device=device),
-    "calib": lambda min_max_dir, base_dir, details, device:
+                 rescale_sigma="global", min_max_dir=min_max_dir, **where),
+    "calib": lambda min_max_dir, base_dir, details, **where:
         calibration_pass(base_dir, details, rescale_confidence="subject",
                          rescale_sigma="global", min_max_dir=min_max_dir,
-                         device=device),
-    "bnf_ue": lambda min_max_dir, base_dir, details, device:
+                         **where),
+    "bnf_ue": lambda min_max_dir, base_dir, details, **where:
         correction_pass(ALL_THRESHOLDS, base_dir,
                         rescale_confidence="subject", rescale_sigma="global",
-                        min_max_dir=min_max_dir, device=device),
+                        min_max_dir=min_max_dir, **where),
 }
 
 
 def get_actions(action_names, min_max_dir, base_dir, ece_details, mesh=None,
                 device=None):
     """The passes of ``action_names`` (unknown names are skipped, as in the
-    JAX package), on ``device`` (default cuda); ``mesh`` raises
-    ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH.format("the sharded eval passes"))
-    return [_PASS_BUILDERS[name](min_max_dir, base_dir, ece_details, device)
+    JAX package), on ``device`` (default cuda), or with ``mesh`` sharded
+    over it (:class:`MetricPass`)."""
+    return [_PASS_BUILDERS[name](min_max_dir, base_dir, ece_details,
+                                 device=device, mesh=mesh)
             for name in action_names if name in _PASS_BUILDERS]

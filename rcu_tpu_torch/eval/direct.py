@@ -9,10 +9,14 @@ image folders, 2-D H5 stores), with the config's transforms, one device,
 the flat CSV layout, in float32 and in the inference variants of the JAX
 package: the bf16 compute dtype, the fast decoder, the BN fold
 (``models.unet``) and int8 PTQ of the mc, deterministic and ensemble
-protocols (``ops.quant``). Meshes are a later slice. The JAX driver's
-``dispatch_chunks`` is not ported: it amortizes the round trip of a
-remote TPU link over several chunks a dispatch, and a local card has no
-such round trip.
+protocols (``ops.quant``), on one device or on a mesh
+(``parallel.Mesh``) in either of the JAX driver's two modes: latency
+(each batch split over the mesh's data devices, an ensemble's members
+over its model axis) and throughput (``subject_parallel``: whole
+subjects, or native-2D chunk parts, round-robin onto the devices, each
+with its own copy of the models). The JAX driver's ``dispatch_chunks``
+is not ported: it amortizes the round trip of a remote TPU link over
+several chunks a dispatch, and a local card has no such round trip.
 
 :func:`evaluate_direct` detects the strategy as ``rcu_tpu.eval.direct`` does and
 builds the dataset and the models from a test config and its checkpoints;
@@ -43,6 +47,7 @@ from rcu_tpu_torch.models import (FAST_DECODER_KWARGS, fold_bn_params,
                                   get_model, precast_params)
 from rcu_tpu_torch.models.convert import state_dict_from_flax
 from rcu_tpu_torch.ops import quant as quant_ops
+from rcu_tpu_torch.parallel.mesh import pad_batch_size_to_mesh
 
 DEFAULT_THRESHOLDS = (0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95)
 STRATEGIES = ("mc", "deterministic", "aleatoric", "ensemble",
@@ -454,7 +459,8 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
                     fast_decoder: bool = False, fold_bn: bool = False,
                     quantize: bool = False,
                     quantize_skip_levels: int = None,
-                    layout: str = "flat") -> dict:
+                    layout: str = "flat", mesh=None,
+                    subject_parallel: bool = False) -> dict:
     """Fused inference + eval for every test-split subject of ``config``;
     writes the ``eval_calibration_*``, ``eval_ece_*``,
     ``eval_uncertainty_*_th*`` and ``eval_summary_minmax_*`` CSVs into
@@ -480,8 +486,13 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
     ``ops.quant.DEFAULT_SKIP_LEVELS``). By
     default the models run in full float32, held to the f32 parity bar:
     :func:`evaluate_subjects` switches TF32 off for its work and restores
-    the caller's setting."""
-    device = resolve_device(device)
+    the caller's setting.
+
+    ``mesh`` runs on a ``parallel.Mesh`` (the models load, and int8
+    calibrates, on its first device, then go to the others) in latency
+    mode, or with ``subject_parallel`` in throughput mode (see
+    :func:`evaluate_subjects`); the CSVs are the single device's."""
+    device = run_device(device, mesh)
     if mc is None:
         cfg_mc = config.others.get("mc")
         mc = 20 if cfg_mc is None else int(cfg_mc)
@@ -525,9 +536,22 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
                                  batch_size=config.test_data.batch_size,
                                  seed=config.seed, thresholds=thresholds,
                                  masked=masked, device=device,
-                                 transform=transform, layout=layout)
+                                 transform=transform, layout=layout,
+                                 mesh=mesh, subject_parallel=subject_parallel)
     finally:
         dataset.close()
+
+
+def run_device(device, mesh):
+    """The run's device: ``device`` (default cuda), or on a mesh its first
+    device (a ``device`` that names another raises)."""
+    if mesh is None:
+        return resolve_device(device)
+    first = mesh.devices[0]
+    if device is not None and torch.device(device).type != first.type:
+        raise ValueError(f"device {device} is not the mesh's first device "
+                         f"{first}")
+    return resolve_device(first)
 
 
 def _drive(pool, items, load_fn, dispatch_fn, fetch_fn, window: int = 2):
@@ -699,7 +723,8 @@ def evaluate_subjects(models, dataset, out_dir: str, *, strategy: str = "mc",
                       is_log_sigma: bool = False, batch_size: int = 32,
                       seed: int = 20, thresholds=DEFAULT_THRESHOLDS,
                       masked: bool = True, device=None,
-                      transform=None, layout: str = "flat") -> dict:
+                      transform=None, layout: str = "flat", mesh=None,
+                      subject_parallel: bool = False) -> dict:
     """The direct eval's core over ``dataset.subjects`` (see module doc).
 
     ``models``: one model for mc, deterministic, aleatoric (sigma head)
@@ -722,25 +747,58 @@ def evaluate_subjects(models, dataset, out_dir: str, *, strategy: str = "mc",
     Either way one reader thread reads ahead of the device work
     (:func:`_drive`), and each item's results come back in one copy.
 
+    ``mesh`` (a ``parallel.Mesh``; the models on its first device):
+    - latency mode: ``batch_size`` rounds up to the data axis
+      (``parallel.pad_batch_size_to_mesh``), each batch (a native-2D
+      part) splits over the data devices, each holding its own copy of
+      the models (``pipeline.place``; an ensemble's members over the
+      model axis of a 2-D mesh), and the eval is one kernel launch per
+      data device and item, the sums added on the first device;
+    - throughput mode (``subject_parallel``): item ``i`` (a native-2D
+      chunk ``c``'s part ``p``: ``c + p``) runs whole on device ``i % n``
+      with that device's copy of the models, ``2 n`` items in flight.
+    The MC stream does not depend on the mode or the mesh, so the CSVs
+    are the single device's: byte for byte in throughput mode; in
+    latency mode where the padded batch is the single run's, up to the
+    order of the float sums.
+
     The f32 models and the f32 heads of the others are held to the f32
     bar, so cuDNN and matmul TF32 are off while they run (torch's default
     lets cuDNN use TF32, which misses that bar); the caller's flags are
     restored afterwards, also on error."""
     _check_models(strategy, models)
-    device = resolve_device(device)
+    device = run_device(device, mesh)
     sinks = _EvalSinks(out_dir, run_id, thresholds, strategy, layout, masked)
     # native-2D: images (H, W, C) with no slice axis (ISIC)
     is_2d = len(dataset.shape(dataset.subjects[0], "images")) == 3
+    window = _WINDOW
+    if mesh is None:
+        def where(i):
+            return models, device, None
+    elif subject_parallel:
+        per_device = pipeline.replicas(strategy, models, mesh.devices)
+        window = 2 * mesh.size
+
+        def where(i):
+            return per_device[i % mesh.size], mesh.devices[i % mesh.size], \
+                None
+    else:
+        batch_size = pad_batch_size_to_mesh(batch_size, mesh)
+        placed = pipeline.place(strategy, models, mesh)
+
+        def where(i):
+            # the item stays on the host: each device copies its rows
+            return placed, None, mesh
     reader = _Reader(dataset, transform, strategy, masked,
                      _input_dtype(strategy, models), device, is_2d)
     pool = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="direct")
     try:
         with full_float32():
             run = _run_images if is_2d else _run_volumes
-            return run(models, dataset, sinks, reader, pool, strategy=strategy,
-                       mc=mc, is_log_sigma=is_log_sigma,
-                       batch_size=batch_size, seed=seed, thresholds=thresholds,
-                       device=device)
+            return run(dataset, sinks, reader, pool, where, window,
+                       strategy=strategy, mc=mc, is_log_sigma=is_log_sigma,
+                       batch_size=batch_size, seed=seed,
+                       thresholds=thresholds)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
@@ -749,43 +807,49 @@ _WINDOW = 2  # items in flight on the device, and items read ahead
 
 
 def _eval_call(strategy, models, data, thresholds, mc, bounds, is_log_sigma,
-               rng, batch_size=None):
-    """The pipeline function of ``strategy`` on one item's device tensors:
-    a volume's (``batch_size`` slices a forward) or, with ``batch_size``
-    None, a part's images in one batch, each image's own row."""
+               rng, batch_size=None, mesh=None):
+    """The pipeline function of ``strategy`` on one item's tensors: a
+    volume's (``batch_size`` slices a forward) or, with ``batch_size``
+    None, a part's images in one batch, each image's own row; ``mesh``
+    its latency mode (``models`` then ``pipeline.place``'s)."""
     images = data["images"]
     per_image = batch_size is None
     n = len(images) if per_image else batch_size
     common = (data["target"], data["mask"], thresholds)
+    kw = {"per_image": per_image, "mesh": mesh}
     if strategy in ("mc", "deterministic"):
         return pipeline.volume_mc_eval(models, mc if strategy == "mc" else 0,
-                                       n, images, *common, rng, per_image)
+                                       n, images, *common, rng, **kw)
     if strategy == "aleatoric":
         return pipeline.volume_aleatoric_eval(models, n, images, *common,
-                                              *bounds, is_log_sigma, per_image)
+                                              *bounds, is_log_sigma, **kw)
     if strategy == "ensemble":
-        return pipeline.volume_ensemble_eval(models, n, images, *common,
-                                             per_image)
+        return pipeline.volume_ensemble_eval(models, n, images, *common, **kw)
     if strategy == "auxiliary_feat":
         return pipeline.volume_aux_feat_eval(*models, n, images, *common,
-                                             per_image)
+                                             **kw)
     return pipeline.volume_aux_segm_eval(models, n, images, data["baseline"],
-                                         *common, per_image)
+                                         *common, **kw)
 
 
-def _to_device(host, device):
-    return {k: v.to(device, non_blocking=True) for k, v in host.items()}
+def _placed(where, i, host):
+    """Item ``i``'s models, its tensors (on its device, or on the host for
+    a latency mesh) and the mesh."""
+    models, device, mesh = where(i)
+    data = host if device is None else \
+        {k: v.to(device, non_blocking=True) for k, v in host.items()}
+    return models, data, mesh
 
 
-def _run_volumes(models, dataset, sinks, reader, pool, *, strategy, mc,
-                 is_log_sigma, batch_size, seed, thresholds, device):
+def _run_volumes(dataset, sinks, reader, pool, where, window, *, strategy,
+                 mc, is_log_sigma, batch_size, seed, thresholds):
     names = list(dataset.subjects)
     bounds = None
     if strategy == "aleatoric":
         def minmax_dispatch(si, subject, host):
-            images = _to_device(host, device)["images"]
-            mn, mx = pipeline.volume_sigma_minmax(models, batch_size, images,
-                                                  is_log_sigma)
+            models, data, mesh = _placed(where, si, host)
+            mn, mx = pipeline.volume_sigma_minmax(
+                models, batch_size, data["images"], is_log_sigma, mesh=mesh)
             return Fetch({"min": mn, "max": mx})
 
         def minmax_fetch(subject, out, t0):
@@ -793,16 +857,17 @@ def _run_volumes(models, dataset, sinks, reader, pool, *, strategy, mc,
             sinks.add_bounds(got["min"], got["max"])
 
         _drive(pool, names, lambda si, s: reader.subject(s, images_only=True),
-               minmax_dispatch, minmax_fetch, _WINDOW)
+               minmax_dispatch, minmax_fetch, window)
         bounds = _global_bounds(sinks.bounds)
         logging.info("direct aleatoric: global sigma range [%.6f, %.6f]",
                      *bounds)
     eces = {}
 
     def dispatch(si, subject, host):
-        return Fetch(_eval_call(strategy, models, _to_device(host, device),
-                                 thresholds, mc, bounds, is_log_sigma,
-                                 (seed, si), batch_size))
+        models, data, mesh = _placed(where, si, host)
+        return Fetch(_eval_call(strategy, models, data, thresholds, mc,
+                                bounds, is_log_sigma, (seed, si), batch_size,
+                                mesh))
 
     def fetch(subject, out, t0):
         row = out.result()
@@ -812,17 +877,17 @@ def _run_volumes(models, dataset, sinks, reader, pool, *, strategy, mc,
                      eces[subject], time.time() - t0)
 
     _drive(pool, names, lambda si, s: reader.subject(s), dispatch, fetch,
-           _WINDOW)
+           window)
     sinks.finish()
     return eces
 
 
-def _run_images(models, dataset, sinks, reader, pool, *, strategy, mc,
-                is_log_sigma, batch_size, seed, thresholds, device):
+def _run_images(dataset, sinks, reader, pool, where, window, *, strategy, mc,
+                is_log_sigma, batch_size, seed, thresholds):
     """The native-2D run (``rcu_tpu.eval.direct._evaluate_direct_2d``).
     A part runs at its own length: an eager program needs no padding to a
     static shape, and the JAX package drops its padded rows before the
-    CSVs."""
+    CSVs. Part ``p`` of chunk ``c`` is item ``c + p`` of :func:`where`."""
     k = max(1, int(batch_size))
     names = list(dataset.subjects)
     starts = list(range(0, len(names), k))
@@ -831,9 +896,10 @@ def _run_images(models, dataset, sinks, reader, pool, *, strategy, mc,
     if strategy == "aleatoric":
         def minmax_dispatch(ci, group, parts):
             outs = []
-            for _, subjects, host in parts:
+            for pi, (_, subjects, host) in enumerate(parts):
+                models, data, mesh = _placed(where, ci + pi, host)
                 mn, mx = pipeline.image_batch_sigma_minmax(
-                    models, _to_device(host, device)["images"], is_log_sigma)
+                    models, data["images"], is_log_sigma, mesh=mesh)
                 outs.append((subjects, Fetch({"min": mn, "max": mx})))
             return outs
 
@@ -845,17 +911,20 @@ def _run_images(models, dataset, sinks, reader, pool, *, strategy, mc,
 
         _drive(pool, groups,
                lambda ci, g: reader.chunk(g, images_only=True),
-               minmax_dispatch, minmax_fetch, _WINDOW)
+               minmax_dispatch, minmax_fetch, window)
         bounds = _global_bounds(sinks.bounds)
         logging.info("direct 2d aleatoric: global sigma range [%.6f, %.6f]",
                      *bounds)
     eces = {}
 
     def dispatch(ci, group, parts):
-        return [(subjects, Fetch(_eval_call(
-            strategy, models, _to_device(host, device), thresholds, mc,
-            bounds, is_log_sigma, (seed, starts[ci] + start))))
-            for start, subjects, host in parts]
+        outs = []
+        for pi, (start, subjects, host) in enumerate(parts):
+            models, data, mesh = _placed(where, ci + pi, host)
+            outs.append((subjects, Fetch(_eval_call(
+                strategy, models, data, thresholds, mc, bounds, is_log_sigma,
+                (seed, starts[ci] + start), mesh=mesh))))
+        return outs
 
     def fetch(group, outs, t0):
         for subjects, out in outs:
@@ -870,6 +939,6 @@ def _run_images(models, dataset, sinks, reader, pool, *, strategy, mc,
                      time.time() - t0)
 
     _drive(pool, groups, lambda ci, g: reader.chunk(g), dispatch, fetch,
-           _WINDOW)
+           window)
     sinks.finish()
     return eces

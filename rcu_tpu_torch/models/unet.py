@@ -91,7 +91,10 @@ class UNetOutput(typing.NamedTuple):
 
 
 class ChannelDropout(nn.Module):
-    """flax ``nn.Dropout(p, broadcast_dims=(1, 2))`` with explicit generators."""
+    """flax ``nn.Dropout(p, broadcast_dims=(1, 2))`` with explicit
+    generators. Generators with ``rows=(start, stop, total)``
+    (``engine.steps.ShardGenerators``, a mesh device's part of a batch)
+    draw the whole batch's masks and keep those rows."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -102,7 +105,12 @@ class ChannelDropout(nn.Module):
             return x
         keep = 1.0 - self.p
         n, c = x.shape[0] // len(generators), x.shape[1]
-        masks = [torch.rand((n, c), generator=g, device=x.device) < keep
+        start, stop, total = getattr(generators, "rows", (0, n, n))
+        if stop - start != n:
+            raise ValueError(f"generators for rows {start}:{stop} of a "
+                             f"batch, but the input has {n} rows a sample")
+        masks = [torch.rand((total, c), generator=g,
+                            device=x.device)[start:stop] < keep
                  for g in generators]
         # where(keep, x / keep_prob, 0) as flax computes it, with keep_prob
         # rounded to x's dtype as flax rounds it, in one in-place pass: a

@@ -342,9 +342,15 @@ def fused_subject_eval(fg, target, prediction, uncertainty, mask, thresholds,
     ``(len(thresholds),)`` tensors; with ``per_image`` every entry gains a
     leading image axis. ``mask`` (None = all voxels) reaches the ECE bins
     only."""
-    stats = fused_eval_stats(*kernel_planes(fg, target, prediction,
-                                            uncertainty, mask),
-                             thresholds, per_image)
+    return subject_eval_from_stats(fused_eval_stats(
+        *kernel_planes(fg, target, prediction, uncertainty, mask),
+        thresholds, per_image))
+
+
+def subject_eval_from_stats(stats):
+    """``(bins, confusion, correction)`` of :func:`fused_subject_eval`
+    from the kernel's sums (:func:`fused_eval_stats`' dict; a mesh adds
+    several launches' sums first)."""
     count = stats["bins_count"]
     pos_frac, mean_conf, nonzero = bin_statistics(
         count, stats["bins_conf_sum"], stats["bins_true_sum"])

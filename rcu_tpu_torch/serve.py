@@ -40,18 +40,29 @@ Wire protocol (stdlib on both ends; arrays ride npz):
   GET  /v1/health   -> JSON {status, model_dir, strategy, mc, members,
                     batch_size, compiled_shapes}
 
-One device. The JAX service's ``mesh`` (a request sharded across chips)
-and ``subject_parallel`` (a replica per chip) modes raise
-``NotImplementedError`` until the multi-device slice (ROADMAP.md queue 1,
-item 5).
+One device, or a mesh (``parallel.Mesh``) in the JAX service's two modes:
+- latency (``mesh``): the batch rule rounds up to the mesh's data axis,
+  and each request's batches split over its data devices, each with its
+  own copy of the models (``eval.pipeline``'s mesh path: one eval kernel
+  launch per data device, the maps copied to the host once per device);
+  an ensemble's members go over the model axis of a 2-D mesh;
+- throughput (``subject_parallel=True``): a copy of the models per mesh
+  device, and each request checks a free device out of a queue
+  (``pool_size`` of them) and runs whole on it. Request ``i`` draws the
+  stream ``(seed, i)`` whichever device answers it.
+A quantized service calibrates int8 once, on the first request, on the
+first device, under a service-wide lock; the quantized copies are made
+after it.
 
-Threads: every request's device work (the copies in, the forwards, the
-eval kernel, the one copy out) runs under one lock, with cuDNN's and
-cuBLAS's TF32 off inside it (``eval.device.full_float32``): the flags
-are global to the process, and a handler thread that restored them while
-another was mid-forward would move that request's f32 logits past the
-f32 bar. Host work (npz decode and encode, binarizing targets, pinning
-the input) stays outside the lock, so concurrent requests overlap there.
+Threads: a request's device work (the copies in, the forwards, the eval
+kernel, the copies out) runs under one lock (latency mode and one
+device) or on its checked-out device (throughput mode), with cuDNN's and
+cuBLAS's TF32 off inside it (``eval.device.full_float32``, which keeps
+the flags off while any thread's block is open): the flags are global to
+the process, and a handler thread that restored them while another was
+mid-forward would move that request's f32 logits past the f32 bar. Host
+work (npz decode and encode, binarizing targets, pinning the input)
+stays outside, so concurrent requests overlap there.
 """
 from __future__ import annotations
 
@@ -59,6 +70,7 @@ import collections
 import io
 import json
 import logging
+import queue
 import threading
 import time
 import zipfile
@@ -69,18 +81,18 @@ import torch
 from rcu_tpu_torch.engine import checkpoint as ckpt_lib
 from rcu_tpu_torch.eval import pipeline
 from rcu_tpu_torch.eval.device import Fetch, full_float32
-from rcu_tpu_torch.eval.direct import load_model, resolve_device
+from rcu_tpu_torch.eval.direct import load_model, run_device
 from rcu_tpu_torch.ops import prepare
 from rcu_tpu_torch.ops import quant as quant_ops
+from rcu_tpu_torch.parallel.mesh import pad_batch_size_to_mesh
 
 DEFAULT_THRESHOLDS = (0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95)
-_LATER = ("{} is not ported to rcu_tpu_torch yet (ROADMAP.md queue 1, "
-          "item 5: multi-device)")
 
 
 class VolumeInferenceService:
     """Checkpoint(s) -> a model (or an ensemble's members) held on one
-    device, answering :meth:`predict` calls.
+    device or a mesh (see the module doc), answering :meth:`predict`
+    calls.
 
     Eager PyTorch compiles nothing per request shape, so the port keeps no
     program cache. :meth:`compiled_shapes` still reports the request
@@ -101,17 +113,20 @@ class VolumeInferenceService:
                  fold_bn: bool = False,
                  quantize: bool = False,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(_LATER.format("serving on a mesh"))
-        if subject_parallel:
-            raise NotImplementedError(_LATER.format(
-                "subject_parallel (throughput) serving"))
-        self.device = resolve_device(device)
+        self.device = run_device(device, mesh)
         self.model_dir = model_dir
         self.mc = int(mc)
         self.seed = int(seed)
         self.thresholds = np.asarray(thresholds, np.float32)
         self.batch_size = int(batch_size)
+        self.subject_parallel = bool(subject_parallel and mesh is not None)
+        # the latency mesh; throughput mode runs single-device requests
+        self.mesh = None if self.subject_parallel else mesh
+        if self.mesh is not None:
+            self.batch_size = pad_batch_size_to_mesh(self.batch_size,
+                                                     self.mesh)
+        self._pool_devices = mesh.devices if self.subject_parallel \
+            else (self.device,)
         self.max_programs = int(max_programs)
         self.members = list(members or [])
         if sum(map(bool, (self.members, segm_model_dir, aux_segm))) > 1:
@@ -171,16 +186,44 @@ class VolumeInferenceService:
         self._input_dtype = readers[0].dtype
         self._shapes = collections.OrderedDict()  # bounded LRU of labels
         self._requests = 0
-        self._lock = threading.Lock()        # device work
+        self._lock = threading.Lock()        # device work (latency mode)
         self._cache_lock = threading.Lock()  # shapes LRU, request counter
+        self._placed = None                  # the models on the devices
+        self._pool = queue.Queue()           # free devices (throughput)
+        for i in range(len(self._pool_devices)):
+            self._pool.put(i)
+        if self._quant_ready:
+            self._place()
+
+    @property
+    def pool_size(self) -> int:
+        """Devices answering requests at once (1 outside throughput
+        mode)."""
+        return len(self._pool_devices)
+
+    def _place(self):
+        """The models where the requests run: per pool device its copy
+        (throughput), placed on the mesh (latency), or as loaded."""
+        if self.subject_parallel:
+            self._placed = pipeline.replicas(self.strategy, self.models,
+                                             self._pool_devices)
+        elif self.mesh is not None:
+            self._placed = [pipeline.place(self.strategy, self.models,
+                                           self.mesh)]
+        else:
+            self._placed = [self.models]
 
     # ------------------------------------------------------------ bookkeeping
     def _effective_batch(self, nz: int) -> int:
         """Shrink the slice batch to the volume: ``min(batch_size, the next
         power of two >= nz)``, so a 1-slice request runs at batch 1. The
         ragged last batch runs as a smaller batch, as the direct eval runs
-        it: a 155-slice request at batch 32 gives 32, 32, 32, 32, 27."""
-        return min(self.batch_size, 1 << max(0, nz - 1).bit_length())
+        it: a 155-slice request at batch 32 gives 32, 32, 32, 32, 27. On a
+        latency mesh the batch rounds up to the data axis."""
+        batch = min(self.batch_size, 1 << max(0, nz - 1).bit_length())
+        if self.mesh is not None:
+            batch = pad_batch_size_to_mesh(batch, self.mesh)
+        return batch
 
     def _served(self, key):
         with self._cache_lock:
@@ -207,17 +250,29 @@ class VolumeInferenceService:
             return self._requests
 
     # ----------------------------------------------------------- device work
-    def _host_tensor(self, array):
-        """A host tensor of ``array``, pinned when the device is a card, so
-        that its copy to the card runs without blocking."""
+    def _host_tensor(self, array, dtype=None):
+        """A host tensor of ``array`` (cast to ``dtype``), pinned when the
+        device is a card, so that its copy to the card runs without
+        blocking."""
         t = torch.from_numpy(np.ascontiguousarray(array))
+        if dtype is not None:
+            t = t.to(dtype)
         return t.pin_memory() if self.device.type == "cuda" else t
 
-    def _on_device(self, host: dict) -> dict:
-        """The host tensors on the device, the images cast there to the
-        models' compute dtype."""
-        out = {k: v.to(self.device, non_blocking=True)
-               for k, v in host.items()}
+    def _images(self, images):
+        """The request's images as a host tensor; on a latency mesh cast
+        to the models' compute dtype here (each device copies its rows),
+        else on the device (:meth:`_on_device`)."""
+        return self._host_tensor(images, None if self.mesh is None
+                                 else self._input_dtype)
+
+    def _on_device(self, host: dict, device) -> dict:
+        """The host tensors on ``device`` (None: a latency mesh, whose
+        devices copy their rows), the images cast to the models' compute
+        dtype."""
+        if device is None:
+            return host
+        out = {k: v.to(device, non_blocking=True) for k, v in host.items()}
         out["images"] = out["images"].to(self._input_dtype)
         return out
 
@@ -242,7 +297,8 @@ class VolumeInferenceService:
             n = max(1, min(self.batch_size, len(volume)))
             lo = max(0, (len(volume) - n) // 2)
             batch = self._on_device(
-                {"images": self._host_tensor(volume[lo:lo + n])})["images"]
+                {"images": self._host_tensor(volume[lo:lo + n])},
+                self.device)["images"]
             members = self.models if self.strategy == "ensemble" \
                 else [self.model]
             with full_float32():
@@ -250,28 +306,45 @@ class VolumeInferenceService:
                     members, batch,
                     self.seed if self.strategy == "mc" and self.mc > 0
                     else None)
+            self._place()
             self._quant_ready = True
             logging.info("serve: int8 calibrated %d conv sites from the "
                          "first request (%d items; %d finest levels kept "
                          "in the compute dtype)", len(scales), n, skip)
 
     def _run(self, fn, host: dict):
-        """``fn(device tensors)`` under the device lock with TF32 off; its
-        results reach the host in one copy. -> (numpy results, device
-        seconds: CUDA events around the copies and the work on a card,
-        the wall clock on the CPU)."""
+        """``fn(tensors, models, mesh)`` with TF32 off: on a device checked
+        out of the pool (throughput mode), else under the device lock;
+        its results reach the host in one copy per device. -> (numpy
+        results, device seconds: CUDA events around the copies and the
+        work on a card; the wall clock to the host results on the CPU
+        and on a latency mesh, whose work spans several streams)."""
+        if self.subject_parallel:
+            i = self._pool.get()
+            try:
+                return self._work(fn, host, self._placed[i],
+                                  self._pool_devices[i])
+            finally:
+                self._pool.put(i)
         with self._lock:
-            if self.device.type == "cuda":
-                start, end = (torch.cuda.Event(enable_timing=True)
-                              for _ in range(2))
-                start.record()
-            t0 = time.perf_counter()
-            with full_float32():
-                fetch = Fetch(fn(self._on_device(host)))
-            if self.device.type == "cuda":
-                end.record()
+            return self._work(fn, host, self._placed[0],
+                              None if self.mesh is not None else self.device)
+
+    def _work(self, fn, host, models, device):
+        events = device is not None and device.type == "cuda"
+        if events:
+            stream = torch.cuda.current_stream(device)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record(stream)
+        t0 = time.perf_counter()
+        with full_float32():
+            fetch = Fetch(fn(self._on_device(host, device), models,
+                             self.mesh))
+        if events:
+            end.record(stream)
         out = fetch.result()
-        if self.device.type == "cuda":
+        if events:
             end.synchronize()
             return out, start.elapsed_time(end) / 1e3
         return out, time.perf_counter() - t0
@@ -361,7 +434,7 @@ class VolumeInferenceService:
         volume = self._checked_images(images, "Z")
         nz = volume.shape[0]
         want = (nz,) + volume.shape[1:3]
-        host = {"images": self._host_tensor(volume)}
+        host = {"images": self._images(volume)}
         if baseline is not None:
             host["baseline"] = self._host_tensor(
                 self._binarized(baseline, want, "baseline"))
@@ -375,44 +448,48 @@ class VolumeInferenceService:
                      else (-(-nz // batch) * batch, False, batch))
         rng = (self.seed, self._next_request())
         out, device_s = self._run(
-            lambda data: self._volume_call(data, batch, scored, rng,
-                                           sigma_bounds), host)
+            lambda data, models, mesh: self._volume_call(
+                data, models, mesh, batch, scored, rng, sigma_bounds), host)
         return self._host_result(out, scored, sigma_bounds), device_s
 
-    def _volume_call(self, data, batch, scored, rng, sigma_bounds):
+    def _volume_call(self, data, models, mesh, batch, scored, rng,
+                     sigma_bounds):
         """The pipeline function of the service's family on one request's
-        device tensors: the artifacts only, or with ``scored`` the eval
-        dict with the artifacts."""
-        images, models = data["images"], self.models
+        tensors and the models where it runs: the artifacts only, or with
+        ``scored`` the eval dict with the artifacts."""
+        images = data["images"]
         if not scored:
             if self.strategy == "mc":
-                return pipeline.volume_mc(models, self.mc, batch, images, rng)
+                return pipeline.volume_mc(models, self.mc, batch, images, rng,
+                                          mesh=mesh)
             if self.strategy == "aleatoric":
                 return pipeline.volume_aleatoric(models, batch, images,
-                                                 self.is_log_sigma)
+                                                 self.is_log_sigma, mesh=mesh)
             if self.strategy == "ensemble":
-                return pipeline.volume_ensemble(models, batch, images)
+                return pipeline.volume_ensemble(models, batch, images,
+                                                mesh=mesh)
             if self.strategy == "auxiliary_feat":
-                return pipeline.volume_aux_feat(*models, batch, images)
+                return pipeline.volume_aux_feat(*models, batch, images,
+                                                mesh=mesh)
             return pipeline.volume_aux_segm(models, batch, images,
-                                            data["baseline"])
+                                            data["baseline"], mesh=mesh)
         common = (data["target"], data["mask"], self.thresholds)
+        kw = {"artifacts": True, "mesh": mesh}
         if self.strategy == "mc":
             return pipeline.volume_mc_eval(models, self.mc, batch, images,
-                                           *common, rng, artifacts=True)
+                                           *common, rng, **kw)
         if self.strategy == "aleatoric":
             return pipeline.volume_aleatoric_eval(
                 models, batch, images, *common, *sigma_bounds,
-                self.is_log_sigma, artifacts=True)
+                self.is_log_sigma, **kw)
         if self.strategy == "ensemble":
             return pipeline.volume_ensemble_eval(models, batch, images,
-                                                 *common, artifacts=True)
+                                                 *common, **kw)
         if self.strategy == "auxiliary_feat":
             return pipeline.volume_aux_feat_eval(*models, batch, images,
-                                                 *common, artifacts=True)
+                                                 *common, **kw)
         return pipeline.volume_aux_segm_eval(models, batch, images,
-                                             data["baseline"], *common,
-                                             artifacts=True)
+                                             data["baseline"], *common, **kw)
 
     def _predict_per_image(self, images, target, mask, sigma_bounds,
                            baseline):
@@ -425,7 +502,7 @@ class VolumeInferenceService:
         images = self._checked_images(images, "K")
         want = (images.shape[0],) + images.shape[1:3]
         t, m = self._scored_arrays(target, mask, want)
-        host = {"images": self._host_tensor(images),
+        host = {"images": self._images(images),
                 "target": self._host_tensor(t), "mask": self._host_tensor(m)}
         if baseline is not None:
             host["baseline"] = self._host_tensor(
@@ -434,28 +511,32 @@ class VolumeInferenceService:
         self._served((0, "per_image", 0))
         rng = (self.seed, self._next_request())
         out, device_s = self._run(
-            lambda data: self._image_call(data, rng, sigma_bounds), host)
+            lambda data, models, mesh: self._image_call(
+                data, models, mesh, rng, sigma_bounds), host)
         result = {"ece": np.asarray(out["ece"], np.float32),
                   "dice": np.asarray(out["dice"], np.float32)}
         result.update(_correction(out))
         return result, device_s
 
-    def _image_call(self, data, rng, sigma_bounds):
+    def _image_call(self, data, models, mesh, rng, sigma_bounds):
         common = (data["target"], data["mask"], self.thresholds)
-        images, models = data["images"], self.models
+        images = data["images"]
         if self.strategy == "mc":
             return pipeline.image_batch_mc_eval(models, self.mc, images,
-                                                *common, rng)
+                                                *common, rng, mesh=mesh)
         if self.strategy == "aleatoric":
             return pipeline.image_batch_aleatoric_eval(
-                models, images, *common, *sigma_bounds, self.is_log_sigma)
+                models, images, *common, *sigma_bounds, self.is_log_sigma,
+                mesh=mesh)
         if self.strategy == "ensemble":
-            return pipeline.image_batch_ensemble_eval(models, images, *common)
+            return pipeline.image_batch_ensemble_eval(models, images, *common,
+                                                      mesh=mesh)
         if self.strategy == "auxiliary_feat":
             return pipeline.image_batch_aux_feat_eval(*models, images,
-                                                      *common)
+                                                      *common, mesh=mesh)
         return pipeline.image_batch_aux_segm_eval(models, images,
-                                                  data["baseline"], *common)
+                                                  data["baseline"], *common,
+                                                  mesh=mesh)
 
     def _host_result(self, out, scored, sigma_bounds):
         """The request's numpy results, in the JAX service's keys and

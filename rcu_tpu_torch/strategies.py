@@ -14,10 +14,12 @@ and the five test entry functions of the staged test loop.
 
 Each returns the finished :class:`engine.train.TrainLoop`. ``hooks`` and
 ``device`` go to it (the default hooks need ``tensorboardX``); ``mesh``
-raises ``NotImplementedError``.
+raises ``NotImplementedError`` (training on a mesh is a later slice).
 
 Testing (each returns the finished :class:`engine.test.TestLoop`, whose
-run dir holds the NIfTI artifacts; ``hooks`` and ``device`` go to it):
+run dir holds the NIfTI artifacts; ``hooks``, ``device`` and ``mesh``
+go to it; on a 2-D mesh the ensemble's members shard over the model
+axis):
 - baseline, center, cv -> :func:`test_default` (``others.mc: T`` runs the
   MC protocol, T dropout forwards a batch);
 - aleatoric -> :func:`test_aleatoric` (``_sigma``: the predicted class's);
@@ -154,12 +156,19 @@ def train_auxiliary_segm(config: cfg_lib.TrainConfiguration, mesh=None,
 # testing
 # ---------------------------------------------------------------------------
 
+def _home(device, mesh):
+    """The device the test models load on: the mesh's first, or
+    ``device``."""
+    return resolve_device(device if mesh is None else mesh.devices[0])
+
+
 def test_default(config: cfg_lib.TestConfiguration, mesh=None,
                  symlink_inputs: bool = False, hooks=None,
                  device=None) -> TestLoop:
     mc = int(config.others.get("mc") or 0)
     if mc:
-        return TestLoop(config, predict_fn=steps_lib.make_mc_predict_fn(mc),
+        return TestLoop(config,
+                        predict_fn=steps_lib.make_mc_predict_fn(mc, mesh),
                         needs_rng=True, mesh=mesh,
                         symlink_inputs=symlink_inputs, hooks=hooks,
                         device=device).run()
@@ -171,7 +180,7 @@ def test_aleatoric(config: cfg_lib.TestConfiguration, mesh=None,
                    symlink_inputs: bool = False, hooks=None,
                    device=None) -> TestLoop:
     predict = steps_lib.make_aleatoric_predict_fn(
-        cfg_lib.require_log_sigma(config))
+        cfg_lib.require_log_sigma(config), mesh)
     return TestLoop(config, predict_fn=predict,
                     entries=("probabilities", "sigma"), mesh=mesh,
                     symlink_inputs=symlink_inputs, hooks=hooks,
@@ -184,15 +193,14 @@ def test_ensemble(config: cfg_lib.TestConfiguration, mesh=None,
     """The primary model (``model_dir`` at ``test_at``, where set) and the
     ``others.model_dir`` members at ``others.test_at``; an empty member
     list raises. The run dir goes under the first model's train dir."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "testing on a mesh is not ported to rcu_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 5: multi-device)")
-    members = _load_ensemble(config, resolve_device(device), {})
+    members = _load_ensemble(config, _home(device, mesh), {})
     anchor = config.model_dir or config.others["model_dir"]
     anchor = anchor if isinstance(anchor, str) else anchor[0]
-    return TestLoop(config, predict_fn=steps_lib.make_ensemble_predict_fn(members),
+    return TestLoop(config,
+                    predict_fn=steps_lib.make_ensemble_predict_fn(members,
+                                                                  mesh),
                     entries=("probabilities", "entropy"), external_state=True,
+                    mesh=mesh,
                     run_dir_base=os.path.join(os.path.dirname(anchor), "test"),
                     symlink_inputs=symlink_inputs, hooks=hooks,
                     device=device).run()
@@ -220,9 +228,10 @@ def _aux_feat_artifact_fn(loop: TestLoop, subject: str, subject_data: dict,
 def test_auxiliary_feat(config: cfg_lib.TestConfiguration, mesh=None,
                         symlink_inputs: bool = False, hooks=None,
                         device=None) -> TestLoop:
-    segm_model = _frozen_segmenter(config.others, resolve_device(device))
+    segm_model = _frozen_segmenter(config.others, _home(device, mesh))
     return TestLoop(config,
-                    predict_fn=steps_lib.make_auxiliary_feat_predict_fn(segm_model),
+                    predict_fn=steps_lib.make_auxiliary_feat_predict_fn(
+                        segm_model, mesh),
                     entries=("probabilities", "segm_probabilities"),
                     eval_subject_fn=_aux_feat_test_eval_fn,
                     artifact_fn=_aux_feat_artifact_fn, mesh=mesh,
@@ -246,7 +255,7 @@ def test_auxiliary_segm(config: cfg_lib.TestConfiguration, mesh=None,
                         symlink_inputs: bool = False, hooks=None,
                         device=None) -> TestLoop:
     return TestLoop(config,
-                    predict_fn=steps_lib.make_auxiliary_segm_predict_fn(),
+                    predict_fn=steps_lib.make_auxiliary_segm_predict_fn(mesh),
                     eval_subject_fn=lambda sd, info:
                         _aux_segm_eval_subject_fn(sd, info)[0],
                     artifact_fn=_aux_segm_artifact_fn, mesh=mesh,

@@ -31,6 +31,7 @@ from rcu_tpu_torch.cli import eval_uncertainty as port_eval_cli
 from rcu_tpu_torch.eval import actions, analysis, evaldata
 from rcu_tpu_torch.ops import uncertainty as unc
 from rcu_tpu_torch.ops.cuda import evalstats
+from rcu_tpu_torch.parallel import make_mesh
 from tests.test_torch_direct import _cell_equal
 from tests.test_torch_test_loop import UNET, seeded_model, write_config
 
@@ -219,18 +220,38 @@ def test_thresholds_that_collide_raise(tmp_path):
     assert actions.threshold_codes((0.05, 0.5)) == ["005", "050"]
 
 
-def test_passes_run_on_the_card_by_default(tmp_path):
-    if torch.cuda.is_available():
-        pytest.skip("a card is present: the default device runs")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        actions.get_actions(ACTIONS, str(tmp_path / "minmax"), str(tmp_path),
-                            "foreground")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        actions.get_actions(ACTIONS, str(tmp_path / "minmax"), str(tmp_path),
-                            "foreground", mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        port_eval_cli.main("brats", ["baseline"], ACTIONS, n_devices=2,
+def test_passes_run_on_the_card_by_default(tree, tmp_path, monkeypatch):
+    """No device asked for: the passes run on the card, and raise where
+    there is none; ``--devices 2`` is a mesh of two cards, and raises
+    where there are fewer. On the virtual CPU mesh (``--devices 2
+    --device cpu``) the four passes write the one-device CSVs, with one
+    kernel launch per device, pass and subject."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            actions.get_actions(ACTIONS, str(tmp_path / "minmax"),
+                                str(tmp_path), "foreground")
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="cuda device"):
+            port_eval_cli.main("brats", ["baseline"], ACTIONS, n_devices=2)
+    mesh = make_mesh(n_devices=2, device="cpu")
+    passes = actions.get_actions(ACTIONS, str(tmp_path / "minmax"),
+                                 str(tmp_path), "foreground", mesh=mesh)
+    assert all(p.device == torch.device("cpu") and p.kern.mesh is mesh
+               for p in passes)
+    tmp, pred_root, names, gt_dir, splits = tree
+    ids = list(RUNS)
+    for out, n_devices in (("one", None), ("mesh", 2)):
+        point_dirs(monkeypatch, port_dirs, "BRATS", pred_root, names,
+                   str(tmp_path / out), BRATS_ORIG_DATA_DIR=gt_dir,
+                   SPLITS_DIR=splits)
+        port_eval_cli.main("brats", ids, ACTIONS[:1], n_devices=n_devices,
                            device="cpu")
+        plain = evalstats.fused_eval_stats.plain_calls
+        port_eval_cli.main("brats", ids, ACTIONS[1:], n_devices=n_devices,
+                           device="cpu")
+        assert evalstats.fused_eval_stats.plain_calls - plain == \
+            3 * len(TEST) * len(ids) * (n_devices or 1)
+    assert_same_tree(tmp_path / "one", tmp_path / "mesh", 14 * len(ids))
 
 
 def test_a_reused_pass_starts_each_run_afresh(tree, tmp_path):

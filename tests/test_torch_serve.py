@@ -18,6 +18,7 @@ import torch
 from rcu_tpu.data import h5
 from rcu_tpu.serve import VolumeInferenceService as JaxService
 from rcu_tpu_torch.eval import pipeline
+from rcu_tpu_torch.parallel import make_mesh
 from rcu_tpu_torch.serve import VolumeInferenceService
 from tests.test_torch_direct import PARAMS, _margin_weights, make_store
 from tests.test_torch_strategies import write_model
@@ -110,8 +111,8 @@ def test_mc_request_is_the_ports_mc_scan(env):
     first = port_service(env["model_dir"], mc=3, seed=5)
     got = first.predict(images)
     with torch.inference_mode():
-        fg, ent = pipeline._mc_scan(first.model, 3,
-                                    torch.from_numpy(images), 2, (5, 1))
+        _, [(fg, ent)] = pipeline._mc_scan(first.model, 3,
+                                           torch.from_numpy(images), 2, (5, 1))
     np.testing.assert_array_equal(got["probabilities"], fg.numpy())
     np.testing.assert_array_equal(
         got["entropy"], pipeline._normalize_entropy(ent).numpy())
@@ -152,9 +153,8 @@ def test_batch_rule_of_a_155_slice_volume(env):
                                      device="cpu")
     assert [service._effective_batch(z) for z in (1, 2, 3, 17, 155)] == \
         [1, 2, 4, 32, 32]
-    volume = torch.zeros(155, 2, 2, 4)
-    assert [len(b) for b in pipeline._slice_batches(volume, 32)] == \
-        [32, 32, 32, 32, 27]
+    split = pipeline._split(155, 32, None, torch.device("cpu"))
+    assert [hi - lo for lo, hi, _ in split.batches] == [32, 32, 32, 32, 27]
 
 
 def test_served_shapes_lru_at_its_cap(env):
@@ -226,11 +226,34 @@ def test_constructor_rejections_are_jax_s(env, kw):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()),
-                                dict(subject_parallel=True)])
+@pytest.mark.parametrize("kw", [dict(), dict(subject_parallel=True)])
 def test_multi_device_modes_wait_for_their_slice(env, kw):
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        port_service(env["model_dir"], **kw)
+    """The service on a virtual 2-entry CPU mesh, in latency mode (each
+    request split over the devices) and throughput mode (a device a
+    request): an MC request, scored and unscored, answers as one device
+    does on the stream ``(seed, request index)``: bitwise in throughput
+    mode, the maps at 1e-6 and the counts exact in latency mode (the
+    per-device forwards may round apart in the last bit); the mode's
+    batch rule and pool (the modes themselves:
+    tests/test_torch_parallel_serve.py)."""
+    images, labels = env["subjects"]["s02"]
+    mesh = make_mesh(n_devices=2, device="cpu")
+    one = port_service(env["model_dir"], mc=3, seed=5)
+    many = port_service(env["model_dir"], mc=3, seed=5, mesh=mesh, **kw)
+    assert many.pool_size == (2 if kw else 1)
+    assert many.batch_size == 2 and many._effective_batch(1) == (1 if kw
+                                                                 else 2)
+    for request in ({}, {"target": labels}):
+        want, got = one.predict(images, **request), \
+            many.predict(images, **request)
+        assert set(got) == set(want)
+        for key, value in want.items():
+            if kw or key.replace("correction_", "") in COUNTS \
+                    or key == "prediction":
+                np.testing.assert_array_equal(got[key], value, err_msg=key)
+            else:
+                np.testing.assert_allclose(got[key], value, rtol=1e-6,
+                                           atol=1e-6, err_msg=key)
 
 
 def test_the_card_is_the_default(env, monkeypatch):

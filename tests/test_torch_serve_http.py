@@ -3,7 +3,7 @@
 serial ones, ``/v1/health`` with the JAX keys, the 400s, 404s and the 500,
 the ``Server-Timing`` header; and the serve CLI (its flags a superset of
 ``bin/serve.py``'s, ``-prewarm`` and its refusal with ``-quantize``,
-the multi-device flags raising)."""
+``-devices``/``-throughput`` on the virtual CPU mesh)."""
 import ast
 import concurrent.futures
 import io
@@ -15,6 +15,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from rcu_tpu.serve import make_http_server as jax_http_server
 from rcu_tpu_torch import serve
@@ -220,9 +221,29 @@ def test_cli_refuses_prewarm_with_quantize(env, monkeypatch):  # noqa: F811
                        "-quantize", "-prewarm", "3x16x20", "-device", "cpu"])
 
 
-@pytest.mark.parametrize("argv,match", [(["-devices", "2"], "item 5"),
-                                        (["-throughput"], "item 5")])
-def test_cli_multi_device_flags_raise(env, argv, match):  # noqa: F811
-    with pytest.raises(NotImplementedError, match=match):
-        serve_cli.cli(["-model_dir", env["model_dir"], "-device", "cpu"]
-                      + argv)
+class _Built(Exception):
+    """Raised in place of binding the port: carries the built service."""
+
+
+@pytest.mark.parametrize("argv,pool", [(["-devices", "2"], 1),
+                                       (["-devices", "2", "-throughput"], 2)])
+def test_cli_multi_device_flags_raise(env, argv, pool,  # noqa: F811
+                                      monkeypatch):
+    """``-devices 2 -device cpu`` serves on the virtual CPU mesh (latency
+    mode; with ``-throughput`` a pool of two); ``-throughput`` without a
+    mesh raises, and so does ``-devices 2`` on cuda with fewer cards."""
+    def built(service, host, port):
+        raise _Built(service)
+
+    monkeypatch.setattr(serve, "make_http_server", built)
+    base = ["-model_dir", env["model_dir"], "-mc", "0"]
+    with pytest.raises(_Built) as got:
+        serve_cli.cli(base + ["-device", "cpu"] + argv)
+    service = got.value.args[0]
+    assert service.pool_size == pool
+    assert (service.mesh is None) == (pool == 2)
+    with pytest.raises(ValueError, match="-throughput needs -devices"):
+        serve_cli.cli(base + ["-device", "cpu", "-throughput"])
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="cuda device"):
+            serve_cli.cli(base + argv)

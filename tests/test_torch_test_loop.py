@@ -42,6 +42,7 @@ from rcu_tpu_torch.engine import test as test_lib
 from rcu_tpu_torch.models import get_model
 from rcu_tpu_torch.models.convert import state_dict_from_flax
 from rcu_tpu_torch.models.unet import ChannelDropout
+from rcu_tpu_torch.parallel import make_mesh
 from tests.test_torch_direct import SHAPE, make_store
 from tests.test_torch_unet import flax_net
 
@@ -318,7 +319,8 @@ def test_run_dir_reservation(env, tmp_path, monkeypatch):
     config = port_cfg.load(write_config(tmp_path / "t.yaml", "r", store,
                                         split, model_dir))
     config.test_dir = str(tmp_path / "runs")
-    ids = iter(["000001-000001", "000001-000001", "000001-000002"])
+    ids = iter(["000001-000001", "000001-000001", "000001-000002",
+                "000001-000003"])
     monkeypatch.setattr(test_lib.ids_lib, "unique_identifier",
                         lambda: next(ids))
     monkeypatch.setattr(test_lib.time, "sleep", lambda s: None)
@@ -326,6 +328,12 @@ def test_run_dir_reservation(env, tmp_path, monkeypatch):
     second = test_lib.TestLoop(config, device="cpu")
     assert os.path.basename(first.run_dir) == "000001-000001_r"
     assert os.path.basename(second.run_dir) == "000001-000002_r"
+    # a loop on a mesh reserves its own run dir too, on the mesh's first
+    # device (the mode itself: tests/test_torch_parallel_serve.py)
+    mesh = make_mesh(n_devices=2, device="cpu")
+    on_mesh = test_lib.TestLoop(config, mesh=mesh)
+    assert os.path.basename(on_mesh.run_dir) == "000001-000003_r"
+    assert on_mesh.mesh is mesh and on_mesh.device == torch.device("cpu")
     monkeypatch.setattr(test_lib.ids_lib, "unique_identifier",
                         lambda: "000001-000001")
     with pytest.raises(RuntimeError, match="after 5 attempts"):
@@ -333,8 +341,6 @@ def test_run_dir_reservation(env, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="model_dir or an explicit model"):
         test_lib.TestLoop(port_cfg.TestConfiguration(test_dir=str(tmp_path)),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        test_lib.TestLoop(config, mesh=object(), device="cpu")
 
 
 class _FirstBatches:
@@ -443,10 +449,15 @@ def test_cli_config_ids_are_the_jax_clis(name, monkeypatch):
     assert strategies.TEST_STRATEGIES[strategy].__name__ == f"test_{strategy}"
     cid = next(iter(port.DEFAULT_CONFIGS))
     assert port.main(None, cid, device="cpu") == "ran"
-    assert seen["device"] == "cpu"
+    assert seen["device"] == "cpu" and seen["mesh"] is None
     assert isinstance(seen["config"], port_cfg.TestConfiguration)
     assert seen.get("symlink_inputs", False) == name.startswith("isic")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        port.main(None, cid, devices=2)
+    # -devices 2 -device cpu: the virtual CPU mesh; on cuda a mesh of two
+    # cards, which raises where there are fewer
+    assert port.main(None, cid, device="cpu", devices=2) == "ran"
+    assert seen["mesh"].devices == (torch.device("cpu"),) * 2
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="cuda device"):
+            port.main(None, cid, devices=2)
     with pytest.raises(ValueError, match="unknown config id"):
         port.main(None, "nope")
