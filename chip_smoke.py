@@ -4,8 +4,8 @@ hand-written kernels (``csrc/evalstats.cu``, the fused eval statistics;
 PyTorch version, then drives the main path, the BraTS MC-dropout direct
 eval, the four other strategy families of the direct eval, the
 inference variants, int8 included, the native-2D (ISIC) direct eval,
-training, the staged chain, serving and the inference paths on a device
-mesh, at full width.
+training, the staged chain, serving, the inference paths on a device
+mesh and training on a device mesh, at full width.
 
   python3 chip_smoke.py
 
@@ -202,21 +202,45 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    on the reference's planes against one launch, counts equal, both
    timed (the record's ``sharded``); a throughput-mode service (a pool of
    2) answering 4 client threads of 2 deterministic requests through
-   ``predict_timed``, each bitwise the single-device service's.
+   ``predict_timed``, each bitwise the single-device service's;
+14. mesh training (``parallel.mesh.shard_train_step``, ``TrainLoop(mesh=)``,
+   ``parallel.ensemble.train_ensemble_fused``, ``utils.profiling``) on
+   the same 2-entry mesh at flagship width (config/train_brats_baseline
+   .yaml, batch 32) on the train phase's stores: one SGD step on the
+   mesh against the single device from the same weights, batch and
+   generator (the loss within 1e-5, every parameter and BatchNorm
+   statistic within rtol 1e-4 / atol 1e-6); one epoch of
+   ``strategies.train_default(mesh=)`` with Adam ("mesh train loop":
+   ms/step after 3 warm-up steps and the host's enqueue time, slices/s,
+   peak GB per device, against phase 10's single-device run; its losses
+   and validation dice held to ``MESH_LOOP_LOSS_RTOL`` and
+   ``MESH_LOOP_DICE_ATOL``) under a ``ProfilerHook`` of steps 2-4, whose
+   Chrome trace must hold CUDA kernels, and 10 profiled mesh steps (busy
+   share); the 10 members on a 2 x 1 model x data mesh: member 0's
+   first lockstep step against its solo step at the SGD bar (and the
+   solo step rerun, the control of cuDNN's order), a lockstep step of
+   the 10 against 10 solo steps, then ``train_ensemble_fused`` for one
+   epoch, each member's best checkpoint through ``eval.direct.load_model``
+   bitwise its state; the practical HBM rate
+   (``measure_practical_hbm``), which gives the eval kernel's record a
+   second bound (``practical_bound_ms``), and the ring over the mesh
+   devices (``measure_practical_ici``; on a virtual mesh an on-card
+   copy). Training launches neither hand kernel.
 
 Every path runs with both kernels' launch counts set to 0 before it and
 read after it, and fails unless it launched the eval kernel once per
 subject (a staged eval: once a pass and subject; a staged test loop:
-never; a latency mesh: once per data device and subject) and the int8
-conv once per quantized site and forward (a latency mesh: and device;
-never on a
-path that quantizes nothing, never its plain version). The last three
-lines are the training phase's numbers (JSON), the kernels' JSON records
+never; a latency mesh: once per data device and subject; mesh training:
+never) and the int8 conv once per quantized site and forward (a latency
+mesh: and device; never on a path that quantizes nothing, never its
+plain version). The last three lines are the training phases' numbers
+(JSON: ``training``, ``mesh_training``), the kernels' JSON records
 (``fused_eval_stats`` and ``int8_conv``; ``launches``: the sum over the
 paths, ``by_path``: each path's launches and numbers, the mesh paths
-as ``mesh_<mode>_<path>``; ``sharded``: the sharded eval's times; the
-int8 record's ``sites``: each site shape's numbers) and ``{"ok": true,
-"device": {...}}``.
+as ``mesh_<mode>_<path>``; ``sharded``: the sharded eval's times;
+``practical_bound_ms``: the eval kernel's bound at the measured HBM
+rate; the int8 record's ``sites``: each site shape's numbers) and
+``{"ok": true, "device": {...}}``.
 """
 import concurrent.futures
 import contextlib
@@ -2372,19 +2396,23 @@ class CsvAtRunDir(train_hooks.TrainLoopHook):
                                     subject_results)
 
 
-def run_training(label, run, config, batch_size, **kwargs):
+def run_training(label, run, config, batch_size, extra_hooks=(),
+                 devices=None, **kwargs):
     """One epoch of ``run`` (a ``strategies.train_*``) with the smoke's
-    hooks (timer, best + 3 last checkpoints, validation CSV); then, from
-    the trained state, ``TRAIN_WARMUP`` steps and ``TRAIN_TIMED`` timed
-    steps (CUDA-synced) on its first batch, and one more checkpoint write
-    timed. Prints a line; returns (loop, the record)."""
+    hooks (timer, best + 3 last checkpoints, validation CSV) and
+    ``extra_hooks``; then, from the trained state, ``TRAIN_WARMUP`` steps
+    and ``TRAIN_TIMED`` timed steps (CUDA-synced) on its first batch, and
+    one more checkpoint write timed. With ``devices`` (a mesh's) the
+    record also holds the timed steps' peak GB of each. Prints a line;
+    returns (loop, the record)."""
     from rcu_tpu_torch.data.loader import prefetch
     timer = TrainTimer()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     loop = run(config, device=DEVICE, hooks=[
         timer, train_hooks.SaveBestModelHook(),
-        train_hooks.SaveNLastModelHook(3), CsvAtRunDir()], **kwargs)
+        train_hooks.SaveNLastModelHook(3), CsvAtRunDir(), *extra_hooks],
+        **kwargs)
     run_s = time.perf_counter() - t0
     run_peak = torch.cuda.max_memory_allocated() / 1e9
     names = sorted(os.listdir(loop.model_files.weight_checkpoint_dir))
@@ -2400,6 +2428,8 @@ def run_training(label, run, config, batch_size, **kwargs):
     batch = next(prefetch(iter(loop.train_data.loader), DEVICE))
     step = loop.train_step
     torch.cuda.reset_peak_memory_stats()
+    if devices is not None:
+        reset_peaks(devices)
     for i in range(TRAIN_WARMUP):
         step(loop.state, batch, steps.step_generator(SEED, 1, i, DEVICE))
     torch.cuda.synchronize()
@@ -2407,9 +2437,11 @@ def run_training(label, run, config, batch_size, **kwargs):
     for i in range(TRAIN_TIMED):
         metrics = step(loop.state, batch,
                        steps.step_generator(SEED, 2, i, DEVICE))
+    enqueue_ms = (time.perf_counter() - t0) / TRAIN_TIMED * 1e3
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / TRAIN_TIMED * 1e3
     step_peak = torch.cuda.max_memory_allocated() / 1e9
+    device_peaks = None if devices is None else peaks_gb(devices)
     if not math.isfinite(float(metrics["loss"])):
         raise AssertionError(f"{label}: non-finite loss after the timed steps")
     path = loop.model_files.build_checkpoint_path(99)
@@ -2419,13 +2451,19 @@ def run_training(label, run, config, batch_size, **kwargs):
     ckpt_mb = os.path.getsize(path) / 1e6
     os.remove(path)
     record = {"steps": len(timer.times), "step_ms": step_ms,
+              "enqueue_ms": enqueue_ms,
               "per_s": batch_size / step_ms * 1e3, "peak_gb": step_peak,
               "run_peak_gb": run_peak, "run_s": run_s,
               "first_loss": timer.losses[0], "last_loss": timer.losses[-1],
+              "losses": timer.losses, "loop_step_ms": None,
               "validation_s_per_subject": timer.validation_s / n_valid,
               "score": timer.score, "checkpoint_s": ckpt_s,
               "checkpoint_mb": ckpt_mb}
+    if device_peaks is not None:
+        record["peak_gb_per_device"] = device_peaks
     loop_steps = timer.times[TRAIN_WARMUP:]
+    if loop_steps:
+        record["loop_step_ms"] = 1e3 * float(np.mean(loop_steps))
     loop_ms = f"{1e3 * np.mean(loop_steps):.1f}" if loop_steps else "n/a"
     log(f"train {label}: one epoch of {len(timer.times)} steps of "
         f"{batch_size} in {run_s:.2f} s (in the loop after {TRAIN_WARMUP} "
@@ -2440,7 +2478,7 @@ def run_training(label, run, config, batch_size, **kwargs):
     return loop, record
 
 
-def profile_train_steps(loop, n=TRAIN_PROFILED):
+def profile_train_steps(loop, n=TRAIN_PROFILED, label="brats default"):
     """``n`` train steps on the loader's batches under torch.profiler: the
     device's busy share of the wall time and the 8 kernels with the most
     device time, names whole."""
@@ -2472,7 +2510,7 @@ def profile_train_steps(loop, n=TRAIN_PROFILED):
         busy += max(0.0, end - max(start, reach))
         reach = max(reach, end)
         by_name[name] = by_name.get(name, 0.0) + end - start
-    log(f"train profile: {n} steps of brats default in {wall_us / 1e6:.3f} s "
+    log(f"train profile: {n} steps of {label} in {wall_us / 1e6:.3f} s "
         f"under the profiler, device busy {busy / 1e6:.3f} s = "
         f"{100 * busy / wall_us:.1f} %, {len(spans)} kernels")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
@@ -2738,7 +2776,8 @@ def train_phase(tmp, dataset=None):
     default (config/train_isic_baseline.yaml, 192x256 through its
     rescale, ISIC validation); card against CPU steps; a profile of 10
     BraTS default steps. Returns ({eval path: by_path record}, the largest
-    card-vs-CPU gradient error, {run: numbers})."""
+    card-vs-CPU gradient error, {run: numbers}, the in-memory stores by
+    dataset name, which the mesh training phase trains on)."""
     from rcu_tpu_torch import strategies
     from rcu_tpu_torch.engine.config import ParametricNode
     from rcu_tpu_torch.eval.direct import load_model
@@ -2808,7 +2847,7 @@ def train_phase(tmp, dataset=None):
             f"eces {eces}")
     err = train_card_vs_cpu(data)
     log(f"train phase: {time.perf_counter() - t0:.1f} s")
-    return by_path, err, runs
+    return by_path, err, runs, stores
 
 
 # ----------------------------------------------------------- staged chain
@@ -3980,6 +4019,278 @@ def mesh_phase(tmp, dataset, checkpoints):
     return by_path, int8_paths, sharded
 
 
+# --------------------------------------------------------- mesh training
+
+# one SGD step, mesh against single device, on the same batch and
+# generator (tests/test_parallel.py's lr and bar): the loss relative;
+# every parameter and BatchNorm statistic |a - b| <= atol + rtol |b|
+MESH_TRAIN_LR = 1e-2
+MESH_TRAIN_LOSS_RTOL = 1e-5
+MESH_TRAIN_RTOL, MESH_TRAIN_ATOL = 1e-4, 1e-6
+# the Adam epoch on the mesh against the single device's (train phase):
+# its first loss (no update yet) at the step's bar; the later losses
+# relative and the validation dice absolute within these (Adam turns
+# rounding noise in near-zero gradients into lr-sized steps, so weights
+# are not compared). Set at ~20x and ~200x this phase's readings on an
+# H100 80GB HBM3 at 700 W (the largest loss 5.4e-5, the dice 2.3e-7-4.6e-7)
+MESH_LOOP_LOSS_RTOL, MESH_LOOP_DICE_ATOL = 1e-3, 1e-4
+MESH_PROFILED = (2, 5)  # ProfilerHook's steps [start, stop)
+ENSEMBLE_CONFIG = "config/train_ensemble/train_brats_ensemble_{}.yaml"
+
+
+def states_apart(got, want):
+    """Two models' state dicts: (the largest |a - b| / (atol + rtol |b|) over
+    every float tensor at the SGD bar, bitwise equal)."""
+    share, bitwise = 0.0, True
+    for (name, a), b in zip(got.state_dict().items(),
+                            want.state_dict().values()):
+        if not a.dtype.is_floating_point:
+            continue
+        bitwise &= torch.equal(a, b)
+        diff = (a.double() - b.double()).abs()
+        share = max(share, float((diff / (MESH_TRAIN_ATOL + MESH_TRAIN_RTOL
+                                          * b.double().abs())).max()))
+    return share, bitwise
+
+
+def sgd_states(configs, devices):
+    """Train states of the flagship from ``configs[i].seed + i`` on
+    ``devices[i]``, SGD at ``MESH_TRAIN_LR``."""
+    from rcu_tpu_torch.engine.state import create_train_state
+    from rcu_tpu_torch.models import get_optimizer
+    sgd = get_optimizer("sgd", {"lr": MESH_TRAIN_LR})
+    return [create_train_state(get_model(cfg.model.type, cfg.model.params),
+                               sgd, cfg.seed + i, d)
+            for i, (cfg, d) in enumerate(zip(configs, devices))]
+
+
+def mesh_step_check(config, mesh, batch):
+    """One SGD step of the flagship on ``mesh`` against the single device
+    from the same weights, batch and generator."""
+    single, = sgd_states([config], [DEVICE])
+    state = copy.deepcopy(single)
+    generator = lambda: steps.step_generator(SEED, 0, 0, DEVICE)  # noqa: E731
+    want = steps.make_train_step()(single, batch, generator())
+    got = steps.make_train_step(mesh=mesh)(state, batch, generator())
+    loss_err = abs(float(got["loss"]) - float(want["loss"])) \
+        / abs(float(want["loss"]))
+    share, bitwise = states_apart(state.model, single.model)
+    dice_err = abs(float(got["dice"]) - float(want["dice"]))
+    log(f"mesh train step: one SGD step (lr {MESH_TRAIN_LR}) of the flagship "
+        f"on {len(batch['valid'])} slices, mesh against single device: loss "
+        f"{float(got['loss']):.6f} / {float(want['loss']):.6f} (relative "
+        f"{loss_err:.2e}, bar {MESH_TRAIN_LOSS_RTOL}), dice delta "
+        f"{dice_err:.2e}; parameters and BatchNorm statistics at "
+        f"{share:.3f} of the bar (rtol {MESH_TRAIN_RTOL}, atol "
+        f"{MESH_TRAIN_ATOL}), bitwise {bitwise}")
+    if loss_err > MESH_TRAIN_LOSS_RTOL or share > 1.0:
+        raise AssertionError("mesh train step: the mesh step misses the "
+                             "single device's")
+    return {"loss_rel_err": loss_err, "dice_err": dice_err,
+            "state_bar_share": share, "bitwise": bitwise}
+
+
+def trace_kernels(trace_dir):
+    """The one Chrome trace under ``trace_dir``: (path, MB, CUDA kernel
+    events)."""
+    paths = sorted(os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+                   if f.endswith(".pt.trace.json"))
+    if len(paths) != 1:
+        raise AssertionError(f"ProfilerHook wrote {paths}, not one trace")
+    with open(paths[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return paths[0], os.path.getsize(paths[0]) / 1e6, kernels
+
+
+def ensemble_configs(root):
+    """The 10 shipped member configs on the smoke's stores, one epoch on
+    the slices through the lesion."""
+    from rcu_tpu_torch.engine import config as cfg_lib
+    from rcu_tpu_torch.engine.config import ParametricNode
+    configs = []
+    for k in range(MEMBERS):
+        cfg = cfg_lib.load(ENSEMBLE_CONFIG.format(k), "train-config")
+        cfg.train_dir, cfg.split, cfg.epochs = root, "", 1
+        cfg.train_data.dataset, cfg.valid_data.dataset = ("brats_train",
+                                                          "brats_valid")
+        cfg.train_data.selection_strategy = ParametricNode("with-foreground",
+                                                           {})
+        configs.append(cfg)
+    return configs
+
+
+def synced_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def fused_ensemble_check(root, devices, batch):
+    """The 10 members on a 2 x 1 model x data mesh (5 a row): one lockstep
+    SGD step against each member's solo step on one device (member 0 held
+    at the SGD bar), then a timed lockstep step against 10 timed solo
+    steps; then ``train_ensemble_fused`` for one epoch (Adam, the shipped
+    configs) and each member's best checkpoint through
+    ``eval.direct.load_model``."""
+    from rcu_tpu_torch.eval.direct import load_model
+    from rcu_tpu_torch.parallel import ensemble as ens_lib
+    configs = ensemble_configs(root)
+    mesh = ens_lib.make_ensemble_mesh(2, devices)
+    placement = ens_lib.member_placement(MEMBERS, mesh)
+    fused = sgd_states(configs, [d for d, _ in placement])
+    solo = sgd_states(configs, [DEVICE] * MEMBERS)
+    row_steps = {}
+    for _, row in placement:
+        row_steps.setdefault(row.devices, steps.make_train_step(mesh=row))
+    member_steps = [row_steps[row.devices] for _, row in placement]
+    single_step = steps.make_train_step()
+    seed = configs[0].seed
+
+    def lockstep(i):
+        ens_lib.ensemble_step(fused, member_steps, [batch] * MEMBERS, [
+            steps.seeded_generator((seed, 0, i, m), d)
+            for m, (d, _) in enumerate(placement)])
+
+    def solos(i):
+        for m, state in enumerate(solo):
+            single_step(state, batch,
+                        steps.seeded_generator((seed, 0, i, m), DEVICE))
+
+    control = copy.deepcopy(solo[0])
+    lockstep(0)
+    solos(0)
+    share, bitwise = states_apart(fused[0].model, solo[0].model)
+    # the control: member 0's solo step again from the same weights
+    single_step(control, batch, steps.seeded_generator((seed, 0, 0, 0),
+                                                       DEVICE))
+    _, rerun_bitwise = states_apart(control.model, solo[0].model)
+    del control
+    fused_s, solo_s = synced_s(lambda: lockstep(1)), synced_s(lambda: solos(1))
+    log(f"fused ensemble step: {MEMBERS} members on a 2 x 1 model x data "
+        f"mesh, member 0 after its first step against its solo step at "
+        f"{share:.3f} of the SGD bar, bitwise {bitwise} (the solo step "
+        f"rerun from the same weights bitwise {rerun_bitwise}); one "
+        f"lockstep step "
+        f"of the {MEMBERS} members {fused_s:.3f} s against {MEMBERS} solo "
+        f"steps {solo_s:.3f} s (batch {len(batch['valid'])}, synced)")
+    if share > 1.0:
+        raise AssertionError("fused ensemble: member 0 misses its solo step")
+    del fused, solo
+    t0 = time.perf_counter()
+    members = ens_lib.train_ensemble_fused(configs, mesh=mesh)
+    run_s = time.perf_counter() - t0
+    x = batch["images"][:2].permute(0, 3, 1, 2)
+    for m in members:
+        model = load_model(m.model_files.model_dir, "best", DEVICE)
+        share_m, same = states_apart(model, m.state.model)
+        with torch.no_grad():
+            finite = bool(torch.isfinite(model(x).logits).all())
+        if not (same and finite and math.isfinite(m.best_score)):
+            raise AssertionError(f"fused ensemble: {m.run_dir}'s best "
+                                 f"checkpoint (bitwise {same}, finite "
+                                 f"{finite}, score {m.best_score})")
+    steps_run = min(m.train_data.nb_batches for m in members)
+    log(f"fused ensemble run: train_ensemble_fused, {MEMBERS} members x "
+        f"{steps_run} steps of {configs[0].train_data.batch_size} + "
+        f"validation and checkpoints in {run_s:.2f} s; the {MEMBERS} best "
+        f"checkpoints restore through eval.direct.load_model bitwise, "
+        f"scores {[round(m.best_score, 4) for m in members]}")
+    return {"member0_bar_share": share, "member0_bitwise": bitwise,
+            "solo_rerun_bitwise": rerun_bitwise,
+            "lockstep_s": fused_s, "solo_s": solo_s, "run_s": run_s,
+            "run_steps": steps_run}
+
+
+def mesh_train_phase(tmp, stores, single):
+    """Training on a 2-entry mesh (:func:`mesh_devices`) at flagship width
+    (config/train_brats_baseline.yaml, batch 32) on the train phase's
+    stores: one SGD step against the single device; one epoch of
+    ``strategies.train_default(mesh=)`` with Adam against the train
+    phase's single-device run (``single``) under a ``ProfilerHook``,
+    whose trace must hold CUDA kernels; the fused 10-member ensemble
+    (:func:`fused_ensemble_check`); the practical HBM rate and the ring
+    over the mesh devices. Training launches neither hand kernel.
+    Returns ({check: numbers}, the practical HBM rate in bytes/s)."""
+    from rcu_tpu_torch import strategies
+    from rcu_tpu_torch.engine import databuild
+    from rcu_tpu_torch.parallel import Mesh
+    from rcu_tpu_torch.utils.profiling import (ProfilerHook,
+                                               measure_practical_hbm,
+                                               measure_practical_ici)
+    t_phase = time.perf_counter()
+    devices, what = mesh_devices()
+    log(f"mesh training devices: {[str(d) for d in devices]} ({what})")
+    mesh = Mesh(devices)
+    root = _subdir(tmp, "mesh_train")
+    out = {}
+    evalstats.fused_eval_stats.launches = 0
+    int8conv.int8_conv.launches = 0
+    with memory_stores(stores):
+        config = train_config("default", root, "brats_train", "brats_valid")
+        loader = databuild.build_data(config.train_data,
+                                      seed=config.seed).loader
+        batch = {k: torch.from_numpy(v).to(DEVICE)
+                 for k, v in next(iter(loader)).items()}
+        out["step"] = mesh_step_check(config, mesh, batch)
+
+        trace_dir = _subdir(tmp, "mesh_train_trace")
+        loop, record = run_training(
+            "mesh brats default", strategies.train_default, config,
+            config.train_data.batch_size, devices=devices, mesh=mesh,
+            extra_hooks=[ProfilerHook(trace_dir, *MESH_PROFILED)])
+        losses, want = record["losses"], single["losses"]
+        if len(losses) != len(want):
+            raise AssertionError(f"mesh loop: {len(losses)} steps against "
+                                 f"{len(want)}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+        dice_err = abs(record["score"] - single["score"])
+        path, mb, kernels = trace_kernels(trace_dir)
+        log(f"mesh train loop: one epoch of brats default (adam) on the mesh "
+            f"against the single device: {record['step_ms']:.2f} / "
+            f"{single['step_ms']:.2f} ms/step after {TRAIN_WARMUP} warm-up "
+            f"steps (the host's enqueue {record['enqueue_ms']:.2f} / "
+            f"{single['enqueue_ms']:.2f} ms/step), {record['per_s']:.1f} / "
+            f"{single['per_s']:.1f} slices/s, "
+            f"peak GB per device {record['peak_gb_per_device']} / "
+            f"{single['peak_gb']:.2f}; losses relative to the single "
+            f"device's: first {rel[0]:.2e} (bar {MESH_TRAIN_LOSS_RTOL}), the "
+            f"largest {max(rel):.2e} (bar {MESH_LOOP_LOSS_RTOL}); validation "
+            f"dice {record['score']:.4f} / {single['score']:.4f} (delta "
+            f"{dice_err:.2e}, bar {MESH_LOOP_DICE_ATOL})")
+        log(f"mesh train profile: ProfilerHook steps {MESH_PROFILED[0]}-"
+            f"{MESH_PROFILED[1] - 1} -> {os.path.basename(path)}, {mb:.1f} MB, "
+            f"{len(kernels)} CUDA kernel events")
+        if rel[0] > MESH_TRAIN_LOSS_RTOL or max(rel) > MESH_LOOP_LOSS_RTOL \
+                or dice_err > MESH_LOOP_DICE_ATOL:
+            raise AssertionError("mesh train loop: the mesh run misses the "
+                                 "single device's")
+        if not kernels:
+            raise AssertionError(f"{path} holds no CUDA kernels")
+        record.update(loss_rel_err=rel, dice_err=dice_err,
+                      trace_mb=mb, trace_kernels=len(kernels))
+        record["busy_share"] = profile_train_steps(loop,
+                                                   label="mesh brats default")
+        out["loop"] = record
+        del loop
+        out["ensemble"] = fused_ensemble_check(root, devices, batch)
+    launched = (evalstats.fused_eval_stats.launches,
+                int8conv.int8_conv.launches)
+    if launched != (0, 0):
+        raise AssertionError(f"mesh training launched the hand kernels "
+                             f"{launched} times")
+    hbm = measure_practical_hbm(device=DEVICE)
+    ici = measure_practical_ici(mesh)
+    log(f"practical HBM: {hbm / 1e9:.1f} GB/s (multiply-add stream over "
+        f"512 MiB, CUDA events, best of 3); ring over the mesh devices "
+        f"({what}): {ici / 1e9:.1f} GB/s a link, one direction")
+    out["practical_hbm_gb_s"], out["ring_gb_s"] = hbm / 1e9, ici / 1e9
+    log(f"mesh training phase: {time.perf_counter() - t_phase:.1f} s")
+    return out, hbm
+
+
 def main():
     t_start = time.perf_counter()
     hbm_rate = device_phase()
@@ -4017,12 +4328,15 @@ def main():
         isic_paths, isic_int8, axis, isic_err = isic_phase(tmp, hbm_rate,
                                                            ptxas)
         log(f"isic phase: {time.perf_counter() - t0:.1f} s")
-        train_paths, train_err, train_runs = train_phase(tmp)
+        train_paths, train_err, train_runs, train_stores = train_phase(tmp)
         staged_paths, staged_err = staged_phase(tmp, dataset, checkpoints,
                                                 hbm_rate, ptxas)
         serve_paths, serve_int8 = serve_phase(tmp, dataset, checkpoints)
         mesh_paths, mesh_int8, sharded = mesh_phase(tmp, dataset,
                                                     checkpoints)
+        mesh_train, practical_hbm = mesh_train_phase(
+            tmp, train_stores, train_runs["brats_default"])
+        del train_stores
     record["by_path"] = {"mc": {"launches": record["launches"]}, **by_path,
                          **variants, **int8_paths, **isic_paths,
                          **train_paths, **staged_paths, **serve_paths,
@@ -4032,13 +4346,19 @@ def main():
     record["max_abs_err"] = max(record["max_abs_err"], err, variant_err,
                                 isic_err, staged_err)
     record["image_axis"] = axis
+    # the eval kernel's bound at the practical memory rate beside the spec's
+    record["practical_hbm_bytes_per_s"] = practical_hbm
+    record["practical_bound_ms"] = record["bound_ms"] * hbm_rate / practical_hbm
+    log(f"fused_eval_stats bound: {record['bound_ms']:.4f} ms at the spec's "
+        f"{hbm_rate / 1e12:.2f} TB/s, {record['practical_bound_ms']:.4f} ms "
+        f"at the practical {practical_hbm / 1e12:.3f} TB/s")
     int8_record["by_path"]["isic_mc_bf16_fast_int8"] = isic_int8
     int8_record["by_path"]["serve_mc_bf16_fast_int8"] = serve_int8
     int8_record["by_path"].update(mesh_int8)
     int8_record["launches"] += isic_int8["launches"] + serve_int8["launches"] \
         + sum(p["launches"] for p in mesh_int8.values())
     log(f"smoke run: {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"training": train_runs,
+    log(json.dumps({"training": train_runs, "mesh_training": mesh_train,
                     "card_vs_cpu_grad_err": train_err}))
     log(json.dumps({"kernels": [record, int8_record]}))
     log(json.dumps({"ok": True, "device": {

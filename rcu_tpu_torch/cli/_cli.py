@@ -1,8 +1,7 @@
 """Shared plumbing of the train and test entry points (``bin/_cli.py``
 counterpart): ``-config_file`` or ``-config_id`` (a default yaml of
-``config/``), ``-device`` (default cuda) and ``-devices`` (a test runs on
-a mesh of that many devices; training on more than one raises until its
-slice)."""
+``config/``), ``-device`` (default cuda) and ``-devices`` (a test or a
+training runs on a mesh of that many devices)."""
 import argparse
 import logging
 import os
@@ -20,15 +19,6 @@ def resolve_config(config_file, config_id, default_map: dict, default_id: str):
     if cid not in default_map:
         raise ValueError(f'unknown config id "{cid}"; known: {sorted(default_map)}')
     return os.path.join(dirs.CONFIG_DIR, default_map[cid])
-
-
-def check_devices(devices):
-    """The train entry points' refusal of ``-devices`` above 1."""
-    if devices is not None and devices > 1:
-        raise NotImplementedError(
-            "-devices > 1 trains on a mesh, which is not ported to "
-            "rcu_tpu_torch yet (ROADMAP.md queue 1, item 1b: multi-device "
-            "training)")
 
 
 def mesh_from_devices(devices, device=None):
@@ -51,8 +41,7 @@ def run_main(main_fn, description: str):
     parser.add_argument("-device", type=str, default=None,
                         help="torch device (default cuda)")
     parser.add_argument("-devices", type=int, nargs="?", default=None,
-                        help="devices to run on: a test runs on a mesh "
-                             "of N (training: one until its slice)")
+                        help="devices to run on: a mesh of N")
     args = parser.parse_args()
     logging.basicConfig(level=logging.INFO)
     try:

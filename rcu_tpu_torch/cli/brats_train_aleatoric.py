@@ -2,6 +2,11 @@
 to its default yaml and runs ``rcu_tpu_torch.strategies.train_aleatoric``.
 
   python -m rcu_tpu_torch.cli.brats_train_aleatoric [-config_file F | -config_id ID] [-device cpu]
+      [-devices N]
+
+``-devices N`` trains on a mesh of N cards (with ``-device cpu``, N
+entries of the CPU: the virtual mesh); each step computes what one
+device computes on the whole batch.
 """
 from rcu_tpu_torch.cli import _cli
 
@@ -9,12 +14,12 @@ DEFAULT_CONFIGS = {'aleatoric': 'train_brats_aleatoric.yaml'}
 
 
 def main(config_file, config_id=None, device=None, devices=None):
-    _cli.check_devices(devices)
+    mesh = _cli.mesh_from_devices(devices, device)
     config_file = _cli.resolve_config(config_file, config_id, DEFAULT_CONFIGS,
                                       'aleatoric')
     from rcu_tpu_torch import strategies
     config = _cli.load_train_config(config_file)
-    return strategies.train_aleatoric(config, device=device)
+    return strategies.train_aleatoric(config, device=device, mesh=mesh)
 
 
 def cli():

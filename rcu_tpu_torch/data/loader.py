@@ -4,7 +4,8 @@
 - :class:`SliceBatchLoader` yields dicts of numpy arrays, the batches of
   the JAX package's loader for the same dataset, indices, seed and epoch:
   the epoch order is ``np.random.RandomState(seed + epoch)``, uniform or
-  in chunks (``shuffle_chunk``); the ragged last batch is padded to
+  in chunks (``shuffle_chunk``), and with ``shard=(host, n)`` this host's
+  rows of it (a stride, or whole chunks); the ragged last batch is padded to
   ``batch_size`` by repeating its last item and carries ``valid`` (1 for a
   real item), ``subject_index`` and ``slice_index``. Items are read row by
   row (the JAX package's ranged HDF5 reads give the same arrays); with
@@ -41,10 +42,6 @@ class SliceBatchLoader:
                  seed: int = 0, drop_remainder: bool = False,
                  transform=None, indexing=None, num_workers: int = 0,
                  shard=None, shuffle_chunk: int = 0):
-        if shard is not None:
-            raise NotImplementedError(
-                "sharded loading is not ported to rcu_tpu_torch yet "
-                "(ROADMAP.md queue 1, item 5: multi-device)")
         if shuffle_chunk < 0:
             raise ValueError(f"shuffle_chunk must be >= 0, got {shuffle_chunk}")
         self.dataset = dataset
@@ -58,6 +55,12 @@ class SliceBatchLoader:
         self.drop_remainder = drop_remainder
         self.transform = transform
         self.num_workers = int(num_workers or 0)
+        if shard is not None:
+            shard_id, n_shards = shard
+            if not 0 <= shard_id < n_shards:
+                raise ValueError(f"shard {shard} must satisfy "
+                                 "0 <= shard_id < n_shards")
+        self.shard = shard
         self._pool = None  # created on first use, shared across epochs
         self._epoch = 0
 
@@ -88,8 +91,19 @@ class SliceBatchLoader:
         """Reseed the shuffle for ``epoch`` (seed + epoch)."""
         self._epoch = epoch
 
+    def _shard(self, order):
+        """This host's rows of the epoch order (``shard=(host, n)``): a
+        stride through it, so that a global shuffle still mixes subjects
+        across hosts, cut to the common length, so that every host runs
+        the same number of batches (lockstep collectives)."""
+        if self.shard is None:
+            return order
+        shard_id, n_shards = self.shard
+        return order[shard_id::n_shards][:len(order) // n_shards]
+
     def _epoch_order(self):
-        """This epoch's item order, uniform or chunked shuffle."""
+        """This epoch's item order, uniform or chunked shuffle, then this
+        host's shard."""
         order = np.arange(len(self.indices))
         c = self.shuffle_chunk
         if self.shuffle and c > 1:
@@ -101,15 +115,34 @@ class SliceBatchLoader:
             n_full = len(body) // c
             chunks = [body[k * c:(k + 1) * c] for k in range(n_full)]
             tail = body[n_full * c:]
-            chunks.extend(p for p in (head, tail) if len(p))
-            if not chunks:
-                return order
-            perm = rng.permutation(len(chunks))
-            return np.concatenate([chunks[k] for k in perm])
+            if self.shard is None:
+                chunks.extend(p for p in (head, tail) if len(p))
+                if not chunks:
+                    return order
+                perm = rng.permutation(len(chunks))
+                return np.concatenate([chunks[k] for k in perm])
+            # a shard takes whole chunks (a stride through rows would break
+            # the runs that the chunks keep) of the same shuffled chunk
+            # order, as many as the worst chunk origin leaves every shard,
+            # so that each epoch has the same length
+            shard_id, n_shards = self.shard
+            n_min_full = max(0, len(order) - (c - 1)) // c
+            n_per = n_min_full // n_shards
+            if n_per == 0 and len(order):
+                raise ValueError(
+                    f"chunked shuffle with shard={self.shard} needs at least "
+                    f"{n_shards} full chunks at any epoch offset, got "
+                    f"{n_min_full} ({len(order)} items / shuffle_chunk={c}); "
+                    "reduce shuffle_chunk or disable chunked shuffle")
+            perm = rng.permutation(n_full)
+            mine = perm[shard_id::n_shards][:n_per]
+            if n_per == 0:
+                return order[:0]
+            return np.concatenate([chunks[k] for k in mine])
         if self.shuffle:
             rng = np.random.RandomState(self.seed + self._epoch)
             rng.shuffle(order)
-        return order
+        return self._shard(order)
 
     def _read(self, subject_idx: int, slice_idx: int) -> dict:
         subject = self.dataset.subjects[subject_idx]

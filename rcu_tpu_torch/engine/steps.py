@@ -5,31 +5,35 @@ Public layout is the JAX package's: NHWC images in, ``(..., classes)``
 probabilities out (views over the NCHW compute, no copies). Models return
 ``models.unet.UNetOutput``.
 
-A train step is a plain function ``(state, batch, generator) -> metrics``
+A train step is called as ``(state, batch, generator) -> metrics``
 (``engine.state.TrainState``; a batch of the loader's tensors on the
-state's device): one forward in train mode with channel dropout drawn from
-``generator``, the valid-masked loss, its backward and one optimizer
-update. The metrics (``loss``, ``dice``: the batch's smooth dice) stay on
-the device; the hooks fetch them at their cadence. Per-step randomness is
+state's device, or, on a mesh, anywhere): one forward in train mode with
+channel dropout drawn from ``generator``, the valid-masked loss, its
+backward and one optimizer update (:class:`TrainStep`; on a mesh's data
+axis :class:`MeshTrainStep`, the same result for the whole batch). The
+metrics (``loss``, ``dice``: the batch's smooth dice) stay on the device;
+the hooks fetch them at their cadence. Per-step randomness is
 :func:`step_generator` of ``(seed, epoch, step)``, the port's analogue of
 ``fold_in(fold_in(key, epoch), step)``.
 """
 from __future__ import annotations
+
+import typing
 
 import numpy as np
 import torch
 from torch.nn import functional as F
 
 from rcu_tpu_torch.ops import losses, metrics
+from rcu_tpu_torch.parallel import mesh as mesh_lib
 from rcu_tpu_torch.parallel.ensemble import (ensemble_summary, member_sums,
                                              shard_ensemble_predict_fn)
 from rcu_tpu_torch.parallel.mesh import mesh_predict, replicate
 
-# training on a mesh and the JAX package's remat policies wait for their
-# slices (ROADMAP.md queue 1 item 1b and queue 1 item 4); remat is a
-# measured negative there
+# the JAX package's remat policies wait for their slice (ROADMAP.md queue
+# 1 item 4); remat is a measured negative there
 _LATER = ("{} is not ported to rcu_tpu_torch yet (ROADMAP.md queue 1, "
-          "item 1b: training on a mesh; item 4: the remat policies)")
+          "item 4: the remat policies)")
 
 
 def to_model_layout(images, model):
@@ -112,22 +116,30 @@ def step_generator(seed: int, epoch: int, step: int, device) -> torch.Generator:
     return seeded_generator((seed, epoch, step), device)
 
 
-def _check_later(remat=None, mesh=None):
+def _check_later(remat=None):
     if remat not in (None, "conv", "full"):
         raise ValueError(f"unknown remat policy '{remat}'; "
                          "choose None, 'conv' or 'full'")
     if remat is not None:
         raise NotImplementedError(_LATER.format(f"remat={remat!r}"))
-    if mesh is not None:
-        raise NotImplementedError(_LATER.format("training on a mesh"))
+
+
+def _masked_sum(per_px: torch.Tensor, valid: torch.Tensor):
+    """The sum over the pixels of the valid batch items; per_px (B, H, W),
+    valid (B,)."""
+    return torch.sum(per_px * valid[:, None, None])
+
+
+def _valid_pixels(valid: torch.Tensor, h: int, w: int):
+    """The pixels of the valid batch items: the masked mean's normalizer
+    (the whole batch's, on a mesh)."""
+    return torch.sum(valid) * h * w
 
 
 def _masked_mean(per_px: torch.Tensor, valid: torch.Tensor):
     """Mean over the pixels of the valid batch items; per_px (B, H, W),
     valid (B,)."""
-    w = valid[:, None, None]
-    return torch.sum(per_px * w) / (torch.sum(valid) * per_px.shape[1]
-                                    * per_px.shape[2])
+    return _masked_sum(per_px, valid) / _valid_pixels(valid, *per_px.shape[1:])
 
 
 def _masked_ce(logits, labels, valid):
@@ -135,25 +147,163 @@ def _masked_ce(logits, labels, valid):
 
 
 @torch.no_grad()
-def _batch_smooth_dice(logits, labels, valid):
-    """Valid-masked smooth dice of the softmax probabilities (B, C, H, W)
-    against the one-hot labels (B, H, W): the train score."""
+def _dice_sums(logits, labels, valid):
+    """The smooth dice's sums over the valid items: (intersection, sum of
+    the softmax probabilities, sum of the one-hot labels), stacked; a
+    mesh adds them over the parts."""
     probs = torch.softmax(logits, dim=1)
     onehot = F.one_hot(labels.long(), logits.shape[1]).permute(0, 3, 1, 2) \
         .to(probs.dtype)
     w = valid[:, None, None, None]
     iflat = (probs * w).reshape(-1)
     tflat = (onehot * w).reshape(-1)
-    intersection = torch.sum(iflat * tflat)
-    return (2.0 * intersection + 1.0) / (torch.sum(iflat) + torch.sum(tflat)
-                                         + 1.0)
+    return torch.stack([torch.sum(iflat * tflat), torch.sum(iflat),
+                        torch.sum(tflat)])
 
 
-def _update(state, loss, logits, target, valid) -> dict:
-    loss.backward()
-    state.step()
-    return {"loss": loss.detach(),
-            "dice": _batch_smooth_dice(logits.detach(), target, valid)}
+def _smooth_dice(sums):
+    intersection, isum, tsum = sums.unbind()
+    return (2.0 * intersection + 1.0) / (isum + tsum + 1.0)
+
+
+def _batch_smooth_dice(logits, labels, valid):
+    """Valid-masked smooth dice of the softmax probabilities (B, C, H, W)
+    against the one-hot labels (B, H, W): the train score."""
+    return _smooth_dice(_dice_sums(logits, labels, valid))
+
+
+class PartSums(typing.NamedTuple):
+    """What a train step's forward gives for its rows: the masked sum of
+    the target's log probability (differentiable) and the dice sums."""
+    log_prob_sum: torch.Tensor
+    dice: torch.Tensor
+
+
+def _part_sums(per_px, logits, target, valid) -> PartSums:
+    return PartSums(_masked_sum(per_px, valid),
+                    _dice_sums(logits.detach(), target, valid))
+
+
+class TrainStep:
+    """A train step ``(state, batch, generator[, noise]) -> metrics`` on
+    one device (``state.model``'s): ``part(model, batch, generators,
+    noise)`` runs the forward of a batch in train mode and gives its
+    :class:`PartSums`; the loss is minus their log-probability sum over
+    the batch's valid pixels, and one backward and one optimizer update
+    follow. The metrics (``loss``, ``dice``: the batch's smooth dice) stay
+    on the device. :func:`parallel.mesh.shard_train_step` runs the same
+    ``part`` on each data device of a mesh (:class:`MeshTrainStep`)."""
+
+    def __init__(self, part):
+        self.part = part
+
+    def __call__(self, state, batch: dict, generator, noise=None) -> dict:
+        sums = self.part(state.model.train(), batch, [generator], noise)
+        loss = -(sums.log_prob_sum
+                 / _valid_pixels(batch["valid"], *batch["labels"].shape[1:3]))
+        loss.backward()
+        state.step()
+        return {"loss": loss.detach(), "dice": _smooth_dice(sums.dice)}
+
+
+class MeshTrainStep:
+    """A :class:`TrainStep` on the data axis of ``mesh`` (JAX's GSPMD
+    meaning, ``rcu_tpu.parallel.mesh.shard_train_step``): it computes what
+    the single step computes on the whole batch.
+
+    The batch (on the host or any device) splits into contiguous parts,
+    one a data device (``parallel.mesh.split_batch``); each part runs on
+    a train-mode copy of the model (``parallel.mesh.TrainReplicas``; the
+    first is ``state.model``) in a thread of its own
+    (``parallel.mesh.run_parts``). BatchNorm adds its sums over the parts
+    (``models.unet.batch_norm_train``, ``parallel.mesh.all_sum``), so it
+    normalizes with the whole batch's moments and updates its running
+    statistics from them. A part's generator starts where the step's
+    does and draws the whole batch's dropout masks and aleatoric noise,
+    keeping its rows (:class:`ShardGenerators`). The parts' sums add in
+    data-axis order on the first device, where the loss divides by the
+    whole batch's valid pixels; one backward runs through every part,
+    the parts' gradients add on the first device
+    (``parallel.mesh.reduce_gradients``) and the optimizer updates once
+    there; the copies take the new weights at the next step. In a
+    process group every process is a block of rows of one global batch
+    (``parallel.mesh.process_rows``), and the sums and the gradients are
+    also all-reduced across the processes. One data device and no
+    process group is the single step itself."""
+
+    def __init__(self, step: TrainStep, mesh):
+        self.step, self.mesh = step, mesh
+        self.devices = mesh.data_devices
+        self.replicas = mesh_lib.TrainReplicas(self.devices)
+
+    def __call__(self, state, batch: dict, generator, noise=None) -> dict:
+        home = self.devices[0]
+        spread = mesh_lib.distributed()
+        if len(self.devices) == 1 and not spread:
+            batch = {k: v.to(home, non_blocking=True) for k, v in batch.items()}
+            return self.step(state, batch, generator, noise)
+        models = self.replicas(state.model)
+        n = len(batch["valid"])
+        bounds = mesh_lib.split_bounds(n, len(self.devices))
+        if any(b <= a for a, b in bounds):
+            raise ValueError(f"a batch of {n} rows on a {len(self.devices)}-"
+                             "device data axis leaves a device without rows: "
+                             "pad it (parallel.mesh.pad_batch_size_to_mesh)")
+        offset, total = mesh_lib.process_rows(n)
+        rows = [(offset + a, offset + b, total) for a, b in bounds]
+        parts = mesh_lib.split_batch(batch, self.mesh)
+        noises = [None if noise is None else noise[:, a:b].to(d)
+                  for d, (a, b) in zip(self.devices, bounds)]
+        generators = [_clone_generator(generator, d) for d in self.devices]
+
+        def run(i):
+            return self.step.part(models[i], parts[i],
+                                  ShardGenerators([generators[i]], rows[i]),
+                                  noises[i])
+
+        sums = mesh_lib.run_parts(run, self.devices, rows, spread)
+        log_prob_sum, dice = sums[0]
+        for s in sums[1:]:
+            log_prob_sum = log_prob_sum + s.log_prob_sum.to(home)
+            dice = dice + s.dice.to(home)
+        pixels = _valid_pixels(batch["valid"].to(home),
+                               *batch["labels"].shape[1:3])
+        with torch.no_grad():
+            pixels = mesh_lib.all_reduce_sum(pixels)
+        # this process's share of the loss: the processes' shares add up
+        # to the global loss, as their gradients do
+        (-(log_prob_sum / pixels)).backward()
+        mesh_lib.reduce_gradients(models, spread)
+        state.step()
+        with torch.no_grad():
+            loss = -(mesh_lib.all_reduce_sum(log_prob_sum.detach()) / pixels)
+            dice = mesh_lib.all_reduce_sum(dice)
+        return {"loss": loss, "dice": _smooth_dice(dice)}
+
+
+def _clone_generator(generator, device) -> torch.Generator:
+    """A generator on ``device`` in ``generator``'s state."""
+    g = torch.Generator(device=device)
+    g.set_state(generator.get_state())
+    return g
+
+
+def _aleatoric_noise(nb_samples, logits, generators):
+    """The aleatoric loss's standard normal draws for a part's rows
+    (``rows`` of :class:`ShardGenerators`: the whole batch's draw, these
+    rows kept), or None: the single step draws them in
+    ``losses.aleatoric_log_probs``."""
+    rows = getattr(generators, "rows", None)
+    if rows is None:
+        return None
+    start, stop, total = rows
+    return torch.randn((nb_samples, total) + tuple(logits.shape[1:]),
+                       generator=generators[0], device=logits.device,
+                       dtype=logits.dtype)[:, start:stop]
+
+
+def _on_mesh(step: TrainStep, mesh):
+    return step if mesh is None else mesh_lib.shard_train_step(step, mesh)
 
 
 def make_train_step(loss_kind: str = "ce", is_log_sigma: bool = False,
@@ -161,26 +311,29 @@ def make_train_step(loss_kind: str = "ce", is_log_sigma: bool = False,
     """The CE or aleatoric train step. ``'aleatoric'`` needs a sigma-headed
     model: its loss averages the softmax over ``nb_samples`` draws of
     Normal(logits, sigma), drawn from the step's generator after the
-    dropout masks, or given as ``noise`` (``losses.aleatoric_log_probs``).
-    ``remat`` and ``mesh`` raise ``NotImplementedError``."""
+    dropout masks, or given as ``noise`` (``losses.aleatoric_log_probs``;
+    the whole batch's on a mesh). With ``mesh`` the step runs on its data
+    axis (:class:`MeshTrainStep`). ``remat`` raises
+    ``NotImplementedError``."""
     if loss_kind not in ("ce", "aleatoric"):
         raise ValueError(f"unknown loss_kind '{loss_kind}'; "
                          "choose 'ce' or 'aleatoric'")
-    _check_later(remat, mesh)
+    _check_later(remat)
 
-    def train_step(state, batch: dict, generator, noise=None) -> dict:
-        model = state.model.train()
-        out = model(to_model_layout(batch["images"], model), [generator])
+    def part(model, batch: dict, generators, noise=None) -> PartSums:
+        out = model(to_model_layout(batch["images"], model), generators)
         labels, valid = batch["labels"].long(), batch["valid"]
         if loss_kind == "aleatoric":
-            loss = -_masked_mean(losses.aleatoric_log_probs(
+            if noise is None:
+                noise = _aleatoric_noise(nb_samples, out.logits, generators)
+            per_px = losses.aleatoric_log_probs(
                 out.logits, out.sigma, labels, is_log_sigma, nb_samples,
-                generator, noise), valid)
+                generators[0], noise)
         else:
-            loss = _masked_ce(out.logits, labels, valid)
-        return _update(state, loss, out.logits, labels, valid)
+            per_px = losses.ce_log_probs(out.logits, labels)
+        return _part_sums(per_px, out.logits, labels, valid)
 
-    return train_step
+    return _on_mesh(TrainStep(part), mesh)
 
 
 def _aux_segm_inputs(batch):
@@ -200,15 +353,19 @@ def make_auxiliary_train_step(segm_model=None, remat: str = None, mesh=None):
     gradients, the PostNet reads its features and the target is
     ``argmax(logits) != labels``; without (auxiliary_segm) the model reads
     the images with the baseline prediction appended, and the target is
-    ``baseline != gt``."""
-    _check_later(remat, mesh)
+    ``baseline != gt``. With ``mesh`` the step runs on its data axis
+    (:class:`MeshTrainStep`), the frozen segmenter replicated on the data
+    devices."""
+    _check_later(remat)
+    segmenters = {} if mesh is None or segm_model is None else dict(zip(
+        mesh.data_devices, replicate(segm_model, mesh.data_devices)))
 
-    def train_step(state, batch: dict, generator) -> dict:
-        model = state.model.train()
+    def part(model, batch: dict, generators, noise=None) -> PartSums:
         if segm_model is not None:
+            segmenter = segmenters.get(batch["images"].device, segm_model)
             with torch.no_grad():
-                segm_out = segm_model(to_model_layout(batch["images"],
-                                                      segm_model))
+                segm_out = segmenter(to_model_layout(batch["images"],
+                                                     segmenter))
             target = (torch.argmax(segm_out.logits, dim=1)
                       != batch["labels"].long()).long()
             inputs = segm_out.features
@@ -216,12 +373,11 @@ def make_auxiliary_train_step(segm_model=None, remat: str = None, mesh=None):
             gt, baseline, images = _aux_segm_inputs(batch)
             target = (baseline != gt).long()
             inputs = to_model_layout(images, model)
-        out = model(inputs, [generator])
-        valid = batch["valid"]
-        return _update(state, _masked_ce(out.logits, target, valid),
-                       out.logits, target, valid)
+        out = model(inputs, generators)
+        return _part_sums(losses.ce_log_probs(out.logits, target), out.logits,
+                          target, batch["valid"])
 
-    return train_step
+    return _on_mesh(TrainStep(part), mesh)
 
 
 class ShardGenerators(list):

@@ -1,5 +1,6 @@
-"""The training run (``rcu_tpu.engine.train`` counterpart): one device, the
-JAX package's run directory, resume, validation and checkpoint retention.
+"""The training run (``rcu_tpu.engine.train`` counterpart): one device or a
+mesh, the JAX package's run directory, resume, validation and checkpoint
+retention.
 
 - run dir ``<train_dir>/<run_id>_<train_name>``, reserved by an exclusive
   create; a ``train_name`` that starts with a run id resumes that run from
@@ -16,6 +17,16 @@ JAX package's run directory, resume, validation and checkpoint retention.
 The run is on ``cuda`` unless the caller passes ``device``; cuDNN and
 matmul TF32 are off while it runs (the caller's flags come back after, also
 on error), so that float32 training is float32.
+
+With ``mesh`` (a ``parallel.Mesh``) the state lives on the mesh's first
+device, the train and valid batch sizes round up to its data axis
+(``parallel.pad_batch_size_to_mesh``), the batches stay on the host
+(pinned where the mesh holds a card) and the train step, a mesh step
+(``steps.make_*train_step(mesh=)``), splits each over the data devices;
+validation runs the predict function of the mesh
+(``steps.make_*predict_fn(mesh)``) on one eval-mode replica a data
+device (``parallel.replicate``); checkpoints are written from the first
+device.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ from rcu_tpu_torch.eval.device import full_float32
 from rcu_tpu_torch.eval.direct import resolve_device
 from rcu_tpu_torch.models import get_model, get_optimizer
 from rcu_tpu_torch.ops import metrics as metrics_lib
+from rcu_tpu_torch.parallel.mesh import pad_batch_size_to_mesh, replicate
 from rcu_tpu_torch.utils import ids as ids_lib
 from rcu_tpu_torch.utils import logs as logs_lib
 
@@ -57,22 +69,39 @@ def default_eval_subject_fn(subject_data: dict, info: dict) -> typing.Tuple[dict
     return {"dice": dice, "ce": ce}, dice
 
 
+def reserve_run_dir(config) -> typing.Tuple[str, str]:
+    """A new run id and its run dir ``<train_dir>/<run_id>_<train_name>``,
+    reserved by an exclusive create: ids have 1-second resolution, so
+    that two runs started in the same second never share one."""
+    for _ in range(5):
+        run_id = ids_lib.unique_identifier()
+        run_dir = os.path.join(config.train_dir,
+                               f"{run_id}_{config.train_name}")
+        try:
+            os.makedirs(run_dir, exist_ok=False)
+            return run_id, run_dir
+        except FileExistsError:
+            time.sleep(1.0)
+    raise RuntimeError(f"could not find a free train run dir under "
+                       f"{config.train_dir} for train_name="
+                       f"{config.train_name!r} after 5 attempts")
+
+
 class TrainLoop:
     """One training run. The strategies pass their own ``train_step``
     (``steps.make_*train_step``), ``predict_fn`` (``predict(model, batch)``
     -> entries) and ``eval_subject_fn``; ``hooks`` replaces the default
-    hook list (which needs ``tensorboardX``)."""
+    hook list (which needs ``tensorboardX``). With ``mesh`` the step and
+    the predict function must be the mesh's (the defaults are)."""
 
     def __init__(self, config: cfg_lib.TrainConfiguration,
                  train_step=None, predict_fn=None, eval_subject_fn=None,
                  hooks: list = None, mesh=None, model=None, optimizer=None,
                  validation_entries: tuple = ("probabilities",), device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "training on a mesh is not ported to rcu_tpu_torch yet "
-                "(ROADMAP.md queue 1, item 5: multi-device)")
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.devices[0])
         self.validation_entries = tuple(validation_entries)
         if model is None:
             if config.model is None:
@@ -85,35 +114,17 @@ class TrainLoop:
                                       config.optimizer.params)
         self.model = model
         self.optimizer = optimizer
-        self.train_step = train_step or steps_lib.make_train_step()
-        self.predict_fn = predict_fn or steps_lib.make_predict_fn()
+        self.train_step = train_step or steps_lib.make_train_step(mesh=mesh)
+        self.predict_fn = predict_fn or steps_lib.make_predict_fn(mesh)
         self.eval_subject_fn = eval_subject_fn or default_eval_subject_fn
 
         leading = ids_lib.extract_leading_identifier(config.train_name)
         self.resume = bool(leading)
-        self.run_id = leading or ids_lib.unique_identifier()
-        if not self.resume:
-            # ids have 1-second resolution: reserve the run dir with an
-            # exclusive create, so that two runs started in the same second
-            # never share one
-            for _ in range(5):
-                try:
-                    os.makedirs(os.path.join(
-                        config.train_dir, f"{self.run_id}_{config.train_name}"),
-                        exist_ok=False)
-                    break
-                except FileExistsError:
-                    pass
-                time.sleep(1.0)
-                self.run_id = ids_lib.unique_identifier()
-            else:
-                raise RuntimeError(
-                    f"could not find a free train run dir under "
-                    f"{config.train_dir} for train_name="
-                    f"{config.train_name!r} after 5 attempts")
-        run_name = config.train_name if self.resume \
-            else f"{self.run_id}_{config.train_name}"
-        self.run_dir = os.path.join(config.train_dir, run_name)
+        if self.resume:
+            self.run_id = leading
+            self.run_dir = os.path.join(config.train_dir, config.train_name)
+        else:
+            self.run_id, self.run_dir = reserve_run_dir(config)
         self.model_files = ckpt_lib.ModelFiles.create(self.run_dir, self.run_id)
 
         default_hooks = [
@@ -144,13 +155,18 @@ class TrainLoop:
         if cfg.split:
             train_subjects, valid_subjects, _ = load_split(
                 cfg.split, cfg.others.get("split_k"))
+        bs_train = cfg.train_data.batch_size
+        bs_valid = cfg.valid_data.batch_size
+        if self.mesh is not None:
+            bs_train = pad_batch_size_to_mesh(bs_train, self.mesh)
+            bs_valid = pad_batch_size_to_mesh(bs_valid, self.mesh)
         prediction_dir = cfg.others.get("prediction_dir")
         self.train_data = databuild.build_data(
             cfg.train_data, subjects=train_subjects, seed=cfg.seed,
-            prediction_dir=prediction_dir)
+            batch_size=bs_train, prediction_dir=prediction_dir)
         self.valid_data = databuild.build_data(
             cfg.valid_data, subjects=valid_subjects, seed=cfg.seed,
-            prediction_dir=prediction_dir)
+            batch_size=bs_valid, prediction_dir=prediction_dir)
 
     def init_state(self):
         """The model initialized from the config seed on the run's device,
@@ -212,13 +228,21 @@ class TrainLoop:
         """``(epoch + 1) % nth == 0``: epochs nth-1, 2nth-1, ..."""
         return (epoch + 1) % self.config.valid_every_nth == 0
 
+    def _feed(self, loader):
+        """The loader's batches: on the run's device, or on a mesh on the
+        host (pinned where the mesh holds a card), where the step or the
+        predict function copies each device its part."""
+        if self.mesh is None:
+            return prefetch(iter(loader), self.device)
+        return prefetch(iter(loader), "cpu", pin=self.device.type == "cuda")
+
     def _train_epoch(self, epoch: int):
         loader = self.train_data.loader
         loader.set_epoch(epoch)
         nb_batches = self.train_data.nb_batches
         metric_sums: dict = {}
         nb = 0
-        for i, batch in enumerate(prefetch(iter(loader), self.device)):
+        for i, batch in enumerate(self._feed(loader)):
             generator = steps_lib.step_generator(self.config.seed, epoch, i,
                                                  self.device)
             metrics = self.train_step(self.state, batch, generator)
@@ -237,8 +261,10 @@ class TrainLoop:
         dataset = self.valid_data.dataset
         scores, subject_results = [], []
         model = self.state.model.eval()
+        if self.mesh is not None:
+            model = replicate(model, self.mesh.data_devices)
         with torch.no_grad():
-            for batch in prefetch(iter(self.valid_data.loader), self.device):
+            for batch in self._feed(self.valid_data.loader):
                 outputs = self.predict_fn(model, batch)
                 fetched = {e: outputs[e].cpu().numpy()
                            for e in self.validation_entries if e in outputs}

@@ -76,6 +76,7 @@ from torch.nn import functional as F
 
 from rcu_tpu_torch.ops import quant
 from rcu_tpu_torch.ops.cuda.int8conv import int8_conv_dequant
+from rcu_tpu_torch.parallel.mesh import all_sum, current_part
 
 # the production bundle of checkpoint-compatible decoder rewrites
 # (``rcu_tpu`` unet.py:483)
@@ -128,11 +129,21 @@ def batch_norm_train(x, bn):
     flax promotes), in flax's order of operations, and updates ``bn``'s
     running statistics in place (outside autograd) as ``0.9 * running +
     0.1 * batch``, with the biased variance (``nn.BatchNorm2d`` would
-    take the unbiased one)."""
+    take the unbiased one).
+
+    In a part of a mesh train step (``parallel.mesh.current_part``) the
+    per-channel sums of x and x^2 are added over the parts first
+    (``parallel.mesh.all_sum``) and ``n`` is the global count: every part
+    normalizes with the whole batch's moments."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     n = xf.numel() // xf.shape[1]
-    mean = xf.sum((0, 2, 3)) / n
-    var = torch.clamp_min((xf * xf).sum((0, 2, 3)) / n - mean * mean, 0.0)
+    s1, s2 = xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))
+    part = current_part()
+    if part is not None:
+        s1, s2 = all_sum(torch.stack([s1, s2])).unbind()
+        n = part.global_count(n)
+    mean = s1 / n
+    var = torch.clamp_min(s2 / n - mean * mean, 0.0)
     with torch.no_grad():
         bn.running_mean.mul_(0.9).add_(0.1 * mean)
         bn.running_var.mul_(0.9).add_(0.1 * var)

@@ -1,27 +1,41 @@
-"""A device mesh in one process (``rcu_tpu.parallel.mesh`` counterpart,
-inference side).
+"""A device mesh in one process (``rcu_tpu.parallel.mesh`` counterpart).
 
 The JAX package's mesh is single-controller: one process drives every
 local device, and the same ``mesh=`` object goes to the direct eval, the
-test loop, the eval passes and the service. The port keeps that design
-with an explicit device list: a :class:`Mesh` is a tuple of
-``torch.device`` laid row-major over its axis names, ``("data",)`` or
-``("model", "data")``. Modules go one copy per device (:func:`replicate`),
-a batch is split into contiguous parts over the data axis
-(:func:`split_batch`, :class:`Split`), and per-device results are added
-or joined on the mesh's first device.
+test loop, the eval passes, the service and the train loop. The port
+keeps that design with an explicit device list: a :class:`Mesh` is a
+tuple of ``torch.device`` laid row-major over its axis names,
+``("data",)`` or ``("model", "data")``. Modules go one copy per device
+(:func:`replicate`), a batch is split into contiguous parts over the
+data axis (:func:`split_batch`, :class:`Split`), and per-device results
+are added or joined on the mesh's first device.
 
 A device may repeat: ``make_mesh(devices=["cuda:0"] * 2)`` is a virtual
 mesh on one card, and ``make_mesh(n_devices=4, device="cpu")`` one on the
 CPU (the counterpart of the JAX tests' forced host devices). A virtual
 mesh runs every split, per-device launch and cross-device add, but its
 entries share one device and one stream: it measures the split's
-overhead, not scaling. ``torch.distributed`` is left for several hosts.
+overhead, not scaling.
+
+Training (:func:`shard_train_step`) keeps GSPMD's meaning, not DDP's: a
+step on the mesh computes what one device computes on the whole batch.
+Each data device runs its part of the batch in a thread of its own
+(:func:`run_parts`) on a train-mode copy of the model
+(:func:`train_replicas`); BatchNorm's sums meet in :func:`all_sum`, so
+that every part normalizes with the whole batch's moments; the parts'
+gradients are added in data-axis order on the first device
+(:func:`reduce_gradients`), where the optimizer updates once. Several
+hosts join through ``torch.distributed`` (:func:`initialize_distributed`):
+a process is then a block of rows of one global batch, and the sums and
+the gradients are also all-reduced across the processes.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import threading
 import typing
+import weakref
 
 import numpy as np
 import torch
@@ -257,3 +271,254 @@ class Sharded(typing.NamedTuple):
                 out[a:b] = part[offset:offset + b - a]
                 offset += b - a
         return out
+
+
+# ------------------------------------------------------------------ training
+
+def initialize_distributed(coordinator_address: str = None,
+                           num_processes: int = None, process_id: int = None,
+                           init_method: str = None, device="cuda"):
+    """Several hosts: join this process to ``torch.distributed``'s group
+    (the counterpart of ``jax.distributed.initialize``). Call it once per
+    process before the first train step; a single host does not call it.
+    ``coordinator_address`` (``host:port``) is the first process's TCP
+    rendezvous, ``init_method`` any other (``file://...``); with neither,
+    torch reads ``MASTER_ADDR`` and its siblings from the environment.
+    The backend is ``nccl`` for cards and ``gloo`` for CPU tensors
+    (``device``). Each host then feeds its own rows
+    (``data.loader.SliceBatchLoader(shard=(process_id, num_processes))``)
+    and a mesh of its local devices."""
+    import torch.distributed as dist
+    if coordinator_address is not None:
+        if init_method is not None:
+            raise ValueError("give coordinator_address or init_method, "
+                             "not both")
+        init_method = f"tcp://{coordinator_address}"
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=-1 if num_processes is None
+                            else num_processes,
+                            rank=-1 if process_id is None else process_id)
+
+
+def distributed() -> bool:
+    """Whether this process belongs to an initialized process group."""
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def process_rows(n: int) -> tuple:
+    """(first row, total rows) of this process's ``n`` rows in the global
+    batch: the processes hold equal blocks in rank order."""
+    if not distributed():
+        return 0, n
+    import torch.distributed as dist
+    return dist.get_rank() * n, dist.get_world_size() * n
+
+
+def all_reduce_sum(tensor):
+    """The sum of ``tensor`` over the processes, differentiable (its
+    backward is the same sum of the gradients); ``tensor`` itself outside
+    a process group."""
+    if not distributed():
+        return tensor
+    from torch.distributed.nn.functional import all_reduce
+    return all_reduce(tensor)
+
+
+def shard_batch(batch: dict, mesh: Mesh) -> list:
+    """Place a host batch on the mesh, split over the data axis: one dict
+    a data device (:func:`split_batch`)."""
+    return split_batch(batch, mesh)
+
+
+class PartGroup:
+    """The meeting point of one train step's parts, one thread each:
+    :meth:`all_sum` adds every part's tensor in data-axis order on the
+    first part's device (all-reduced across the processes where a process
+    group is up) and hands each part the total on its device. The sum is
+    an autograd op: each part's use of the total sends its gradient back
+    to every part's tensor. A part that fails calls :meth:`abort`, which
+    breaks the barrier that the others wait at."""
+
+    def __init__(self, devices, distributed_sum: bool):
+        self.devices = tuple(devices)
+        self.distributed = distributed_sum
+        self._slots = [None] * len(self.devices)
+        self._total = None
+        self._barrier = threading.Barrier(len(self.devices))
+
+    def all_sum(self, index: int, tensor):
+        self._slots[index] = tensor
+        self._barrier.wait()  # every part's tensor is in
+        if index == 0:  # always the first part's thread: a fixed order of
+            # the collectives, so that every process makes them alike
+            total = self._slots[0]
+            for t in self._slots[1:]:
+                total = total + t.to(total.device)
+            self._total = all_reduce_sum(total) if self.distributed \
+                else total
+        self._barrier.wait()  # the total is out
+        return self._total.to(self.devices[index])
+
+    def abort(self):
+        self._barrier.abort()
+
+
+class Part(typing.NamedTuple):
+    """A part of a train step's batch: its group, its index on the data
+    axis and its rows ``(start, stop, total)`` of the global batch."""
+    group: PartGroup
+    index: int
+    rows: tuple
+
+    def global_count(self, n: int) -> int:
+        """A per-channel count ``n`` over this part's rows, over the
+        global batch's."""
+        start, stop, total = self.rows
+        return n * total // (stop - start)
+
+
+_PART = threading.local()
+
+
+def current_part():
+    """The :class:`Part` this thread runs, None outside a mesh train
+    step."""
+    return getattr(_PART, "part", None)
+
+
+def all_sum(tensor):
+    """The sum of ``tensor`` over the parts of the train step this thread
+    runs (and over the processes), on this part's device; ``tensor``
+    itself outside a mesh train step."""
+    part = current_part()
+    return tensor if part is None else part.group.all_sum(part.index,
+                                                          tensor)
+
+
+def _device_context(device):
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def run_parts(fn, devices, rows, distributed_sum: bool = False) -> list:
+    """``fn(i)`` for every part ``i``, each in a thread of its own (the
+    first in the caller's) with its :class:`Part` current and its device
+    the current one, as ``torch.nn.parallel.parallel_apply`` runs them;
+    -> the results in part order. A part that raises breaks the group's
+    barrier, so the others stop at their next :func:`all_sum`, and its
+    exception is raised here."""
+    group = PartGroup(devices, distributed_sum)
+    results, errors = [None] * len(devices), [None] * len(devices)
+    grad = torch.is_grad_enabled()
+
+    def work(i):
+        _PART.part = Part(group, i, rows[i])
+        try:
+            with torch.set_grad_enabled(grad), _device_context(devices[i]):
+                results[i] = fn(i)
+        except BaseException as e:  # noqa: BLE001 — raised in the caller
+            errors[i] = e
+            group.abort()
+        finally:
+            _PART.part = None
+
+    threads = [threading.Thread(target=work, args=(i,), daemon=True)
+               for i in range(1, len(devices))]
+    for t in threads:
+        t.start()
+    work(0)
+    for t in threads:
+        t.join()
+    failed = [e for e in errors if e is not None]
+    if failed:
+        raise next((e for e in failed
+                    if not isinstance(e, threading.BrokenBarrierError)),
+                   failed[0])
+    return results
+
+
+class TrainReplicas:
+    """Train-mode copies of a model for a train step's parts on
+    ``devices``: called with the model (on ``devices[0]``), -> a list
+    aligned with ``devices`` whose first entry is the model itself and
+    every other a copy of its own, also where a device repeats, so that
+    no two parts run through one module object (each copy updates its
+    BatchNorm statistics once a step, from the global moments). The
+    copies are kept between steps and take the model's parameters and
+    buffers at each call: after every update, and after a checkpoint
+    load."""
+
+    def __init__(self, devices):
+        self.devices = [canonical_device(d) for d in devices]
+        self._copies = weakref.WeakKeyDictionary()
+
+    def __call__(self, model) -> list:
+        home = canonical_device(next(model.parameters()).device)
+        if self.devices[0] != home:
+            raise ValueError(f"the model is on {home}, but the mesh's "
+                             f"first data device is {self.devices[0]}")
+        copies = self._copies.get(model)
+        if copies is None:
+            copies = []
+            for d in self.devices[1:]:
+                replica = copy.deepcopy(model).to(d)
+                for p in replica.parameters():
+                    p.grad = None
+                copies.append(replica)
+            self._copies[model] = copies
+        with torch.no_grad():
+            for replica in copies:
+                for dst, src in zip(replica.parameters(),
+                                    model.parameters()):
+                    dst.copy_(src, non_blocking=True)
+                for dst, src in zip(replica.buffers(), model.buffers()):
+                    dst.copy_(src, non_blocking=True)
+        return [model.train()] + [c.train() for c in copies]
+
+
+def reduce_gradients(replicas, distributed_sum: bool = False):
+    """Add each replica's gradients into the first's, in data-axis order
+    on its device (a parameter no part reached keeps no gradient), then
+    all-reduce them across the processes where a process group is up;
+    the other replicas' gradients are dropped."""
+    home = replicas[0]
+    named = [list(r.parameters()) for r in replicas]
+    for k, p in enumerate(named[0]):
+        grads = [ps[k].grad for ps in named]
+        if all(g is None for g in grads):
+            continue
+        total = None
+        for g in grads:
+            if g is None:
+                continue
+            g = g.to(p.device)
+            total = g if total is None else total + g
+        p.grad = total
+        for ps in named[1:]:
+            ps[k].grad = None
+    if distributed_sum:
+        import torch.distributed as dist
+        params = [p for p in home.parameters()]
+        flat = torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).reshape(-1)
+                          for p in params])
+        dist.all_reduce(flat)
+        offset = 0
+        for p in params:
+            p.grad = flat[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+
+
+def shard_train_step(train_step, mesh: Mesh):
+    """A train step of ``engine.steps`` (``make_*train_step()``) on the
+    mesh's data axis, with the single step's signature ``(state, batch,
+    generator[, noise]) -> metrics`` (``engine.steps.MeshTrainStep``):
+    it computes what the single step computes on the whole batch."""
+    from rcu_tpu_torch.engine.steps import MeshTrainStep, TrainStep
+    if not isinstance(train_step, TrainStep):
+        raise TypeError("shard_train_step takes a step of "
+                        "engine.steps.make_*train_step, not "
+                        f"{type(train_step).__name__}")
+    return MeshTrainStep(train_step, mesh)

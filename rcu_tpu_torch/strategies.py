@@ -12,9 +12,11 @@ and the five test entry functions of the staged test loop.
 - auxiliary segm. -> :func:`train_auxiliary_segm` (an error net over the
   images and a baseline prediction, labels [gt, baseline]).
 
-Each returns the finished :class:`engine.train.TrainLoop`. ``hooks`` and
-``device`` go to it (the default hooks need ``tensorboardX``); ``mesh``
-raises ``NotImplementedError`` (training on a mesh is a later slice).
+Each returns the finished :class:`engine.train.TrainLoop`. ``hooks``,
+``device`` and ``mesh`` go to it (the default hooks need
+``tensorboardX``); on a mesh the step and the validation run on its data
+axis, with the result of one device on the whole batch
+(``engine.steps.MeshTrainStep``).
 
 Testing (each returns the finished :class:`engine.test.TestLoop`, whose
 run dir holds the NIfTI artifacts; ``hooks``, ``device`` and ``mesh``
@@ -134,9 +136,9 @@ def _frozen_segmenter(others: dict, device):
 
 def train_auxiliary_feat(config: cfg_lib.TrainConfiguration, mesh=None,
                          hooks=None, device=None) -> TrainLoop:
-    segm_model = _frozen_segmenter(config.others, resolve_device(device))
+    segm_model = _frozen_segmenter(config.others, _home(device, mesh))
     train_step = steps_lib.make_auxiliary_train_step(segm_model, mesh=mesh)
-    predict = steps_lib.make_auxiliary_feat_predict_fn(segm_model)
+    predict = steps_lib.make_auxiliary_feat_predict_fn(segm_model, mesh)
     return TrainLoop(config, train_step=train_step, predict_fn=predict,
                      eval_subject_fn=_aux_feat_eval_subject_fn,
                      validation_entries=("probabilities", "net_predictions"),
@@ -146,7 +148,7 @@ def train_auxiliary_feat(config: cfg_lib.TrainConfiguration, mesh=None,
 def train_auxiliary_segm(config: cfg_lib.TrainConfiguration, mesh=None,
                          hooks=None, device=None) -> TrainLoop:
     train_step = steps_lib.make_auxiliary_train_step(mesh=mesh)
-    predict = steps_lib.make_auxiliary_segm_predict_fn()
+    predict = steps_lib.make_auxiliary_segm_predict_fn(mesh)
     return TrainLoop(config, train_step=train_step, predict_fn=predict,
                      eval_subject_fn=_aux_segm_eval_subject_fn, mesh=mesh,
                      hooks=hooks, device=device).run()

@@ -206,6 +206,22 @@ def test_prefetch_yields_the_batches_and_raises_the_readers_error(store):
 
 
 def test_loader_refuses_shards(store):
-    _, pd = both(store)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loader.SliceBatchLoader(pd, [], 4, shard=(0, 2))
+    """A shard outside ``0 <= id < n`` and a chunked shard with fewer full
+    chunks than hosts raise JAX's ValueErrors, word for word (the shard
+    orders themselves: ``tests/test_torch_parallel_train.py``)."""
+    jd, pd = both(store)
+    for bad in ((2, 2), (-1, 2)):
+        with pytest.raises(ValueError) as want:
+            jax_loader.SliceBatchLoader(jd, [], 4, shard=bad)
+        with pytest.raises(ValueError) as got:
+            loader.SliceBatchLoader(pd, [], 4, shard=bad)
+        assert str(got.value) == str(want.value)
+    indices = indexing.all_indices(pd, indexing.SliceIndexing())
+    ji = jax_idx.all_indices(jd, jax_idx.SliceIndexing())
+    kwargs = dict(batch_size=4, shuffle=True, shuffle_chunk=8, shard=(1, 3))
+    with pytest.raises(ValueError) as want:
+        len(jax_loader.SliceBatchLoader(jd, ji, **kwargs))
+    with pytest.raises(ValueError) as got:
+        len(loader.SliceBatchLoader(pd, indices, **kwargs))
+    assert "needs at least 3 full chunks" in str(got.value)
+    assert str(got.value) == str(want.value)

@@ -18,6 +18,7 @@ import re
 import jax
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from rcu_tpu.data import h5 as jax_h5
@@ -207,7 +208,12 @@ def test_cli_config_ids_are_the_jax_clis(dataset, strategy, monkeypatch):
     if dataset == "isic" and strategy in ("default", "aleatoric"):
         assert seen["eval_subject_fn"].__name__ in (
             "isic_eval_subject_fn", "isic_smooth_dice_eval_subject_fn")
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # -devices N trains on a mesh of N devices of -device's kind, and
+    # refuses one the machine cannot give
+    assert port.main(None, cid, device="cpu", devices=2) == "ran"
+    assert seen["mesh"].devices == (torch.device("cpu"),) * 2
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(ValueError, match="2-device mesh but only 0 cuda"):
         port.main(None, cid, devices=2)
     with pytest.raises(ValueError, match="unknown config id"):
         port.main(None, "nope")
