@@ -5,7 +5,13 @@ PyTorch version, then drives the main path, the BraTS MC-dropout direct
 eval, the four other strategy families of the direct eval, the
 inference variants, int8 included, the native-2D (ISIC) direct eval,
 training, the staged chain, serving, the inference paths on a device
-mesh and training on a device mesh, at full width.
+mesh, training on a device mesh, the import of reference checkpoints,
+the residual and BatchNorm-free U-Nets, bf16 training, the remat
+policies and the evaluation-strategy API, at full width. Data
+preparation (the H5 writer, the split and resize CLIs) is not driven
+here: the card's machine has neither ``h5py`` nor ``sklearn``, so it is
+held against the JAX package on the CPU only
+(``tests/test_torch_data_prep.py``).
 
   python3 chip_smoke.py
 
@@ -225,19 +231,53 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    (``measure_practical_hbm``), which gives the eval kernel's record a
    second bound (``practical_bound_ms``), and the ring over the mesh
    devices (``measure_practical_ici``; on a virtual mesh an on-card
-   copy). Training launches neither hand kernel.
+   copy). Training launches neither hand kernel;
+15. import: a seeded flagship U-Net and its sigma-head variant written as
+   reference model dirs (``torch.save`` of a state_dict under the
+   reference implementation's key names), imported by ``python -m
+   rcu_tpu_torch.cli.import_torch_checkpoint`` in a subprocess and loaded
+   by ``eval.direct.load_model``: the weights bitwise the model's, and
+   the deterministic direct eval of one subject CSV for CSV the same
+   weights' loaded straight (the eval kernel once each; "import <model>:"
+   lines);
+16. model options: the flagship width with ``residual=True`` and with
+   ``bn=False`` (a BN-free model's convs normalised on the centre
+   slices): card against CPU on 2 centre slices (f32 at rtol 1e-3 /
+   atol 2e-4, bf16 + fast at ``bf16_bar``), the MC20 f32 and the bf16 +
+   fast (+ fold where BatchNorm exists) deterministic direct evals of one
+   subject (s/subject, peak GB, the eval kernel once each); residual
+   with int8 raises ("options <path>:" lines);
+17. strategy API: ``ops.strategy.ComposeEvaluation`` of
+   ``ConfusionMatrix``, ``EceBinary`` (mask, bins) and
+   ``UncertaintyErrorDice`` at the 11 thresholds on the residual MC20
+   run's eval planes on the card; its counts, bins and error metrics
+   equal to the eval kernel's;
+18. bf16 training: one epoch of ``strategies.train_default`` with the
+   flagship in bf16 (config/train_brats_baseline.yaml, batch 32, the
+   train phase's stores): ms/step, the host's enqueue, slices/s, peak GB
+   and 10 profiled steps' busy share beside phase 10's f32 run; 20 Adam
+   steps in f32 and in bf16 from the same weights, batches and
+   generators, the losses within ``BF16_LOSS_RTOL``; one bf16 step on the
+   2-entry mesh against one device (the loss within one bf16 step, the
+   gradient within ``BF16_MESH_NOISE_SHARE`` of bf16's own noise);
+19. remat: one flagship f32 SGD step with ``remat`` None (again: the
+   control of cuDNN's order), ``'conv'`` and ``'full'`` from the same
+   state, batch and generator, each against the first None's at the SGD
+   bar, each policy's region reruns, ms/step and peak GB.
 
 Every path runs with both kernels' launch counts set to 0 before it and
 read after it, and fails unless it launched the eval kernel once per
 subject (a staged eval: once a pass and subject; a staged test loop:
-never; a latency mesh: once per data device and subject; mesh training:
-never) and the int8 conv once per quantized site and forward (a latency
-mesh: and device; never on a path that quantizes nothing, never its
-plain version). The last three lines are the training phases' numbers
-(JSON: ``training``, ``mesh_training``), the kernels' JSON records
+never; a latency mesh: once per data device and subject; mesh, bf16 and
+remat training: never) and the int8 conv once per quantized site and
+forward (a latency mesh: and device; never on a path that quantizes
+nothing, never its plain version). The last three lines are the training phases' numbers
+(JSON: ``training``, ``mesh_training``, ``bf16_training``, ``remat``,
+with ``model_options`` and ``strategy_api``), the kernels' JSON records
 (``fused_eval_stats`` and ``int8_conv``; ``launches``: the sum over the
 paths, ``by_path``: each path's launches and numbers, the mesh paths
-as ``mesh_<mode>_<path>``; ``sharded``: the sharded eval's times;
+as ``mesh_<mode>_<path>``, the new paths as ``import_*`` and
+``residual_*`` / ``bn_free_*``; ``sharded``: the sharded eval's times;
 ``practical_bound_ms``: the eval kernel's bound at the measured HBM
 rate; the int8 record's ``sites``: each site shape's numbers) and
 ``{"ok": true, "device": {...}}``.
@@ -252,6 +292,7 @@ import math
 import os
 import re
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -1020,12 +1061,17 @@ GATE = 1e-3  # ECE/Dice of a softmax family against f32 (tests/test_bf16_parity.
 BF16_STEP = 2.0 ** -8
 
 
-def bf16_bar(depth, split, scale):
+def bf16_bar(depth, split, scale, residual=False, bn=True):
     """tests/test_torch_variants.py's bound on two bf16 forwards: one bf16
     step (2^-8 relative) of the output's scale for each rounding from the
     input to the logits (the input cast, each ConvBnRelu's conv and
-    BatchNorm outputs, each up-conv and split add, the class conv)."""
-    roundings = 1 + 2 * (4 * depth + 3) + depth * (2 if split else 1) + 1
+    BatchNorm outputs, each up-conv and split add, the class conv; a
+    residual block's 1x1 conv, its add and its split add, as
+    tests/test_torch_model_options.py counts them)."""
+    roundings = 1 + (2 if bn else 1) * (4 * depth + 3) \
+        + depth * (2 if split else 1) + 1
+    if residual:
+        roundings += 2 * (2 * depth + 1) + (depth if split else 0)
     return roundings * BF16_STEP * scale
 
 
@@ -1174,9 +1220,10 @@ def shared_encoder_check(flagship, dataset):
 
 
 def bf16_card_vs_cpu(label, model, flagship, x, split,
-                     depth=FLAGSHIP["depth"]):
+                     depth=FLAGSHIP["depth"], **options):
     """A bf16 variant's logits for a small batch on the card against the
-    same variant on the CPU, at :func:`bf16_bar` of the f32 logits."""
+    same variant on the CPU, at :func:`bf16_bar` of the f32 logits
+    (``options``: the model's ``residual`` and ``bn``)."""
     cpu = copy.deepcopy(model).cpu()
     ref = copy.deepcopy(flagship).cpu()
     with torch.inference_mode():
@@ -1185,7 +1232,7 @@ def bf16_card_vs_cpu(label, model, flagship, x, split,
             memory_format=torch.channels_last)).logits.cpu()
         scale = float(ref(x).logits.abs().max())
     err = float((got - want).abs().max())
-    bar = bf16_bar(depth, split, scale)
+    bar = bf16_bar(depth, split, scale, **options)
     if not err <= bar:
         raise AssertionError(f"{label}: card vs CPU logits {err} > {bar}")
     log(f"variant {label}: card vs CPU on {tuple(x.shape)}, logits max abs "
@@ -4291,6 +4338,497 @@ def mesh_train_phase(tmp, stores, single):
     return out, hbm
 
 
+# ------------------------------------------------- slice 13: import
+
+def one_subject(dataset, tmp, name):
+    """The dataset's first subject as a store of its own."""
+    return dataset.subset(dataset.subjects[:1], os.path.join(tmp, name))
+
+
+def reference_state_dict(model):
+    """``model``'s state_dict under the reference implementation's key
+    names (the inverse of ``cli.import_torch_checkpoint``'s key walk):
+    ``down_convs.i.block`` / ``bottom_convs`` / ``up_convs.k.block`` with
+    their ``block.j.conv2d_batch_relu.{conv,bn}`` and ``residual`` 1x1,
+    ``up_convs.k.upconv.1``, ``conv_cls`` and ``conv_sigma``."""
+    depth = model.depth
+    prefix = model.block_prefix
+    blocks = {f"{prefix}_{i}": f"down_convs.{i}.block" for i in range(depth)}
+    blocks[f"{prefix}_{depth}"] = "bottom_convs"
+    blocks.update({f"{prefix}_{depth + 1 + k}": f"up_convs.{k}.block"
+                   for k in range(depth)})
+    heads = {"ConvBnRelu_0": "conv_cls.0", "ConvBnRelu_1": "conv_sigma.0"}
+    convs = {f"Conv_{k}": f"up_convs.{k}.upconv.1" for k in range(depth)}
+    convs.update({f"Conv_{depth}": "conv_cls.1",
+                  f"Conv_{depth + 1}": "conv_sigma.1"})
+
+    def cbr(path, leaf):
+        module, kind = path
+        return f"{module}.conv2d_batch_relu." \
+            f"{'conv' if kind == 'Conv_0' else 'bn'}.{leaf}"
+
+    out = {}
+    for name, tensor in model.state_dict().items():
+        parts = name.split(".")
+        tensor = tensor.detach().cpu().clone()
+        if parts[0] in blocks:
+            if parts[1] == "Conv_0":  # the residual 1x1
+                out[f"{blocks[parts[0]]}.residual.{parts[2]}"] = tensor
+            else:
+                j = parts[1].split("_")[1]
+                out[cbr((f"{blocks[parts[0]]}.block.{j}", parts[2]),
+                        parts[3])] = tensor
+        elif parts[0] in heads:
+            out[cbr((heads[parts[0]], parts[1]), parts[2])] = tensor
+        else:
+            out[f"{convs[parts[0]]}.{parts[1]}"] = tensor
+    return out
+
+
+def write_reference_dir(root, model, record):
+    """A reference model dir: model.json and one best checkpoint, a
+    ``torch.save`` of the reference's payload."""
+    os.makedirs(os.path.join(root, "checkpoints"))
+    with open(os.path.join(root, "model.json"), "w") as f:
+        json.dump({"model": {"type": "unet", "params": record},
+                   "optimizer": {"type": "adam", "params": {"lr": 1e-4}}}, f)
+    torch.save({"state_dict": reference_state_dict(model), "epoch": 0,
+                "optimizer": {}, "best_score": 0.5},
+               os.path.join(root, "checkpoints", "checkpoint_ep000-best.pth"))
+
+
+def import_phase(tmp, dataset):
+    """A seeded flagship U-Net and its sigma-head variant written as
+    reference model dirs, imported by ``python -m
+    rcu_tpu_torch.cli.import_torch_checkpoint`` in a subprocess, loaded by
+    ``eval.direct.load_model``: the weights bitwise the model's, and the
+    deterministic direct eval of one subject CSV for CSV the eval of the
+    same weights loaded straight. Returns {path: by_path record}."""
+    from rcu_tpu_torch.eval.direct import load_model
+    t_phase = time.perf_counter()
+    subject = one_subject(dataset, tmp, "import_store")
+    x = middle_batch(dataset).to(DEVICE)
+    by_path = {}
+    for seed, label, options in ((SEED + 31, "flagship", {}),
+                                 (SEED + 32, "sigma", {"sigma_out": True})):
+        record = {**FLAGSHIP, **options}
+        model = seeded_unet(seed, x, **options)
+        ref, out = (os.path.join(tmp, f"import_{label}_{kind}")
+                    for kind in ("ref", "out"))
+        write_reference_dir(ref, model, record)
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m",
+             "rcu_tpu_torch.cli.import_torch_checkpoint",
+             "-ref_model_dir", ref, "-out_model_dir", out],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, check=True)
+        import_s = time.perf_counter() - t0
+        if "converted 1 checkpoint(s)" not in done.stdout:
+            raise AssertionError(f"import {label}: {done.stdout}")
+        imported = load_model(out, "best", DEVICE)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(imported.state_dict().values(),
+                       model.state_dict().values()))
+        if not same or list(imported.state_dict()) != \
+                list(model.state_dict()):
+            raise AssertionError(f"import {label}: the imported weights are "
+                                 "not the model's")
+        texts = []
+        for kind, models in (("imported", imported), ("straight", model)):
+            run_id = f"import_{label}_{kind}"
+            out_dir = os.path.join(tmp, run_id)
+            launches, seconds, eces, _ = run_path(subject, out_dir, models,
+                                                  run_id, mc=0)
+            texts.append(csv_texts(out_dir, run_id))
+            by_path[run_id] = {"launches": launches, "s_per_subject": seconds,
+                               "first_ece": eces[subject.subjects[0]]}
+        if texts[0] != texts[1]:
+            raise AssertionError(f"import {label}: the imported model's CSVs "
+                                 "differ from the model's")
+        log(f"import {label}: reference dir -> cli.import_torch_checkpoint "
+            f"subprocess {import_s:.2f} s -> eval.direct.load_model: weights "
+            f"bitwise; deterministic direct eval of {subject.subjects[0]} "
+            f"{by_path[f'import_{label}_imported']['s_per_subject']:.3f} s, "
+            f"its {len(texts[0])} CSVs equal to the straight model's, "
+            f"fused_eval_stats launches 1 each")
+        del model, imported
+    log(f"import phase: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+# ------------------------------------------- slice 13: model options
+
+def calibrate_bn_free(model, x):
+    """:func:`calibrate_bn` for a BN-free U-Net: each conv's output on
+    ``x`` normalised per channel by its weights and bias (the calibrated
+    BatchNorm folded in), layer by layer in one forward."""
+    def hook(layer, args):
+        inputs = args[0]
+        if isinstance(inputs, tuple):
+            inputs = torch.cat(inputs, dim=1)
+        conv = layer.Conv_0
+        y = torch.nn.functional.conv2d(inputs, conv.weight, conv.bias,
+                                       padding=conv.padding)
+        mean = y.mean((0, 2, 3))
+        std = y.std((0, 2, 3), unbiased=False).clamp_min(1e-6)
+        conv.weight.div_(std[:, None, None, None])
+        conv.bias.sub_(mean).div_(std)
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, ConvBnRelu)]
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        for handle in handles:
+            handle.remove()
+
+
+def seeded_option_unet(seed, x, **options):
+    """:func:`seeded_unet` with the U-Net options ``residual`` / ``bn``."""
+    torch.manual_seed(seed)
+    model = get_model("unet", {**FLAGSHIP, **options}).to(DEVICE)
+    if options.get("bn", True):
+        calibrate_bn(model, x)
+    else:
+        calibrate_bn_free(model, x)
+    centre_head(lambda v: model(v).logits,
+                getattr(model, f"Conv_{FLAGSHIP['depth']}"), x)
+    return model
+
+
+def options_phase(tmp, dataset):
+    """The flagship width with ``residual=True`` and with ``bn=False``, at
+    seeded weights: the card against the CPU on centre slices (f32 at rtol
+    1e-3 / atol 2e-4, bf16 + fast at :func:`bf16_bar`), the MC20 f32 and
+    the bf16 + fast (+ fold where BatchNorm exists) deterministic direct
+    evals of one subject (the eval kernel once each); ``residual`` with
+    int8 raises. Returns ({path: by_path record}, {option: numbers}, the
+    eval planes of the residual MC20 run's subject)."""
+    t_phase = time.perf_counter()
+    subject = one_subject(dataset, tmp, "options_store")
+    x8 = middle_batch(dataset)
+    by_path, out, kept = {}, {}, []
+    for label, options in (("residual", {"residual": True}),
+                           ("bn_free", {"bn": False})):
+        record = {**FLAGSHIP, **options}
+        model = seeded_option_unet(SEED + 41, x8.to(DEVICE), **options)
+        cpu = get_model("unet", record)
+        cpu.load_state_dict(model.state_dict())
+        x = x8[3:5]
+        with torch.inference_mode():
+            want = cpu(x).logits
+            got = model(x.to(DEVICE)).logits.cpu()
+        f32_err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-4)
+        flags = BF16_FAST_FOLD if options.get("bn", True) else BF16_FAST
+        variant = variant_of(model, "unet", record, **flags)
+        bf16_err = bf16_card_vs_cpu(f"{label} bf16 fast", variant, model, x,
+                                    split=True, **options)
+        numbers = {"card_vs_cpu_f32_max_abs_err": f32_err,
+                   "card_vs_cpu_bf16_max_abs_err": bf16_err}
+        for path, models, kwargs in (
+                (f"{label}_mc", model, dict(mc=MC_STEPS)),
+                (f"{label}_deterministic_bf16_fast"
+                 + ("_fold" if "fold_bn" in flags else ""), variant,
+                 dict(mc=0))):
+            out_dir = os.path.join(tmp, path)
+            launches, seconds, eces, planes = run_path(subject, out_dir, models,
+                                                       path, **kwargs)
+            if not kept:
+                kept.append(planes)
+            del planes
+            check_csvs(out_dir, path, path, 1)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            by_path[path] = {"launches": launches, "s_per_subject": seconds,
+                             "peak_gb": peak_gb,
+                             "first_ece": eces[subject.subjects[0]]}
+            log(f"options {path}: 1 subject {BRATS} in {seconds:.3f} s/subject "
+                f"(CUDA-synced), peak memory {peak_gb:.2f} GB, "
+                f"fused_eval_stats launches {launches}, ECE "
+                f"{by_path[path]['first_ece']:.6f}")
+        if options.get("residual"):
+            try:
+                get_model("unet", {**record, "quant_scales": {}})
+            except NotImplementedError as e:
+                numbers["int8_refused"] = str(e)
+            else:
+                raise AssertionError("residual with int8 did not raise")
+        log(f"options {label}: card vs CPU logits max abs err f32 "
+            f"{f32_err:.3e}, bf16 + fast {bf16_err:.3e}"
+            + (", int8 refused" if "int8_refused" in numbers else ""))
+        out[label] = numbers
+        del model, cpu, variant
+    log(f"options phase: {time.perf_counter() - t_phase:.1f} s")
+    return by_path, out, kept[0]
+
+
+# --------------------------------------------- slice 13: bf16 training
+
+# bf16 training against f32 on the same weights, batches and generators:
+# the losses of BF16_LOSS_STEPS steps relative to f32's. Stated before the
+# first run on a card (bf16 moves a flagship forward's logits by a few
+# hundredths of their scale; Adam at the shipped lr keeps the two runs
+# together over 20 steps)
+BF16_LOSS_STEPS, BF16_LOSS_RTOL = 20, 5e-2
+# one bf16 step on the mesh against one device: the loss within one bf16
+# step; the whole gradient (every parameter's, as one vector) no farther
+# from the single device's than bf16's own noise, the single device's
+# bf16 gradient's L2 distance from its f32 one (two bf16 runs that round
+# independently would lie sqrt(2) of it apart; a part's BatchNorm on its
+# own rows instead of the batch's moves it by tens of percent). At seeded
+# weights a bf16 gradient lies up to its own size from f32's, and where
+# the parts' gradients cancel, each part's rounding is a large share of
+# their sum, so no tensor is held alone. Read: 0.424 on an H100 80GB
+# HBM3 at 700 W (noise 1.39e-2), 0.12 on the CPU
+BF16_MESH_NOISE_SHARE = 1.0
+
+
+def bf16_losses_check(config, batches):
+    """``BF16_LOSS_STEPS`` Adam steps of the flagship in f32 and in bf16
+    from the same weights, on the same batches with the same generators:
+    -> (f32 losses, bf16 losses, the largest relative difference)."""
+    from rcu_tpu_torch.engine.state import create_train_state
+    from rcu_tpu_torch.models import get_optimizer
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        record = {**config.model.params, "dtype": dtype}
+        state = create_train_state(
+            get_model(config.model.type, record),
+            get_optimizer(config.optimizer.type, config.optimizer.params),
+            config.seed, DEVICE)
+        step = steps.make_train_step()
+        runs[dtype] = [float(step(state, batches[i % len(batches)],
+                                  steps.step_generator(SEED, 5, i, DEVICE))
+                             ["loss"]) for i in range(BF16_LOSS_STEPS)]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(runs["float32"],
+                                                 runs["bfloat16"]))
+    return runs["float32"], runs["bfloat16"], rel
+
+
+def bf16_mesh_check(config, mesh, batch):
+    """One bf16 step of the flagship on ``mesh`` against one device on the
+    whole batch, from the same weights and generator (and an f32 step on
+    one device, the measure of bf16's noise)."""
+    from rcu_tpu_torch.engine.state import create_train_state
+    states = [create_train_state(
+        get_model(config.model.type, {**config.model.params, "dtype": dtype}),
+        GradRecorder(), config.seed, DEVICE)
+        for dtype in ("bfloat16", "bfloat16", "float32")]
+    generator = lambda: steps.step_generator(SEED, 6, 0, DEVICE)  # noqa: E731
+    want = steps.make_train_step()(states[0], batch, generator())
+    got = steps.make_train_step(mesh=mesh)(states[1], batch, generator())
+    steps.make_train_step()(states[2], batch, generator())
+    loss_err = abs(float(got["loss"]) - float(want["loss"])) \
+        / abs(float(want["loss"]))
+    names = list(states[0].optimizer.grads)
+    mesh_g, single_g, f32_g = (torch.cat([states[i].optimizer.grads[k]
+                                          .reshape(-1) for k in names])
+                               for i in (1, 0, 2))
+    apart = float((mesh_g - single_g).norm() / single_g.norm())
+    noise = float((f32_g - single_g).norm() / single_g.norm())
+    log(f"bf16 mesh train step: one step of the flagship in bf16 on "
+        f"{len(batch['valid'])} slices, mesh against single device: loss "
+        f"relative {loss_err:.2e} (bar {BF16_STEP:.2e}); the gradient "
+        f"{apart:.3e} apart (relative L2), bf16's own noise {noise:.3e} "
+        f"(single device, bf16 against f32): {apart / noise:.3f} of it "
+        f"(bar {BF16_MESH_NOISE_SHARE})")
+    if loss_err > BF16_STEP or apart > BF16_MESH_NOISE_SHARE * noise:
+        raise AssertionError("bf16 mesh train step misses the single "
+                             "device's")
+    return {"loss_rel_err": loss_err, "grad_rel_l2": apart,
+            "bf16_noise_rel_l2": noise}
+
+
+def bf16_train_phase(tmp, stores, single):
+    """The flagship BraTS default step (config/train_brats_baseline.yaml,
+    batch 32) in bf16 on the train phase's stores: one epoch of
+    ``strategies.train_default`` with the model's dtype ``"bfloat16"``
+    (ms/step, slices/s, peak GB, the host's enqueue time, beside the f32
+    run of the train phase, ``single``), 10 profiled steps (busy share);
+    :func:`bf16_losses_check` and :func:`bf16_mesh_check`. Training
+    launches neither hand kernel. Returns {check: numbers}."""
+    from rcu_tpu_torch import strategies
+    from rcu_tpu_torch.data.loader import prefetch
+    from rcu_tpu_torch.parallel import Mesh
+    t_phase = time.perf_counter()
+    root = _subdir(tmp, "bf16_train")
+    out = {}
+    evalstats.fused_eval_stats.launches = 0
+    int8conv.int8_conv.launches = 0
+    with memory_stores(stores):
+        config = train_config("default", root, "brats_train", "brats_valid")
+        config.model.params["dtype"] = "bfloat16"
+        loop, record = run_training("brats default bf16",
+                                    strategies.train_default, config,
+                                    config.train_data.batch_size)
+        if loop.state.model.dtype != torch.bfloat16 or any(
+                p.dtype != torch.float32 for p in loop.state.model.parameters()):
+            raise AssertionError("bf16 training: the model is not bf16 with "
+                                 "float32 parameters")
+        record["busy_share"] = profile_train_steps(loop,
+                                                   label="brats default bf16")
+        log(f"bf16 train step: {record['step_ms']:.2f} ms against f32's "
+            f"{single['step_ms']:.2f} ms ({single['step_ms'] / record['step_ms']:.2f}x), "
+            f"enqueue {record['enqueue_ms']:.2f} / {single['enqueue_ms']:.2f} "
+            f"ms, {record['per_s']:.1f} / {single['per_s']:.1f} slices/s, "
+            f"peak {record['peak_gb']:.2f} / {single['peak_gb']:.2f} GB, busy "
+            f"{record['busy_share']} / {single.get('busy_share')}")
+        out["loop"] = record
+        batches = []
+        for batch in prefetch(iter(loop.train_data.loader), DEVICE):
+            batches.append(batch)
+            if len(batches) == 4:
+                break
+        del loop
+        f32, bf16, rel = bf16_losses_check(config, batches)
+        log(f"bf16 losses: {BF16_LOSS_STEPS} adam steps from the same weights, "
+            f"batches and generators, f32 {f32[0]:.4f} -> {f32[-1]:.4f}, bf16 "
+            f"{bf16[0]:.4f} -> {bf16[-1]:.4f}, largest relative difference "
+            f"{rel:.3e} (band {BF16_LOSS_RTOL})")
+        if rel > BF16_LOSS_RTOL:
+            raise AssertionError("bf16 losses left the band of f32's")
+        out["losses"] = {"f32": f32, "bf16": bf16, "max_rel": rel}
+        devices, _ = mesh_devices()
+        out["mesh_step"] = bf16_mesh_check(config, Mesh(devices), batches[0])
+    launched = (evalstats.fused_eval_stats.launches,
+                int8conv.int8_conv.launches)
+    if launched != (0, 0):
+        raise AssertionError(f"bf16 training launched the hand kernels "
+                             f"{launched} times")
+    log(f"bf16 training phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# --------------------------------------------------- slice 13: remat
+
+REMAT_TIMED = 5
+
+
+def remat_phase(tmp, stores):
+    """:func:`remat_check` on the first batch of the train phase's BraTS
+    store (config/train_brats_baseline.yaml, batch 32)."""
+    from rcu_tpu_torch.engine import databuild
+    t_phase = time.perf_counter()
+    with memory_stores(stores):
+        config = train_config("default", _subdir(tmp, "remat"), "brats_train",
+                              "brats_valid")
+        loader = databuild.build_data(config.train_data,
+                                      seed=config.seed).loader
+        batch = {k: torch.from_numpy(v).to(DEVICE)
+                 for k, v in next(iter(loader)).items()}
+    out = remat_check(config, batch)
+    log(f"remat phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def remat_check(config, batch):
+    """One flagship f32 SGD step with ``remat`` None, ``'conv'``, ``'full'``
+    and None again (the control of cuDNN's order) from the same state,
+    batch and generator: parameters and BatchNorm statistics against the
+    first None's at the SGD bar (:func:`states_apart`); then each policy's
+    ms/step (CUDA-synced, after a warm-up step) and peak GB."""
+    from rcu_tpu_torch.engine import remat
+    single, = sgd_states([config], [DEVICE])
+    generator = lambda: steps.step_generator(SEED, 7, 0, DEVICE)  # noqa: E731
+    reference = copy.deepcopy(single)
+    steps.make_train_step()(reference, batch, generator())
+    out = {}
+    for label, policy in (("none_rerun", None), ("conv", "conv"),
+                          ("full", "full")):
+        state = copy.deepcopy(single)
+        step = steps.make_train_step(remat=policy)
+        reruns = remat.counter.reruns
+        step(state, batch, generator())
+        recomputed = remat.counter.reruns - reruns
+        share, bitwise = states_apart(state.model, reference.model)
+        if (policy is None) != (recomputed == 0):
+            raise AssertionError(f"remat {label}: {recomputed} region reruns")
+        step(state, batch, generator())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(REMAT_TIMED):
+            step(state, batch, steps.step_generator(SEED, 8, i, DEVICE))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / REMAT_TIMED * 1e3
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out[label] = {"bar_share": share, "bitwise": bitwise, "ms": ms,
+                      "peak_gb": peak, "reruns": recomputed}
+        log(f"remat {label}: one SGD step against remat=None's at "
+            f"{share:.3f} of the SGD bar (rtol {MESH_TRAIN_RTOL}, atol "
+            f"{MESH_TRAIN_ATOL}), bitwise {bitwise}, {recomputed} region "
+            f"reruns; {ms:.2f} ms/step, peak {peak:.2f} GB (batch "
+            f"{len(batch['valid'])})")
+        del state
+    if any(v["bar_share"] > 1.0 for v in out.values()):
+        raise AssertionError(f"remat: a policy misses remat=None's step: {out}")
+    return out
+
+
+# -------------------------------------------- slice 13: strategy API
+
+def strategy_api_phase(planes, label):
+    """``ops.strategy`` on one subject's eval planes on the card:
+    ``ComposeEvaluation`` of ``ConfusionMatrix``, ``EceBinary`` (t2 mask,
+    bins) and ``UncertaintyErrorDice`` at each of the 11 thresholds; its
+    counts, bins and error metrics against the eval kernel's sums on the
+    same planes (the error metrics from the kernel's counts with the same
+    float32 formulas). The kernel's launch here is a comparison's."""
+    from rcu_tpu_torch.ops import strategy as st
+    from rcu_tpu_torch.ops import uncertainty as u_ops
+    fg, target, prediction, uncertainty, weight = planes
+    t0 = time.perf_counter()
+    results = {}
+    st.ComposeEvaluation(
+        [st.ConfusionMatrix(), st.EceBinary(with_mask=True, return_bins=True)]
+        + [st.UncertaintyErrorDice(th, result_prefix=f"th{i}")
+           for i, th in enumerate(DEFAULT_THRESHOLDS)])(
+        {"prediction": prediction, "target": target, "probabilities": fg,
+         "uncertainty": uncertainty, "mask": weight}, results)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    stats = evalstats.fused_eval_stats(*planes, DEFAULT_THRESHOLDS)
+    bins, confusion, _ = evalstats.subject_eval_from_stats(stats)
+    for key in ("tp", "tn", "fp", "fn", "n"):
+        if results[key] != int(confusion[key]):
+            raise AssertionError(f"strategy API {key}: {results[key]} != "
+                                 f"{int(confusion[key])}")
+    if not (np.array_equal(results["bins_count"],
+                           bins["bins_count"].cpu().numpy())
+            and np.array_equal(results["bins_non_zero"],
+                               bins["bins_non_zero"].cpu().numpy())
+            and np.array_equal(results["bins_positive_fraction"],
+                               bins["bins_positive_fraction"].cpu().numpy()
+                               .astype(np.float32))):
+        raise AssertionError("strategy API: bins differ from the kernel's")
+    conf_err = float(np.abs(results["bins_avg_confidence"] -
+                            bins["bins_avg_confidence"].cpu().numpy()).max())
+    ece_err = abs(results["ece"] - float(bins["ece"]))
+    # the kernel's confidence sums lie within rtol 1e-5 of a float64
+    # bincount's (check_kernel)
+    if conf_err > 1e-5 or ece_err > 1e-5:
+        raise AssertionError(f"strategy API: mean confidence {conf_err}, ECE "
+                             f"{ece_err} from the kernel's")
+    tp, tn, fp, fn = (stats[k] for k in ("tp", "tn", "fp", "fn"))
+    for i, (tpu, tnu, fpu, fnu) in enumerate(stats["thresh_counts"].unbind(0)):
+        want = {"precision": u_ops.error_precision(tpu, tnu, fpu, fnu),
+                "recall": u_ops.error_recall(fp, fn, fpu, fnu),
+                "dice": u_ops.error_dice(fp, fn, tpu, tnu, fpu, fnu)}
+        for key, value in want.items():
+            if results[f"th{i}_{key}"] != float(value):
+                raise AssertionError(f"strategy API th{i}_{key}: "
+                                     f"{results[f'th{i}_{key}']} != "
+                                     f"{float(value)}")
+    log(f"strategy API on {label}: ConfusionMatrix, EceBinary(bins) and "
+        f"UncertaintyErrorDice at {len(DEFAULT_THRESHOLDS)} thresholds on the "
+        f"card in {seconds:.3f} s; counts, bins and error metrics equal to "
+        f"fused_eval_stats' (mean confidence {conf_err:.1e}, ECE "
+        f"{ece_err:.1e} apart)")
+    return {"s": seconds, "conf_err": conf_err, "ece_err": ece_err}
+
+
 def main():
     t_start = time.perf_counter()
     hbm_rate = device_phase()
@@ -4336,11 +4874,20 @@ def main():
                                                     checkpoints)
         mesh_train, practical_hbm = mesh_train_phase(
             tmp, train_stores, train_runs["brats_default"])
+        import_paths = import_phase(tmp, dataset)
+        option_paths, options, planes = options_phase(tmp, dataset)
+        strategy_api = strategy_api_phase(
+            planes, f"the residual MC{MC_STEPS} planes of "
+            f"{dataset.subjects[0]} {BRATS}")
+        del planes
+        bf16_training = bf16_train_phase(tmp, train_stores,
+                                         train_runs["brats_default"])
+        remat_steps = remat_phase(tmp, train_stores)
         del train_stores
     record["by_path"] = {"mc": {"launches": record["launches"]}, **by_path,
                          **variants, **int8_paths, **isic_paths,
                          **train_paths, **staged_paths, **serve_paths,
-                         **mesh_paths}
+                         **mesh_paths, **import_paths, **option_paths}
     record["sharded"] = sharded
     record["launches"] = sum(p["launches"] for p in record["by_path"].values())
     record["max_abs_err"] = max(record["max_abs_err"], err, variant_err,
@@ -4359,7 +4906,9 @@ def main():
         + sum(p["launches"] for p in mesh_int8.values())
     log(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"training": train_runs, "mesh_training": mesh_train,
-                    "card_vs_cpu_grad_err": train_err}))
+                    "card_vs_cpu_grad_err": train_err,
+                    "bf16_training": bf16_training, "remat": remat_steps,
+                    "model_options": options, "strategy_api": strategy_api}))
     log(json.dumps({"kernels": [record, int8_record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Read side of the HDF5 subject store written by ``rcu_tpu.data.h5``.
+"""The HDF5 subject store of ``rcu_tpu.data.h5``: its writer and its read
+side.
 
 Layout (the store's contract)::
 
@@ -7,14 +8,77 @@ Layout (the store's contract)::
   /props/<subject>              attrs: size/spacing/origin/direction
   /meta/<subject>               free-form attrs, 'files' as a json string
 
-``h5py`` is imported when a store is opened, not when this module is.
+Volumes of three or more axes are chunked a slice at a time
+(``(1,) + shape[1:]``), so that a loader reads single slices. ``h5py`` is
+imported when a store is opened or created, not when this module is: the
+card's machine has none, and a store is written where the data is.
 """
 from __future__ import annotations
 
 import json
+import os
 import typing
 
+import numpy as np
+
 from rcu_tpu_torch.data.nifti import ImageProperties
+
+
+class DatasetWriter:
+    """Create a subject H5 store. Use it as a context manager: the
+    ``subjects`` index is written at :meth:`close` (idempotent), and not at
+    all when the block raises, so a partial store never opens as a whole
+    one."""
+
+    def __init__(self, path: str):
+        import h5py
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        self._f = h5py.File(path, "w")
+        self._subjects = []
+
+    def add_subject(self, name: str, arrays: dict,
+                    props: ImageProperties = None, meta: dict = None,
+                    files: dict = None):
+        """``arrays``: {category: array}; ``props`` the volume's geometry,
+        ``meta`` free-form attributes, ``files`` the source files (stored
+        as a JSON string)."""
+        grp = self._f.require_group(f"data/{name}")
+        for category, arr in arrays.items():
+            arr = np.asarray(arr)
+            chunks = (1,) + arr.shape[1:] if arr.ndim >= 3 else None
+            grp.create_dataset(category, data=arr, chunks=chunks)
+        pgrp = self._f.require_group(f"props/{name}")
+        if props is not None:
+            pgrp.attrs["size"] = np.asarray(props.size, np.int64)
+            pgrp.attrs["spacing"] = np.asarray(props.spacing, np.float64)
+            pgrp.attrs["origin"] = np.asarray(props.origin, np.float64)
+            pgrp.attrs["direction"] = np.asarray(props.direction, np.float64)
+        mgrp = self._f.require_group(f"meta/{name}")
+        for key, value in (meta or {}).items():
+            mgrp.attrs[key] = value
+        if files:
+            mgrp.attrs["files"] = json.dumps(files)
+        self._subjects.append(name)
+
+    def close(self):
+        if self._f is None:
+            return
+        import h5py
+        self._f.create_dataset("subjects", data=np.asarray(
+            self._subjects, dtype=h5py.string_dtype()))
+        self._f.close()
+        self._f = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is not None and self._f is not None:
+            # no subjects index: the partial store does not open
+            self._f.close()
+            self._f = None
+            return False
+        self.close()
 
 
 class SubjectDataset:
@@ -75,6 +139,9 @@ class SubjectDataset:
             spacing=tuple(float(v) for v in attrs["spacing"]),
             origin=tuple(float(v) for v in attrs["origin"]),
             direction=tuple(float(v) for v in attrs["direction"]))
+
+    def meta(self, subject: str) -> dict:
+        return dict(self._f[f"meta/{subject}"].attrs)
 
     def files(self, subject: str) -> dict:
         attrs = self._f[f"meta/{subject}"].attrs

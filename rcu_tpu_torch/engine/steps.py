@@ -24,16 +24,12 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from rcu_tpu_torch.engine import remat as remat_lib
 from rcu_tpu_torch.ops import losses, metrics
 from rcu_tpu_torch.parallel import mesh as mesh_lib
 from rcu_tpu_torch.parallel.ensemble import (ensemble_summary, member_sums,
                                              shard_ensemble_predict_fn)
 from rcu_tpu_torch.parallel.mesh import mesh_predict, replicate
-
-# the JAX package's remat policies wait for their slice (ROADMAP.md queue
-# 1 item 4); remat is a measured negative there
-_LATER = ("{} is not ported to rcu_tpu_torch yet (ROADMAP.md queue 1, "
-          "item 4: the remat policies)")
 
 
 def to_model_layout(images, model):
@@ -114,14 +110,6 @@ def seeded_generator(names, device) -> torch.Generator:
 def step_generator(seed: int, epoch: int, step: int, device) -> torch.Generator:
     """The dropout (and aleatoric noise) generator of one train step."""
     return seeded_generator((seed, epoch, step), device)
-
-
-def _check_later(remat=None):
-    if remat not in (None, "conv", "full"):
-        raise ValueError(f"unknown remat policy '{remat}'; "
-                         "choose None, 'conv' or 'full'")
-    if remat is not None:
-        raise NotImplementedError(_LATER.format(f"remat={remat!r}"))
 
 
 def _masked_sum(per_px: torch.Tensor, valid: torch.Tensor):
@@ -313,15 +301,24 @@ def make_train_step(loss_kind: str = "ce", is_log_sigma: bool = False,
     Normal(logits, sigma), drawn from the step's generator after the
     dropout masks, or given as ``noise`` (``losses.aleatoric_log_probs``;
     the whole batch's on a mesh). With ``mesh`` the step runs on its data
-    axis (:class:`MeshTrainStep`). ``remat`` raises
-    ``NotImplementedError``."""
+    axis (:class:`MeshTrainStep`).
+
+    ``remat`` is the JAX package's recomputation policy of the backward
+    pass (``engine.remat``): None stores the forward's activations;
+    ``'conv'`` keeps each ConvBnRelu's conv output and recomputes its
+    dropout, BatchNorm and ReLU; ``'full'`` recomputes the forward. The
+    recomputation replays the forward's dropout masks and BatchNorm sums,
+    so the step's result is that of None. Both were measured negatives in
+    JAX, and no gain is claimed here."""
+    remat_lib.check_policy(remat)
     if loss_kind not in ("ce", "aleatoric"):
         raise ValueError(f"unknown loss_kind '{loss_kind}'; "
                          "choose 'ce' or 'aleatoric'")
-    _check_later(remat)
 
     def part(model, batch: dict, generators, noise=None) -> PartSums:
-        out = model(to_model_layout(batch["images"], model), generators)
+        out = remat_lib.forward(model,
+                                to_model_layout(batch["images"], model),
+                                generators, remat)
         labels, valid = batch["labels"].long(), batch["valid"]
         if loss_kind == "aleatoric":
             if noise is None:
@@ -355,8 +352,9 @@ def make_auxiliary_train_step(segm_model=None, remat: str = None, mesh=None):
     the images with the baseline prediction appended, and the target is
     ``baseline != gt``. With ``mesh`` the step runs on its data axis
     (:class:`MeshTrainStep`), the frozen segmenter replicated on the data
-    devices."""
-    _check_later(remat)
+    devices. ``remat`` is :func:`make_train_step`'s, for the trained
+    model's forward."""
+    remat_lib.check_policy(remat)
     segmenters = {} if mesh is None or segm_model is None else dict(zip(
         mesh.data_devices, replicate(segm_model, mesh.data_devices)))
 
@@ -373,7 +371,7 @@ def make_auxiliary_train_step(segm_model=None, remat: str = None, mesh=None):
             gt, baseline, images = _aux_segm_inputs(batch)
             target = (baseline != gt).long()
             inputs = to_model_layout(images, model)
-        out = model(inputs, generators)
+        out = remat_lib.forward(model, inputs, generators, remat)
         return _part_sums(losses.ce_log_probs(out.logits, target), out.logits,
                           target, batch["valid"])
 

@@ -10,8 +10,8 @@ from rcu_tpu_torch.models.optim import get_optimizer  # noqa: F401
 from rcu_tpu_torch.models.unet import PostNet, UNet
 
 _KEYS = {"unet": {"nb_classes", "in_channels", "depth", "start_filters",
-                  "dropout", "dropout_center", "sigma_out",
-                  "provide_features", "dtype", "split_decoder_concat",
+                  "dropout", "dropout_center", "residual", "sigma_out",
+                  "provide_features", "bn", "dtype", "split_decoder_concat",
                   "fused_upsample", "fold_bn", "quant_scales",
                   "quant_skip_levels"},
          "postnet": {"nb_classes", "in_channels", "nb_convs", "dropout",
@@ -19,33 +19,25 @@ _KEYS = {"unet": {"nb_classes", "in_channels", "depth", "start_filters",
 _BUILD = {"unet": UNet, "postnet": PostNet}
 _DTYPES = {None: torch.float32, "float32": torch.float32,
            "bfloat16": torch.bfloat16}
-# model.json records that the port reproduces only at these values
-_NEUTRAL = {"residual": False, "bn": True}
 
 
 def get_model(model_type: str, params: dict) -> nn.Module:
     """Build the port's model from a config/model.json node.
 
     ``dtype`` is None, ``"float32"`` or ``"bfloat16"``; a U-Net takes the
-    int8 ``quant_scales`` and ``quant_skip_levels``. Options of later
-    slices (residual blocks, bn=False) raise ``NotImplementedError``
-    instead of being silently ignored. A PostNet needs ``in_channels``,
-    which flax infers and a model.json may leave out
+    int8 ``quant_scales`` and ``quant_skip_levels``, and ``residual`` and
+    ``bn``, which the JAX package's PostNet has not (a key outside a
+    model's fields raises ``ValueError``). A PostNet needs
+    ``in_channels``, which flax infers and a model.json may leave out
     (``eval.direct.load_model`` reads it from the checkpoint)."""
     if model_type not in _BUILD:
         raise NotImplementedError(
             f'model type "{model_type}" is not ported to rcu_tpu_torch yet')
     kwargs = {}
     for key, value in params.items():
-        if key in _KEYS[model_type]:
-            kwargs[key] = value
-            continue
-        if key not in _NEUTRAL:
+        if key not in _KEYS[model_type]:
             raise ValueError(f'unknown {model_type} param "{key}"')
-        if value != _NEUTRAL[key]:
-            raise NotImplementedError(
-                f"{model_type} {key}={value!r} is not ported to "
-                "rcu_tpu_torch yet")
+        kwargs[key] = value
     if kwargs.get("dtype") not in _DTYPES:
         raise NotImplementedError(
             f"{model_type} dtype={kwargs['dtype']!r} is not ported to "

@@ -4,7 +4,8 @@ in float32 and in the JAX package's inference variants.
 Modules are NCHW inside, as PyTorch's convolutions want; the public
 functions around them (``engine.steps``, ``eval.pipeline``) take NHWC like
 the JAX package. Both return a :class:`UNetOutput`, as the flax modules do.
-Submodule names mirror flax's (U-Net: ``ConvBlock_0..2d``, ``Conv_0..d-1``
+Submodule names mirror flax's (U-Net: ``ConvBlock_0..2d``, or
+``ConvResidualBlock_0..2d`` with their 1x1 ``Conv_0``, ``Conv_0..d-1``
 up-convs, ``ConvBnRelu_0`` head, ``Conv_d`` class conv, and with the sigma
 head ``ConvBnRelu_1`` and ``Conv_{d+1}``; PostNet: ``ConvBnRelu_0..n-1``
 and the ``Conv_0`` head), so ``models.convert`` maps a flax tree onto
@@ -18,11 +19,14 @@ every dropout site draws sample ``t``'s ``(B, C)`` mask from
 ``generators[t]``. A sample's stream therefore does not depend on how many
 other samples ride the same forward. BatchNorm always uses its running
 statistics (eps 1e-5) in eval mode, under MC dropout as in flax. In
-train mode (:meth:`UNet.train`, float32 models without the fold or int8)
-it is flax's ``nn.BatchNorm(momentum=0.9)``: the batch statistics
-``E[x]`` and ``E[x^2] - E[x]^2`` (clipped at 0), and the running
-statistics updated with that biased variance (:func:`batch_norm_train`).
-A training step passes its one generator as ``generators=[g]``.
+train mode (:meth:`UNet.train`, float32 or bfloat16 models without the
+fold or int8) it is flax's ``nn.BatchNorm(momentum=0.9)``: the batch
+statistics ``E[x]`` and ``E[x^2] - E[x]^2`` (clipped at 0), and the
+running statistics updated with that biased variance
+(:func:`batch_norm_train`). A training step passes its one generator as
+``generators=[g]``; a bf16 model trains with float32 parameters, each
+conv casting its weights at the call (autograd casts their gradients
+back to float32, as flax's ``promote_dtype`` does).
 
 The inference variants keep flax's dtype islands and rewrites:
 - ``dtype`` (compute dtype, ``torch.bfloat16`` or float32): the input is
@@ -74,6 +78,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from rcu_tpu_torch.engine import remat
 from rcu_tpu_torch.ops import quant
 from rcu_tpu_torch.ops.cuda.int8conv import int8_conv_dequant
 from rcu_tpu_torch.parallel.mesh import all_sum, current_part
@@ -101,9 +106,21 @@ class ChannelDropout(nn.Module):
         super().__init__()
         self.p = p
 
-    def forward(self, x, generators=None):
+    def forward(self, x, generators=None, inplace=True):
         if generators is None or self.p == 0.0:
             return x
+        # drawn once: a remat rerun replays the forward's divisor
+        divisor = remat.replayed(lambda: self._divisor(x, generators))
+        # where(keep, x / keep_prob, 0) as flax computes it, with keep_prob
+        # rounded to x's dtype as flax rounds it, in one pass: a dropped
+        # channel divides by inf (x is finite), and its gradient, 1 / inf,
+        # is 0. In place under autograd too: x is a conv output, which no
+        # backward reads (not in place where x is a remat region's input,
+        # which its rerun reads again)
+        divisor = divisor.to(x.dtype)[:, :, None, None]
+        return x.div_(divisor) if inplace else x / divisor
+
+    def _divisor(self, x, generators):
         keep = 1.0 - self.p
         n, c = x.shape[0] // len(generators), x.shape[1]
         start, stop, total = getattr(generators, "rows", (0, n, n))
@@ -113,13 +130,7 @@ class ChannelDropout(nn.Module):
         masks = [torch.rand((total, c), generator=g,
                             device=x.device)[start:stop] < keep
                  for g in generators]
-        # where(keep, x / keep_prob, 0) as flax computes it, with keep_prob
-        # rounded to x's dtype as flax rounds it, in one in-place pass: a
-        # dropped channel divides by inf (x is finite), and its gradient,
-        # 1 / inf, is 0. In place under autograd too: x is a conv output,
-        # which no backward reads
-        divisor = torch.where(torch.cat(masks), keep, float("inf"))
-        return x.div_(divisor.to(x.dtype)[:, :, None, None])
+        return torch.where(torch.cat(masks), keep, float("inf"))
 
 
 def batch_norm_train(x, bn):
@@ -134,22 +145,34 @@ def batch_norm_train(x, bn):
     In a part of a mesh train step (``parallel.mesh.current_part``) the
     per-channel sums of x and x^2 are added over the parts first
     (``parallel.mesh.all_sum``) and ``n`` is the global count: every part
-    normalizes with the whole batch's moments."""
+    normalizes with the whole batch's moments.
+
+    In a remat region's rerun (``engine.remat``) the sums and the count are
+    the forward's, replayed, and the running statistics are left alone:
+    they change once a step."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    n = xf.numel() // xf.shape[1]
     s1, s2 = xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))
-    part = current_part()
-    if part is not None:
-        s1, s2 = all_sum(torch.stack([s1, s2])).unbind()
-        n = part.global_count(n)
+    s1, s2, n = remat.replayed(
+        lambda: _batch_sums(s1, s2, xf.numel() // xf.shape[1]))
     mean = s1 / n
     var = torch.clamp_min(s2 / n - mean * mean, 0.0)
-    with torch.no_grad():
-        bn.running_mean.mul_(0.9).add_(0.1 * mean)
-        bn.running_var.mul_(0.9).add_(0.1 * var)
+    if not remat.replaying():
+        with torch.no_grad():
+            bn.running_mean.mul_(0.9).add_(0.1 * mean)
+            bn.running_var.mul_(0.9).add_(0.1 * var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
     return y.to(x.dtype)
+
+
+def _batch_sums(s1, s2, n):
+    """The per-channel sums and count of the batch: over the parts of a
+    mesh step (:func:`parallel.mesh.all_sum`), else this forward's."""
+    part = current_part()
+    if part is None:
+        return s1, s2, n
+    s1, s2 = all_sum(torch.stack([s1, s2])).unbind()
+    return s1, s2, part.global_count(n)
 
 
 def bias_terms(bias, dtype):
@@ -261,21 +284,40 @@ def int8_conv_out(inputs, scales, conv, fold=False, folded_bias=False):
         memory_format=_memory_format(inputs[0]))
 
 
+def _split_conv(x, weight, bias, padding):
+    """``conv(x)``, ``x`` a tensor or a pair ``(a, b)`` that stands for
+    their channel concatenation: then the conv runs over the kernel's
+    input-channel halves and adds (``split_decoder_concat``)."""
+    if isinstance(x, tuple):
+        a, b = x
+        y = F.conv2d(a, weight[:, :a.shape[1]], None, padding=padding)
+        y += F.conv2d(b, weight[:, a.shape[1]:], bias, padding=padding)
+        return y
+    return F.conv2d(x, weight, bias, padding=padding)
+
+
 class ConvBnRelu(nn.Module):
-    """conv (3x3, or 1x1 in the PostNet) -> [channel dropout] -> batch norm
-    -> relu, in the dtype of its input. With ``fold_bn`` the batch norm is
-    in the conv's weights (no ``BatchNorm_0``). ``site`` is the module's
-    flax path and ``quant_scales`` the scale dict of a quantized site (the
-    owning U-Net sets both); ``split_input`` marks a conv that takes a
-    pair at load-time quantization."""
+    """conv (3x3, or 1x1 in the PostNet) -> [channel dropout] -> [batch
+    norm] -> [relu], in the dtype of its input. ``bn=False`` has no batch
+    norm; with ``fold_bn`` it is in the conv's weights (no ``BatchNorm_0``
+    either; ``fold_bn`` is then this site's: a BN-free site has nothing
+    folded). ``activation=False`` (the last conv of a residual block) ends
+    without the relu. ``site`` is the module's flax path and
+    ``quant_scales`` the scale dict of a quantized site (the owning U-Net
+    sets both); ``split_input`` marks a conv that takes a pair at
+    load-time quantization. Under the ``'conv'`` remat policy
+    (``engine.remat``) a train-mode site keeps its conv output and
+    recomputes the epilogue in the backward pass."""
 
     def __init__(self, in_ch: int, out_ch: int, dropout: float | None = None,
-                 kernel: int = 3, fold_bn: bool = False):
+                 kernel: int = 3, fold_bn: bool = False, bn: bool = True,
+                 activation: bool = True):
         super().__init__()
         self.Conv_0 = nn.Conv2d(in_ch, out_ch, kernel, padding=kernel // 2)
         self.dropout = ChannelDropout(dropout) if dropout is not None else None
-        self.fold_bn = fold_bn
-        if not fold_bn:
+        self.fold_bn = fold_bn and bn
+        self.activation = activation
+        if bn and not fold_bn:
             self.BatchNorm_0 = nn.BatchNorm2d(out_ch, eps=1e-5)
         self.site = ""
         self.quant_scales = None
@@ -313,31 +355,37 @@ class ConvBnRelu(nn.Module):
             bias, lo = bias_terms(conv.bias, dtype)
         else:
             bias = conv.bias.to(dtype)
-        weight = conv.weight.to(dtype)
-        if isinstance(x, tuple):
-            a, b = x
-            y = F.conv2d(a, weight[:, :a.shape[1]], None, padding=conv.padding)
-            y += F.conv2d(b, weight[:, a.shape[1]:], bias, padding=conv.padding)
-        else:
-            y = F.conv2d(x, weight, bias, padding=conv.padding)
+        y = _split_conv(x, conv.weight.to(dtype), bias, conv.padding)
         if lo is not None:
             y += lo[:, None, None]
         return y
 
     def forward(self, x, generators=None, stats=None):
         y = self.conv_out(x, stats)
+        if self.training and remat.policy() == "conv":
+            return remat.checkpoint(self.epilogue, y, generators, False)
+        return self.epilogue(y, generators)
+
+    def epilogue(self, y, generators=None, inplace=True):
+        """Dropout, batch norm and relu on the conv output ``y``; in place
+        on ``y`` where ``inplace`` (not on a remat region's input)."""
         if self.dropout is not None:
-            y = self.dropout(y, generators)
-        if not self.fold_bn:
-            bn = self.BatchNorm_0
+            dropped = self.dropout(y, generators, inplace)
+            inplace = inplace or dropped is not y
+            y = dropped
+        bn = getattr(self, "BatchNorm_0", None)
+        if bn is not None:
+            inplace = True
             if self.training:
                 y = batch_norm_train(y, bn)
             else:
                 y = F.batch_norm(y, bn.running_mean, bn.running_var,
                                  bn.weight, bn.bias, False, 0.0, bn.eps)
+        if not self.activation:
+            return y
         # in place under autograd too: no backward reads the BatchNorm's
-        # output, and relu's own backward reads its result
-        return F.relu_(y)
+        # output or a conv's, and relu's own backward reads its result
+        return F.relu_(y) if inplace else F.relu(y)
 
 
 def _conv_dropout(dropout, dropout_mode, i, repetitions):
@@ -364,16 +412,21 @@ def _block_dropout_mode(dropout_center, curr_depth, depth, is_down):
 
 class ConvBlock(nn.Module):
     """``repetitions`` stacked ConvBnRelu."""
+    residual = False
 
     def __init__(self, in_ch: int, out_ch: int, dropout=None,
                  dropout_mode: str = "all", repetitions: int = 2,
-                 fold_bn: bool = False):
+                 fold_bn: bool = False, bn: bool = True):
         super().__init__()
+        if self.residual:  # flax creates the 1x1 first: ``Conv_0``
+            self.Conv_0 = nn.Conv2d(in_ch, out_ch, 1)
         self.layers = []
         for i in range(repetitions):
             layer = ConvBnRelu(in_ch if i == 0 else out_ch, out_ch,
                                _conv_dropout(dropout, dropout_mode, i,
-                                             repetitions), fold_bn=fold_bn)
+                                             repetitions), fold_bn=fold_bn,
+                               bn=bn, activation=not (
+                                   self.residual and i == repetitions - 1))
             self.add_module(f"ConvBnRelu_{i}", layer)
             self.layers.append(layer)
 
@@ -381,6 +434,20 @@ class ConvBlock(nn.Module):
         for layer in self.layers:
             x = layer(x, generators, stats)
         return x
+
+
+class ConvResidualBlock(ConvBlock):
+    """``rcu_tpu`` ``ConvResidualBlock``: the stacked ConvBnRelu, the last
+    without its relu, plus a 1x1 conv ``Conv_0`` of the block's input (over
+    a split pair: the two input-channel halves, added). The 1x1 is no
+    int8 site: a residual U-Net refuses ``quant_scales``."""
+    residual = True
+
+    def forward(self, x, generators=None, stats=None):
+        dtype = (x[0] if isinstance(x, tuple) else x).dtype
+        residual = _split_conv(x, self.Conv_0.weight.to(dtype),
+                               self.Conv_0.bias.to(dtype), 0)
+        return super().forward(x, generators, stats) + residual
 
 
 def _pad_to(up, target_hw):
@@ -400,21 +467,24 @@ def _conv(x, conv):
 
 
 class _Trainable(nn.Module):
-    """``train(True)`` for the float32 models without the BN fold or int8
-    (and float64 ones, which the tests hold against the JAX package's
-    float64 gradients); the inference variants raise (bf16 training is a
-    later slice)."""
+    """``train(True)`` for the models without the BN fold or int8, in
+    float32, in bfloat16 (flax's mixed precision: the parameters, their
+    gradients, the optimizer's moments and the BatchNorm statistics stay
+    float32; the convs and dropout run in bf16, BatchNorm normalizes in
+    f32, the logits are f32) and in float64 (which the tests hold against
+    the JAX package's float64 gradients); the inference rewrites raise."""
 
     def train(self, mode: bool = True):
         if mode:
             if self.fold_bn or getattr(self, "quant_scales", None) is not None:
                 raise NotImplementedError(
                     "fold_bn and int8 models are inference-only rewrites; "
-                    "train the unfolded float32 model")
-            if self.dtype not in (torch.float32, torch.float64):
+                    "train the unfolded model")
+            if self.dtype not in (torch.float32, torch.bfloat16,
+                                  torch.float64):
                 raise NotImplementedError(
                     f"training in {self.dtype} is not ported to "
-                    "rcu_tpu_torch yet; train in float32")
+                    "rcu_tpu_torch; train in float32 or bfloat16")
         return super().train(mode)
 
     def reset_parameters_like_flax(self, generator=None):
@@ -451,21 +521,23 @@ class UNet(_Trainable):
     ``split_decoder_concat``, ``fused_upsample``, ``fold_bn`` and
     ``quant_scales`` with ``quant_skip_levels`` (the ``quant_skip_levels``
     finest resolution levels stay in the compute dtype) are the inference
-    variants of the module doc. Residual blocks are a later slice and
-    rejected by ``models.registry.get_model``.
+    variants of the module doc. ``residual`` builds
+    :class:`ConvResidualBlock` blocks (``ConvResidualBlock_0..2d``; no
+    int8), ``bn=False`` ConvBnRelus without a batch norm.
     """
 
     def __init__(self, nb_classes: int, in_channels: int, depth: int = 4,
                  start_filters: int = 16, dropout: float | None = 0.2,
-                 dropout_center: int | None = None, sigma_out: bool = False,
-                 provide_features: bool = False,
-                 dtype: torch.dtype = torch.float32,
+                 dropout_center: int | None = None, residual: bool = False,
+                 sigma_out: bool = False, provide_features: bool = False,
+                 bn: bool = True, dtype: torch.dtype = torch.float32,
                  split_decoder_concat: bool = False,
                  fused_upsample: bool = False, fold_bn: bool = False,
                  quant_scales: dict | None = None,
                  quant_skip_levels: int = 0):
         super().__init__()
         self.depth = depth
+        self.residual = residual
         self.dropout = dropout
         self.dropout_center = dropout_center
         self.sigma_out = sigma_out
@@ -475,30 +547,34 @@ class UNet(_Trainable):
         self.fused_upsample = fused_upsample
         self.fold_bn = fold_bn
         self.down_blocks, self.up_convs, self.up_blocks = [], [], []
+        block_cls = ConvResidualBlock if residual else ConvBlock
+        self.block_prefix = prefix = block_cls.__name__
         ch_in, ch = in_channels, start_filters
         for i in range(depth):
             mode = _block_dropout_mode(dropout_center, i, depth, True)
-            block = ConvBlock(ch_in, ch, dropout, mode, fold_bn=fold_bn)
-            self.add_module(f"ConvBlock_{i}", block)
+            block = block_cls(ch_in, ch, dropout, mode, fold_bn=fold_bn, bn=bn)
+            self.add_module(f"{prefix}_{i}", block)
             self.down_blocks.append(block)
             ch_in, ch = ch, ch * 2
         mode = _block_dropout_mode(dropout_center, depth, depth, True)
-        self.add_module(f"ConvBlock_{depth}",
-                        ConvBlock(ch_in, ch, dropout, mode, fold_bn=fold_bn))
+        self.add_module(f"{prefix}_{depth}", block_cls(
+            ch_in, ch, dropout, mode, fold_bn=fold_bn, bn=bn))
         for k in range(depth):
             up_conv = nn.Conv2d(ch, ch // 2, 3, padding=1)
             self.add_module(f"Conv_{k}", up_conv)
             self.up_convs.append(up_conv)
             mode = _block_dropout_mode(dropout_center, depth - 1 - k, depth,
                                        False)
-            block = ConvBlock(ch, ch // 2, dropout, mode, fold_bn=fold_bn)
-            self.add_module(f"ConvBlock_{depth + 1 + k}", block)
+            block = block_cls(ch, ch // 2, dropout, mode, fold_bn=fold_bn,
+                              bn=bn)
+            self.add_module(f"{prefix}_{depth + 1 + k}", block)
             self.up_blocks.append(block)
             ch //= 2
-        self.ConvBnRelu_0 = ConvBnRelu(ch, ch, dropout, fold_bn=fold_bn)
+        self.ConvBnRelu_0 = ConvBnRelu(ch, ch, dropout, fold_bn=fold_bn, bn=bn)
         self.add_module(f"Conv_{depth}", nn.Conv2d(ch, nb_classes, 1))
         if sigma_out:
-            self.ConvBnRelu_1 = ConvBnRelu(ch, ch, dropout, fold_bn=fold_bn)
+            self.ConvBnRelu_1 = ConvBnRelu(ch, ch, dropout, fold_bn=fold_bn,
+                                           bn=bn)
             self.add_module(f"Conv_{depth + 1}", nn.Conv2d(ch, nb_classes, 1))
         _zero_biases(self)
         _name_sites(self)
@@ -508,6 +584,11 @@ class UNet(_Trainable):
         self.train(False)
 
     def _set_quantization(self, scales, skip_levels):
+        if scales is not None and self.residual:
+            raise NotImplementedError(
+                "int8 quantization does not cover residual=True models "
+                "(the 1x1 residual convs are unquantized sites); use the "
+                "plain block variant")
         if not 0 <= skip_levels <= self.depth + 1:
             raise ValueError(f"quant_skip_levels must be in [0, depth+1="
                              f"{self.depth + 1}], got {skip_levels}")
@@ -516,7 +597,7 @@ class UNet(_Trainable):
         # the k-th up block (and up-conv) writes level depth-1-k, the head
         # level 0
         levels = [(block, i) for i, block in enumerate(self.down_blocks)]
-        levels.append((getattr(self, f"ConvBlock_{self.depth}"), self.depth))
+        levels.append((self.bottom_block, self.depth))
         levels += [(block, self.depth - 1 - k)
                    for k, block in enumerate(self.up_blocks)]
         for block, level in levels:
@@ -532,6 +613,10 @@ class UNet(_Trainable):
         (:func:`quantize_weights`). Returns the model."""
         self._set_quantization(scales, skip_levels)
         return quantize_weights(self)
+
+    @property
+    def bottom_block(self):
+        return getattr(self, f"{self.block_prefix}_{self.depth}")
 
     def _level_scales(self, level: int):
         """``quant_scales`` for a module at resolution level ``level`` (0 =
@@ -603,7 +688,7 @@ class UNet(_Trainable):
 
     def _finish(self, x, skips, generators, stats=None):
         """Bottom, decoder and heads from the pooled features and skips."""
-        x = getattr(self, f"ConvBlock_{self.depth}")(x, generators, stats)
+        x = self.bottom_block(x, generators, stats)
         for k, block in enumerate(self.up_blocks):
             skip = skips.pop()  # drop each skip as soon as it is consumed
             up = _pad_to(self._up(k, x, stats), skip.shape[2:])

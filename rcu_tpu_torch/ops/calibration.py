@@ -105,3 +105,28 @@ def ece_binary_with_bins(probabilities, target, mask=None, n_bins: int = 10,
         "bins_positive_fraction": pos_frac,
         "bins_non_zero": nonzero,
     }
+
+
+def threshold_range_mask(probabilities, target, threshold_range, mask=None):
+    """The open interval ``(low, up)`` of foreground probabilities as a mask
+    (and'ed with ``mask``): the ECE restricted to probabilities strictly
+    inside it. The single source of that restriction for
+    :func:`ece_binary` and ``ops.strategy.EceBinary``."""
+    probs = probabilities
+    if probs.dim() > target.dim():
+        probs = probs[..., 1] if probs.shape[-1] == 2 else probs.squeeze(-1)
+    low, up = threshold_range
+    in_range = (probs < up) & (probs > low)
+    return in_range if mask is None else mask.bool() & in_range
+
+
+def ece_binary(probabilities, target, mask=None, n_bins: int = 10,
+               bin_weighting: str = "proportion", threshold_range=None):
+    """Expected calibration error; ``threshold_range=(low, up)`` keeps the
+    probabilities strictly inside the open interval."""
+    if threshold_range is not None:
+        mask = threshold_range_mask(probabilities, target, threshold_range,
+                                    mask)
+    ece, _ = ece_binary_with_bins(probabilities, target, mask, n_bins,
+                                  bin_weighting)
+    return ece

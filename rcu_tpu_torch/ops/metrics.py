@@ -29,6 +29,12 @@ def dice_from_counts(tp, fp, fn):
     return (2.0 * tp) / (2.0 * tp + fp + fn)
 
 
+def accuracy(prediction: torch.Tensor, target: torch.Tensor, mask=None):
+    """(tp + tn) / n over the voxels the mask keeps, in float32."""
+    tp, tn, fp, fn, n = confusion_counts(prediction, target, mask)
+    return (tp + tn).float() / n.float()
+
+
 def entropy(p: torch.Tensor, dim: int = -1, keepdim: bool = False):
     """Shannon entropy with the 0*log(0)=0 convention (natural log)."""
     positive = p > 0

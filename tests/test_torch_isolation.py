@@ -1,8 +1,9 @@
 """The port stands alone: every module of ``rcu_tpu_torch`` imports with JAX,
 flax, optax and the JAX package blocked, and with the packages that the
 card's machine may lack (h5py, msgpack, yaml, PIL, tensorboardX, which
-only ``engine.hooks.TensorboardHook`` imports) or that only one function
-reads (scipy, in ``utils.labels.border_mask``); ``chip_smoke.py``
+only ``engine.hooks.TensorboardHook`` imports, and sklearn, which only
+the stratified split functions of ``data.split`` import) or that only one
+function reads (scipy, in ``utils.labels.border_mask``); ``chip_smoke.py``
 imports none of the blocked packages."""
 import ast
 import os
@@ -12,7 +13,7 @@ import textwrap
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "rcu_tpu", "h5py", "msgpack",
-           "yaml", "PIL", "tensorboardX", "scipy")
+           "yaml", "PIL", "tensorboardX", "scipy", "sklearn")
 NEVER = ("jax", "jaxlib", "flax", "optax", "rcu_tpu")
 
 

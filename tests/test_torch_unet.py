@@ -138,19 +138,26 @@ def test_mc_stream_is_seeded_and_per_sample():
     ("dtype", "float32", "bfloat16"), ("fused_upsample", False, True),
     ("fold_bn", False, True), ("bn", True, False)])
 def test_unported_model_options_raise(option, neutral, value):
-    """Options of later slices raise; the inference variants among them
-    (bf16, the fast decoder, the BN fold) are ported now and build with
-    the option set (tests/test_torch_variants.py holds them to flax)."""
+    """Every U-Net option of the JAX package is ported now and builds with
+    the option set (tests/test_torch_variants.py and
+    tests/test_torch_model_options.py hold them to flax); the U-Net-only
+    keys ``residual`` and ``bn`` raise ``ValueError`` on a PostNet, whose
+    JAX counterpart has no such field."""
     params = dict(nb_classes=2, in_channels=2, depth=2, start_filters=4)
     get_model("unet", {**params, option: neutral})  # model.json records these
-    if option in ("dtype", "split_decoder_concat", "fused_upsample",
-                  "fold_bn"):
-        model = get_model("unet", {**params, option: value})
+    model = get_model("unet", {**params, option: value})
+    if option == "bn":
+        assert not any("BatchNorm" in k for k in model.state_dict())
+        out = model(torch.zeros(1, 2, 8, 8))
+        assert out.logits.shape == (1, 2, 8, 8)
+    else:
         assert getattr(model, option) == \
             (torch.bfloat16 if option == "dtype" else value)
-        return
-    with pytest.raises(NotImplementedError):
-        get_model("unet", {**params, option: value})
+    if option in ("residual", "bn"):
+        with pytest.raises(ValueError, match=f'unknown postnet param '
+                                             f'"{option}"'):
+            get_model("postnet", dict(nb_classes=2, in_channels=4,
+                                      **{option: value}))
 
 
 @pytest.mark.parametrize("model_type,params", [
@@ -169,8 +176,9 @@ def test_ported_heads_build(model_type, params):
 
 
 def test_training_mode_is_refused():
-    """Training mode is for the unfolded float32 models: the BN fold, int8
-    and bf16 are inference variants and refuse it."""
+    """Training mode is for the unfolded models, in float32 or bfloat16
+    (tests/test_torch_train_bf16.py): the BN fold and int8 are inference
+    rewrites and refuse it."""
     params = dict(nb_classes=2, in_channels=2, depth=2, start_filters=4)
     model = get_model("unet", params)
     assert not model.training
@@ -180,8 +188,7 @@ def test_training_mode_is_refused():
     assert not model.training
     postnet = get_model("postnet", dict(nb_classes=2, in_channels=4))
     assert postnet.train().training
-    for variant in ({"fold_bn": True}, {"dtype": "bfloat16"},
-                    {"quant_scales": {}}):
+    for variant in ({"fold_bn": True}, {"quant_scales": {}}):
         model = get_model("unet", {**params, **variant})
         with pytest.raises(NotImplementedError):
             model.train()
@@ -189,4 +196,9 @@ def test_training_mode_is_refused():
         model.eval()
     with pytest.raises(NotImplementedError):
         get_model("postnet", dict(nb_classes=2, in_channels=4,
-                                  dtype="bfloat16")).train()
+                                  fold_bn=True)).train()
+    for model_type, record in (("unet", params),
+                               ("postnet", dict(nb_classes=2, in_channels=4))):
+        model = get_model(model_type, {**record, "dtype": "bfloat16"})
+        assert model.train() is model and model.training
+        assert all(m.training for m in model.modules())
