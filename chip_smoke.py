@@ -7,7 +7,8 @@ inference variants, int8 included, the native-2D (ISIC) direct eval,
 training, the staged chain, serving, the inference paths on a device
 mesh, training on a device mesh, the import of reference checkpoints,
 the residual and BatchNorm-free U-Nets, bf16 training, the remat
-policies and the evaluation-strategy API, at full width. Data
+policies and the evaluation-strategy API, at full width, and the
+analysis tools over the staged chain's eval tree. Data
 preparation (the H5 writer, the split and resize CLIs) is not driven
 here: the card's machine has neither ``h5py`` nor ``sklearn``, so it is
 held against the JAX package on the CPU only
@@ -263,7 +264,18 @@ Phases (any failure is an uncaught exception and a non-zero exit):
 19. remat: one flagship f32 SGD step with ``remat`` None (again: the
    control of cuDNN's order), ``'conv'`` and ``'full'`` from the same
    state, batch and generator, each against the first None's at the SGD
-   bar, each policy's region reruns, ms/step and peak GB.
+   bar, each policy's region reruns, ms/step and peak GB;
+20. analysis (host tools over phase 11's staged BraTS eval tree, no
+   kernel): both paper tables (``cli.table_ece_ue_bnf_dice``,
+   ``cli.table_supplmat_ece_dataset_vs_meansubject``) as numbers and
+   LaTeX, each strategy's ECE, Dice, error and benefit held at 1e-12
+   against a plain recomputation from its CSVs read with ``csv``; the
+   reliability curves, the miscalibration line and the precision-recall
+   points (drawing needs matplotlib, which that machine lacks: the CPU
+   tests hold the figures); ``cli.save_images``' data path for baseline
+   and aleatoric on one subject, the preparation on the card against the
+   CPU (maps within 1e-6, the same slice and box); ``cli.generate_configs``
+   into a temporary dir, equal to ``config/*.yaml`` ("analysis" lines).
 
 Every path runs with both kernels' launch counts set to 0 before it and
 read after it, and fails unless it launched the eval kernel once per
@@ -286,6 +298,7 @@ import concurrent.futures
 import contextlib
 import copy
 import csv
+import glob
 import io
 import json
 import math
@@ -298,10 +311,12 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
 
+from rcu_tpu_torch.analysis import frames, latex
 from rcu_tpu_torch.data import nifti
 from rcu_tpu_torch.engine import hooks as train_hooks
 from rcu_tpu_torch.engine import steps
@@ -3303,7 +3318,9 @@ def staged_phase(tmp, dataset, checkpoints, hbm_rate, ptxas):
     NIfTI trees, the eval kernel on its staged planes, and baseline,
     ensemble and auxiliary_feat against the direct eval in its eval_tree
     layout. Returns ({staged_<id>: by_path record, the test run's
-    numbers as ``test_*``}, the kernel checks' max abs error)."""
+    numbers as ``test_*``}, the kernel checks' max abs error, the
+    ``directories`` values of its tree: the prediction, eval, ground-truth
+    and split dirs and the run slots)."""
     from rcu_tpu_torch import directories as dirs
     from rcu_tpu_torch.eval.direct import load_model
     t0 = time.perf_counter()
@@ -3374,7 +3391,184 @@ def staged_phase(tmp, dataset, checkpoints, hbm_rate, ptxas):
             dataset.subjects)
         by_path[f"staged_{run_id}"]["vs_direct_max_count_diff"] = worst[run_id]
     log(f"staged phase: {time.perf_counter() - t0:.1f} s")
-    return by_path, max(errs)
+    tree = {"BRATS_PREDICT_DIR": pred_root, "BRATS_EVAL_DIR": eval_root,
+            "BRATS_ORIG_DATA_DIR": gt_dir, "SPLITS_DIR": split_dir, **slots}
+    return by_path, max(errs), tree
+
+
+# ----------------------------------------------------------------- analysis
+
+ANALYSIS_REL = 1e-12  # the tables against the plain recomputation
+SAVE_IMAGES_ATOL = 1e-6  # a prepared map on the card against the CPU
+SAVE_IMAGES_RUNS = ("baseline", "aleatoric")
+
+
+def csv_dicts(path):
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def plain_table_row(eval_root, result_id):
+    """The main table's ece, dice, error and benefit of one strategy from
+    its CSVs alone: per threshold file each subject's error and benefit,
+    the threshold whose subject mean is largest (the first code on a
+    tie), and the means over every threshold row of a subject (a subject
+    weighs as many rows as it has threshold files)."""
+    ece = {r["subject_name"]: r for r in csv_dicts(os.path.join(
+        eval_root, "ece_foreground", f"eval_ece_{result_id}.csv"))}
+    per_code = {}
+    for path in sorted(glob.glob(os.path.join(
+            eval_root, "uncertainty", f"eval_uncertainty_{result_id}_th*.csv"))):
+        rows = {}
+        for r in csv_dicts(path):
+            c = {k: int(r[k]) for k in ("fp", "fn", "fnu", "fpu", "tnu", "tpu")}
+            rows[r["subject_name"]] = (
+                2 * (c["fnu"] + c["fpu"]) / sum(c.values()),
+                float(float(r["corrected_dice"]) > float(r["dice"])))
+        per_code[path[-7:-4]] = rows
+    weight = {s: sum(s in rows for rows in per_code.values()) for s in ece}
+    total = sum(weight.values())
+    out = {k: math.fsum(weight[s] * float(ece[s][k]) for s in ece) / total
+           for k in ("ece", "dice")}
+    for i, entry in enumerate(("error", "benefit")):
+        means = {code: math.fsum(v[i] for v in rows.values()) / len(rows)
+                 for code, rows in per_code.items()}
+        best = per_code[max(sorted(means), key=means.get)]
+        out[entry] = math.fsum(weight[s] * best[s][i] for s in ece) / total
+    return out
+
+
+def analysis_tables(eval_root):
+    """Both tables on the staged tree: LaTeX printed; each strategy's row
+    held against :func:`plain_table_row`. -> the strategies held."""
+    from rcu_tpu_torch.analysis import resultdata
+    from rcu_tpu_torch.cli import table_ece_ue_bnf_dice as table
+    from rcu_tpu_torch.cli import (
+        table_supplmat_ece_dataset_vs_meansubject as supplementary)
+    names, cols = table.gather_information("brats")
+    log(table.to_latex({"brats": table.prepare_for_print((names, cols))}))
+    held, worst = [], 0.0
+    for i, (result_id, name) in enumerate(
+            resultdata.brats_selection_id_name_dict.items()):
+        if np.isnan(cols["ece"][i]):
+            continue
+        want = plain_table_row(eval_root, result_id)
+        for entry, value in want.items():
+            if not math.isclose(cols[entry][i], value, rel_tol=ANALYSIS_REL,
+                                abs_tol=0.0):
+                raise AssertionError(
+                    f"analysis table {name} {entry}: {cols[entry][i]!r} "
+                    f"against {value!r} from the CSVs")
+            if value:
+                worst = max(worst, abs(cols[entry][i] / value - 1.0))
+        held.append(result_id)
+    log(f"analysis tables: {len(held)} strategies' ece, dice, error and "
+        f"benefit within {worst:.3g} relative of the plain recomputation")
+    part = supplementary.in_percent(supplementary.gather("brats"))
+    if not np.isfinite(part[1]["ece"][names.index("baseline")]):
+        raise AssertionError("analysis supplementary table: no baseline row")
+    log(latex.to_latex({"brats": part}))
+    return held
+
+
+def analysis_figures(eval_root):
+    """The figures' numbers on the staged tree, nothing drawn."""
+    from rcu_tpu_torch.cli import plot_calibration as calib
+    from rcu_tpu_torch.cli import plot_supplmat_error_prec_recall as pr
+    df, ids_names = calib.load_calibration_df("brats")
+    curves = calib.all_runs_curves(df, ids_names)
+    subject = frames.unique_sorted(df["subject_name"])[0]
+    curves += calib.subject_curves(df, ids_names, subject)
+    for name, x, y in curves:
+        if not (0 < len(x) == len(y) <= frames.BINS and np.isfinite(x).all()
+                and np.isfinite(y).all()):
+            raise AssertionError(f"analysis reliability curve {name}: {x} {y}")
+    shares = calib.miscalibration_percentage(df, ids_names, "brats")
+    points = pr.precision_recall_points(*pr.load_df("brats"))
+    for name, prec, sens in points:
+        if len(prec) != len(DEFAULT_THRESHOLDS) or np.any(np.diff(prec) < 0) \
+                or not (np.isfinite(prec).all() and np.isfinite(sens).all()):
+            raise AssertionError(f"analysis precision-recall {name}: "
+                                 f"{prec} {sens}")
+    log(f"analysis figures: {len(curves)} reliability curves, shares "
+        f"{tuple(float(v) for v in shares)}, {len(points)} precision-recall "
+        "curves of 11 points; drawing is host-only (matplotlib, which this "
+        "machine lacks) and is held by tests/test_torch_analysis_figures.py")
+    return len(curves), len(points)
+
+
+def analysis_save_images(eval_root):
+    """``save_images``' data path for one subject of each of
+    ``SAVE_IMAGES_RUNS``: prepared on ``DEVICE`` and on the CPU, the maps
+    within ``SAVE_IMAGES_ATOL``, the same slice and box. -> the largest
+    map difference."""
+    from rcu_tpu_torch.cli import save_images
+    from rcu_tpu_torch.eval import analysis as ev_analysis, evaldata
+    worst = 0.0
+    for run_id in SAVE_IMAGES_RUNS:
+        entry = evaldata.get_brats_eval_data([run_id])[0]
+        prepare, result_id = ev_analysis.get_uncertainty_preparation(
+            entry, rescale_confidence="subject", rescale_sigma="global",
+            min_max_dir=os.path.join(eval_root, "minmax"))
+        sf = entry.subject_files[0]
+        got, want = (save_images.prepared_subject(
+            prepare, sf, entry.confidence_entry, "flair", torch.device(d))
+            for d in (DEVICE, "cpu"))
+        diff = float(np.abs(got["uncertainty"].astype(np.float64)
+                            - want["uncertainty"]).max())
+        a, b = (save_images.subject_images(d, "flair", "brats")
+                for d in (got, want))
+        if not (diff <= SAVE_IMAGES_ATOL and a["sel"] == b["sel"]
+                and a["bbox"] == b["bbox"]):
+            raise AssertionError(
+                f"analysis save_images {result_id}: map difference {diff}, "
+                f"slice {a['sel']} / {b['sel']}, box {a['bbox']} / {b['bbox']}")
+        log(f"analysis save_images {result_id} {sf.subject}: maps on "
+            f"{DEVICE} against the CPU within {diff:.3g}, slice {a['sel']}, "
+            f"box {a['bbox']}")
+        worst = max(worst, diff)
+    return worst
+
+
+def analysis_phase(tmp, tree):
+    """Phase 20: the analysis tools over the staged phase's tree
+    (``tree``: its ``directories`` values). No kernel launches here."""
+    from rcu_tpu_torch import directories as dirs
+    from rcu_tpu_torch.cli import generate_configs
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    launches = evalstats.fused_eval_stats.launches
+    with module_attrs(dirs, **tree), warnings.catch_warnings():
+        # the staged tree has 6 of the 8 selection ids: the tools warn of
+        # the other two
+        warnings.simplefilter("ignore", UserWarning)
+        held = timed("tables", analysis_tables, tree["BRATS_EVAL_DIR"])
+        timed("figures", analysis_figures, tree["BRATS_EVAL_DIR"])
+        worst = timed("save_images", analysis_save_images,
+                      tree["BRATS_EVAL_DIR"])
+    out = os.path.join(tmp, "configs")
+    count = timed("generate_configs", generate_configs.main, out)
+    shipped = sorted(os.path.relpath(n, dirs.CONFIG_DIR) for n in glob.glob(
+        os.path.join(dirs.CONFIG_DIR, "**", "*.yaml"), recursive=True))
+    for name in shipped:
+        with open(os.path.join(dirs.CONFIG_DIR, name), "rb") as f, \
+                open(os.path.join(out, name), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"analysis generate_configs: {name}")
+    if not count == len(shipped) == 66:
+        raise AssertionError(f"analysis generate_configs: {count} files, "
+                             f"config/ has {len(shipped)}")
+    if evalstats.fused_eval_stats.launches != launches:
+        raise AssertionError("analysis phase launched the eval kernel")
+    log(f"analysis: tables held on {len(held)} strategies ({', '.join(held)})"
+        f", save_images maps within {worst:.3g}, {count} configs equal to "
+        f"config/; seconds {json.dumps(seconds)}")
 
 
 # ------------------------------------------------------------------ serving
@@ -4867,8 +5061,8 @@ def main():
                                                            ptxas)
         log(f"isic phase: {time.perf_counter() - t0:.1f} s")
         train_paths, train_err, train_runs, train_stores = train_phase(tmp)
-        staged_paths, staged_err = staged_phase(tmp, dataset, checkpoints,
-                                                hbm_rate, ptxas)
+        staged_paths, staged_err, staged_tree = staged_phase(
+            tmp, dataset, checkpoints, hbm_rate, ptxas)
         serve_paths, serve_int8 = serve_phase(tmp, dataset, checkpoints)
         mesh_paths, mesh_int8, sharded = mesh_phase(tmp, dataset,
                                                     checkpoints)
@@ -4884,6 +5078,7 @@ def main():
                                          train_runs["brats_default"])
         remat_steps = remat_phase(tmp, train_stores)
         del train_stores
+        analysis_phase(tmp, staged_tree)
     record["by_path"] = {"mc": {"launches": record["launches"]}, **by_path,
                          **variants, **int8_paths, **isic_paths,
                          **train_paths, **staged_paths, **serve_paths,

@@ -1,10 +1,12 @@
 """The port stands alone: every module of ``rcu_tpu_torch`` imports with JAX,
 flax, optax and the JAX package blocked, and with the packages that the
 card's machine may lack (h5py, msgpack, yaml, PIL, tensorboardX, which
-only ``engine.hooks.TensorboardHook`` imports, and sklearn, which only
-the stratified split functions of ``data.split`` import) or that only one
-function reads (scipy, in ``utils.labels.border_mask``); ``chip_smoke.py``
-imports none of the blocked packages."""
+only ``engine.hooks.TensorboardHook`` imports, sklearn, which only the
+stratified split functions of ``data.split`` import, pandas, which no
+module imports, and matplotlib, which only the analysis tools' drawing
+functions import) or that only one function reads (scipy, in
+``utils.labels.border_mask``); ``chip_smoke.py`` imports none of the
+blocked packages."""
 import ast
 import os
 import subprocess
@@ -13,7 +15,8 @@ import textwrap
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "rcu_tpu", "h5py", "msgpack",
-           "yaml", "PIL", "tensorboardX", "scipy", "sklearn")
+           "yaml", "PIL", "tensorboardX", "scipy", "sklearn", "pandas",
+           "matplotlib")
 NEVER = ("jax", "jaxlib", "flax", "optax", "rcu_tpu")
 
 
@@ -51,7 +54,16 @@ def test_every_module_imports_with_jax_blocked():
             "rcu_tpu_torch.utils.writerpool",
             "rcu_tpu_torch.cli.eval_uncertainty",
             "rcu_tpu_torch.cli.isic_test_auxiliary_segm",
-            "rcu_tpu_torch.serve", "rcu_tpu_torch.cli.serve"} <= walked
+            "rcu_tpu_torch.serve", "rcu_tpu_torch.cli.serve",
+            "rcu_tpu_torch.analysis", "rcu_tpu_torch.analysis.frames",
+            "rcu_tpu_torch.analysis.latex",
+            "rcu_tpu_torch.analysis.resultdata",
+            "rcu_tpu_torch.cli.table_ece_ue_bnf_dice",
+            "rcu_tpu_torch.cli.table_supplmat_ece_dataset_vs_meansubject",
+            "rcu_tpu_torch.cli.plot_calibration",
+            "rcu_tpu_torch.cli.plot_supplmat_error_prec_recall",
+            "rcu_tpu_torch.cli.save_images",
+            "rcu_tpu_torch.cli.generate_configs"} <= walked
 
 
 def test_chip_smoke_imports_no_jax():
