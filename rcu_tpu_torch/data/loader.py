@@ -27,11 +27,14 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import itertools
 import queue
 import threading
 
 import numpy as np
 import torch
+
+from rcu_tpu_torch.utils import profiling
 
 
 class SliceBatchLoader:
@@ -197,7 +200,8 @@ def _host_tensors(batch: dict, pin: bool) -> dict:
     return out
 
 
-def prefetch(iterator, device, size: int = 2, pin: bool = None):
+def prefetch(iterator, device, size: int = 2, pin: bool = None,
+             stage: str = "train"):
     """Yield the batches of ``iterator`` as tensors on ``device``.
 
     A thread reads ahead up to ``size`` batches and turns each into torch
@@ -207,9 +211,15 @@ def prefetch(iterator, device, size: int = 2, pin: bool = None):
     this thread copies each batch with ``non_blocking`` and keeps the last
     ``size`` host batches referenced, so that no pinned buffer is freed
     under a copy in flight. An exception of the reader is raised here;
-    leaving the loop early stops the reader."""
+    leaving the loop early stops the reader.
+
+    Spans of batch ``k`` (``utils.profiling``, while a profiler runs):
+    ``loader.read`` on the reader thread (the batch and its tensors),
+    ``<stage>.feed_wait`` and ``<stage>.copy_in`` on this one; the read
+    and the wait that find the iterator's end are batch ``len`` 's."""
     device = torch.device(device)
     pin = device.type == "cuda" if pin is None else pin
+    wait_span, copy_span = f"{stage}.feed_wait", f"{stage}.copy_in"
     q: "queue.Queue" = queue.Queue(maxsize=size)
     end = object()
     stop = threading.Event()
@@ -225,8 +235,15 @@ def prefetch(iterator, device, size: int = 2, pin: bool = None):
 
     def worker():
         try:
-            for batch in iterator:
-                if stop.is_set() or not offer(_host_tensors(batch, pin)):
+            batches = iter(iterator)
+            for k in itertools.count():
+                with profiling.span("loader.read", k):
+                    batch = next(batches, end)
+                    if batch is not end:
+                        batch = _host_tensors(batch, pin)
+                if batch is end:
+                    break
+                if stop.is_set() or not offer(batch):
                     return
             offer(end)
         except BaseException as e:  # noqa: BLE001 — raised in the consumer
@@ -236,14 +253,18 @@ def prefetch(iterator, device, size: int = 2, pin: bool = None):
     thread.start()
     in_flight = collections.deque(maxlen=size)
     try:
-        while True:
-            item = q.get()
+        for k in itertools.count():
+            with profiling.span(wait_span, k):
+                item = q.get()
             if item is end:
                 return
             if isinstance(item, BaseException):
                 raise item
             in_flight.append(item)
-            yield {k: v.to(device, non_blocking=True) for k, v in item.items()}
+            with profiling.span(copy_span, k):
+                batch = {key: v.to(device, non_blocking=True)
+                         for key, v in item.items()}
+            yield batch
     finally:
         stop.set()
         thread.join()

@@ -11,6 +11,7 @@ import torch
 
 from rcu_tpu_torch.models.convert import (flax_from_state_dict,
                                           state_dict_from_flax)
+from rcu_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -29,10 +30,11 @@ class TrainState:
     def step(self):
         """One optimizer update from the parameters' gradients, which it
         then drops."""
-        params = self.params
-        self.optimizer.step(params, self.opt_state)
-        for p in params.values():
-            p.grad = None
+        with profiling.span("train.optimizer"):
+            params = self.params
+            self.optimizer.step(params, self.opt_state)
+            for p in params.values():
+                p.grad = None
 
     def to_flax(self) -> dict:
         """``{params, batch_stats, opt_state}`` as flax trees of numpy

@@ -224,7 +224,7 @@ class TestLoop:
         device, pin = (self.device, None) if self.mesh is None else \
             ("cpu", self.device.type == "cuda")
         for i, batch in enumerate(prefetch(iter(self.test_data.loader),
-                                           device, pin=pin)):
+                                           device, pin=pin, stage="test")):
             args = (self.model, batch) + \
                 (((self.config.seed, i),) if self.needs_rng else ())
             outputs = self.predict_fn(*args)

@@ -52,6 +52,7 @@ from rcu_tpu_torch.ops import metrics as metrics_lib
 from rcu_tpu_torch.parallel.mesh import pad_batch_size_to_mesh, replicate
 from rcu_tpu_torch.utils import ids as ids_lib
 from rcu_tpu_torch.utils import logs as logs_lib
+from rcu_tpu_torch.utils import profiling
 
 
 def default_eval_subject_fn(subject_data: dict, info: dict) -> typing.Tuple[dict, float]:
@@ -228,13 +229,15 @@ class TrainLoop:
         """``(epoch + 1) % nth == 0``: epochs nth-1, 2nth-1, ..."""
         return (epoch + 1) % self.config.valid_every_nth == 0
 
-    def _feed(self, loader):
+    def _feed(self, loader, stage: str):
         """The loader's batches: on the run's device, or on a mesh on the
         host (pinned where the mesh holds a card), where the step or the
-        predict function copies each device its part."""
+        predict function copies each device its part; ``stage`` names the
+        feed's spans."""
         if self.mesh is None:
-            return prefetch(iter(loader), self.device)
-        return prefetch(iter(loader), "cpu", pin=self.device.type == "cuda")
+            return prefetch(iter(loader), self.device, stage=stage)
+        return prefetch(iter(loader), "cpu", pin=self.device.type == "cuda",
+                        stage=stage)
 
     def _train_epoch(self, epoch: int):
         loader = self.train_data.loader
@@ -242,17 +245,22 @@ class TrainLoop:
         nb_batches = self.train_data.nb_batches
         metric_sums: dict = {}
         nb = 0
-        for i, batch in enumerate(self._feed(loader)):
-            generator = steps_lib.step_generator(self.config.seed, epoch, i,
-                                                 self.device)
-            metrics = self.train_step(self.state, batch, generator)
-            # the sums stay on the device: the loop never waits on a step
-            for k, v in metrics.items():
-                metric_sums[k] = metric_sums.get(k, 0.0) + v
+        for i, batch in enumerate(self._feed(loader, "train")):
+            with profiling.span("train.step", i):
+                generator = steps_lib.step_generator(self.config.seed, epoch,
+                                                     i, self.device)
+                metrics = self.train_step(self.state, batch, generator)
+                # the sums stay on the device: the loop never waits on a step
+                for k, v in metrics.items():
+                    metric_sums[k] = metric_sums.get(k, 0.0) + v
+            profiling.count("train.steps")
             nb += 1
-            self.hook.on_training_batch_end(self, epoch, i, nb_batches, metrics)
-        means = {k: float(v) / max(nb, 1) for k, v in metric_sums.items()}
-        self.hook.on_training_end(self, epoch, means)
+            with profiling.span("train.hooks", i):
+                self.hook.on_training_batch_end(self, epoch, i, nb_batches,
+                                                metrics)
+        with profiling.span("train.epoch_end"):
+            means = {k: float(v) / max(nb, 1) for k, v in metric_sums.items()}
+            self.hook.on_training_end(self, epoch, means)
 
     def _validate(self, epoch: int):
         asm = databuild.build_assembler(self.valid_data.dataset,
@@ -264,7 +272,7 @@ class TrainLoop:
         if self.mesh is not None:
             model = replicate(model, self.mesh.data_devices)
         with torch.no_grad():
-            for batch in self._feed(self.valid_data.loader):
+            for batch in self._feed(self.valid_data.loader, "valid"):
                 outputs = self.predict_fn(model, batch)
                 fetched = {e: outputs[e].cpu().numpy()
                            for e in self.validation_entries if e in outputs}

@@ -48,6 +48,7 @@ from rcu_tpu_torch.models import (FAST_DECODER_KWARGS, fold_bn_params,
 from rcu_tpu_torch.models.convert import state_dict_from_flax
 from rcu_tpu_torch.ops import quant as quant_ops
 from rcu_tpu_torch.parallel.mesh import pad_batch_size_to_mesh
+from rcu_tpu_torch.utils import profiling
 
 DEFAULT_THRESHOLDS = (0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95)
 STRATEGIES = ("mc", "deterministic", "aleatoric", "ensemble",
@@ -121,6 +122,10 @@ class _EvalSinks:
     def write_subject(self, subject, row):
         """``row``: the host (numpy) eval dict of one subject; its
         ``conf_min``/``conf_max``, where it has them, join the run bounds."""
+        with profiling.span("direct.sink"):
+            self._write(subject, row)
+
+    def _write(self, subject, row):
         ece = float(row["ece"])
         if not np.isfinite(ece):
             # a constant confidence map (the subject rescale divides 0/0) or
@@ -152,6 +157,10 @@ class _EvalSinks:
         self.bounds["max"].append(float(mx))
 
     def finish(self):
+        with profiling.span("direct.sink"):
+            self._finish()
+
+    def _finish(self):
         for hook in (self.calib, self.ece, *self.corr):
             hook.on_run_end({}, self.result_id)
         if self.bounds["min"]:
@@ -565,26 +574,47 @@ def _drive(pool, items, load_fn, dispatch_fn, fetch_fn, window: int = 2):
     loaded host tensors stay referenced until their item is fetched, so a
     pinned buffer outlives its non-blocking copy. The JAX package sizes
     its read-ahead as the pool's workers + 2 and clamps it to the window;
-    with the one reader thread that is the window."""
+    with the one reader thread that is the window.
+
+    Spans of item ``i`` (``utils.profiling``, while a profiler runs):
+    ``direct.read`` on the reader thread, ``direct.wait_read`` for it
+    here, ``direct.dispatch`` and ``direct.fetch``. ``t0`` is the item's
+    start on the monotonic clock."""
     lookahead = max(1, window)
     futures = collections.deque(
-        pool.submit(load_fn, i, item) for i, item in
+        pool.submit(_read, load_fn, i, item) for i, item in
         enumerate(items[:lookahead]))
     pending = collections.deque()
     for i, item in enumerate(items):
-        t0 = time.time()
-        loaded = futures.popleft().result()
+        t0 = time.perf_counter()
+        with profiling.span("direct.wait_read", i):
+            loaded = futures.popleft().result()
         if i + lookahead < len(items):
-            futures.append(pool.submit(load_fn, i + lookahead,
+            futures.append(pool.submit(_read, load_fn, i + lookahead,
                                        items[i + lookahead]))
-        out = dispatch_fn(i, item, loaded)
-        pending.append((item, (loaded, out), t0))
+        with profiling.span("direct.dispatch", i):
+            out = dispatch_fn(i, item, loaded)
+        pending.append((i, item, (loaded, out), t0))
         while len(pending) > window:
-            item_, (_, out_), t0_ = pending.popleft()
-            fetch_fn(item_, out_, t0_)
+            _fetch(fetch_fn, *pending.popleft())
     while pending:
-        item_, (_, out_), t0_ = pending.popleft()
-        fetch_fn(item_, out_, t0_)
+        _fetch(fetch_fn, *pending.popleft())
+
+
+def _read(load_fn, i, item):
+    with profiling.span("direct.read", i):
+        return load_fn(i, item)
+
+
+def _fetch(fetch_fn, i, item, loaded_out, t0):
+    with profiling.span("direct.fetch", i):
+        fetch_fn(item, loaded_out[1], t0)
+
+
+def _result(out: Fetch) -> dict:
+    """``out.result()``, the wait under the span ``direct.fetch_wait``."""
+    with profiling.span("direct.fetch_wait"):
+        return out.result()
 
 
 def _check_models(strategy, models):
@@ -660,29 +690,34 @@ class _Reader:
 
     def item(self, subject, images_only=False) -> dict:
         """{images, and unless ``images_only``: target, mask, baseline}
-        of one subject (volume) or image (native-2D)."""
-        images = np.asarray(self.dataset.read_volume(subject, "images"),
-                            np.float32)
-        if images_only:
-            if self.transform is None:
-                return {"images": images}
-            if self.is_2d:
-                return {"images": _transformed_image(self.transform, images)}
-            return {"images": np.stack([_transformed_image(self.transform, z)
-                                        for z in images])}
-        labels = np.asarray(self.dataset.read_volume(subject, "labels"))
-        if self.transform is not None:
-            if self.is_2d:
-                images, labels = self._transformed(images, labels)
-            else:  # per slice (H, W, C), as the staged loader applies it
-                outs = [self._transformed(images[z], labels[z])
-                        for z in range(images.shape[0])]
-                images = np.stack([o[0] for o in outs])
-                labels = np.stack([o[1] for o in outs])
-        target, baseline = _split_labels(labels, self.needs_baseline,
-                                         self.is_2d)
-        mask = foreground_mask(self.dataset, subject, target.shape) \
-            if self.masked else np.ones(target.shape, bool)
+        of one subject (volume) or image (native-2D); the voxels of an
+        eval item count under ``eval.voxels``."""
+        with profiling.span("direct.decode"):
+            images = np.asarray(self.dataset.read_volume(subject, "images"),
+                                np.float32)
+            if images_only:
+                if self.transform is None:
+                    return {"images": images}
+                if self.is_2d:
+                    return {"images": _transformed_image(self.transform,
+                                                         images)}
+                return {"images": np.stack([
+                    _transformed_image(self.transform, z) for z in images])}
+            labels = np.asarray(self.dataset.read_volume(subject, "labels"))
+            if self.transform is not None:
+                if self.is_2d:
+                    images, labels = self._transformed(images, labels)
+                else:  # per slice (H, W, C), as the staged loader applies it
+                    outs = [self._transformed(images[z], labels[z])
+                            for z in range(images.shape[0])]
+                    images = np.stack([o[0] for o in outs])
+                    labels = np.stack([o[1] for o in outs])
+            target, baseline = _split_labels(labels, self.needs_baseline,
+                                             self.is_2d)
+        with profiling.span("direct.mask"):
+            mask = foreground_mask(self.dataset, subject, target.shape) \
+                if self.masked else np.ones(target.shape, bool)
+        profiling.count("eval.voxels", target.size)
         item = {"images": images, "target": target, "mask": mask}
         if baseline is not None:
             item["baseline"] = baseline
@@ -694,20 +729,28 @@ class _Reader:
                 for k, v in arrays.items()}
 
     def subject(self, subject, images_only=False) -> dict:
-        return self.host(self.item(subject, images_only))
+        arrays = self.item(subject, images_only)
+        if not images_only:
+            profiling.count("eval.items")
+        with profiling.span("direct.host_tensors"):
+            return self.host(arrays)
 
     def chunk(self, group, images_only=False) -> list:
         """A chunk of native-2D images as same-shape parts, in order: runs
         of consecutive images of one shape (``load_chunk``), each
         ``(start in the chunk, subjects, host tensors (n, ...))``."""
         items = [self.item(s, images_only) for s in group]
+        if not images_only:
+            profiling.count("eval.items")
         parts, start = [], 0
         for i in range(1, len(items) + 1):
             if i == len(items) or \
                     items[i]["images"].shape != items[start]["images"].shape:
                 same = items[start:i]
-                parts.append((start, group[start:i], self.host(
-                    {k: np.stack([it[k] for it in same]) for k in same[0]})))
+                with profiling.span("direct.host_tensors"):
+                    host = self.host({k: np.stack([it[k] for it in same])
+                                      for k in same[0]})
+                parts.append((start, group[start:i], host))
                 start = i
         return parts
 
@@ -836,8 +879,10 @@ def _placed(where, i, host):
     """Item ``i``'s models, its tensors (on its device, or on the host for
     a latency mesh) and the mesh."""
     models, device, mesh = where(i)
-    data = host if device is None else \
-        {k: v.to(device, non_blocking=True) for k, v in host.items()}
+    if device is None:
+        return models, host, mesh
+    with profiling.span("direct.copy_in"):
+        data = {k: v.to(device, non_blocking=True) for k, v in host.items()}
     return models, data, mesh
 
 
@@ -853,7 +898,7 @@ def _run_volumes(dataset, sinks, reader, pool, where, window, *, strategy,
             return Fetch({"min": mn, "max": mx})
 
         def minmax_fetch(subject, out, t0):
-            got = out.result()
+            got = _result(out)
             sinks.add_bounds(got["min"], got["max"])
 
         _drive(pool, names, lambda si, s: reader.subject(s, images_only=True),
@@ -870,11 +915,11 @@ def _run_volumes(dataset, sinks, reader, pool, where, window, *, strategy,
                                 mesh))
 
     def fetch(subject, out, t0):
-        row = out.result()
+        row = _result(out)
         sinks.write_subject(subject, row)
         eces[subject] = float(row["ece"])
         logging.info("direct eval %s ece=%.5f (%.2fs)", subject,
-                     eces[subject], time.time() - t0)
+                     eces[subject], time.perf_counter() - t0)
 
     _drive(pool, names, lambda si, s: reader.subject(s), dispatch, fetch,
            window)
@@ -905,7 +950,7 @@ def _run_images(dataset, sinks, reader, pool, where, window, *, strategy, mc,
 
         def minmax_fetch(group, outs, t0):
             for subjects, out in outs:
-                got = out.result()
+                got = _result(out)
                 for i in range(len(subjects)):
                     sinks.add_bounds(got["min"][i], got["max"][i])
 
@@ -928,7 +973,7 @@ def _run_images(dataset, sinks, reader, pool, where, window, *, strategy, mc,
 
     def fetch(group, outs, t0):
         for subjects, out in outs:
-            host = out.result()
+            host = _result(out)
             for i, subject in enumerate(subjects):
                 row = _image_row(host, i)
                 sinks.write_subject(subject, row)
@@ -936,7 +981,7 @@ def _run_images(dataset, sinks, reader, pool, where, window, *, strategy, mc,
         logging.info("direct eval [%s..%s] mean ece=%.5f (%d images, %.2fs)",
                      group[0], group[-1],
                      float(np.mean([eces[s] for s in group])), len(group),
-                     time.time() - t0)
+                     time.perf_counter() - t0)
 
     _drive(pool, groups, lambda ci, g: reader.chunk(g), dispatch, fetch,
            window)

@@ -68,6 +68,7 @@ from rcu_tpu_torch.parallel.ensemble import (ensemble_summary, member_sums,
                                              shard_members)
 from rcu_tpu_torch.parallel.inference import sharded_subject_eval
 from rcu_tpu_torch.parallel.mesh import Split, replicate
+from rcu_tpu_torch.utils import profiling
 
 
 def sample_generators(rng, batch_index: int, mc_steps: int, device,
@@ -159,7 +160,9 @@ def _mc_scan(model, mc_steps: int, volume, batch_size: int, rng, mesh=None):
         images = data["images"]
         if mc_steps:
             gens = sample_generators(rng, b, mc_steps, images.device, rows)
-            summary = multi_prediction_summary(mc_forward(model, images, gens))
+            with profiling.span("pipeline.mc_forward"):
+                samples = mc_forward(model, images, gens)
+            summary = multi_prediction_summary(samples)
         else:
             probs = predict(model, images)
             summary = {"probabilities": probs,

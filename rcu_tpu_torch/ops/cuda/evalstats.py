@@ -34,6 +34,7 @@ from rcu_tpu_torch.ops.calibration import (_bin_proportions, bin_edges,
                                            bin_ids, bin_statistics)
 from rcu_tpu_torch.ops.metrics import dice_from_counts
 from rcu_tpu_torch.ops.uncertainty import _correction_from_counts
+from rcu_tpu_torch.utils import profiling
 
 N_BINS = 10
 MAX_THRESHOLDS = 23
@@ -342,9 +343,11 @@ def fused_subject_eval(fg, target, prediction, uncertainty, mask, thresholds,
     ``(len(thresholds),)`` tensors; with ``per_image`` every entry gains a
     leading image axis. ``mask`` (None = all voxels) reaches the ECE bins
     only."""
-    return subject_eval_from_stats(fused_eval_stats(
-        *kernel_planes(fg, target, prediction, uncertainty, mask),
-        thresholds, per_image))
+    with profiling.span("evalstats.launch"):  # the host's enqueue
+        stats = fused_eval_stats(
+            *kernel_planes(fg, target, prediction, uncertainty, mask),
+            thresholds, per_image)
+    return subject_eval_from_stats(stats)
 
 
 def subject_eval_from_stats(stats):

@@ -335,7 +335,8 @@ def _validate_member(member) -> float:
     model = member.state.model.eval()
     scores = []
     with torch.no_grad():
-        for batch in prefetch(iter(data.loader), member.device):
+        for batch in prefetch(iter(data.loader), member.device,
+                              stage="valid"):
             out = predict(model, batch)
             asm.add_batch({"probabilities": out["probabilities"].cpu().numpy()},
                           batch["subject_index"].cpu().numpy(),

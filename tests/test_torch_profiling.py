@@ -1,9 +1,9 @@
-"""``rcu_tpu_torch.utils.profiling`` on the CPU, beside
-``rcu_tpu.utils.profiling``: ``trace`` and ``ProfilerHook`` write a Chrome
-trace (the hook only for its steps, and also when the epoch ends before
-``stop_step``), ``Timer.report`` is JAX's string for the same sections,
-and the two measurers return a finite positive rate at a small size (the
-numbers mean something only on the card) and refuse a 1-device ring."""
+"""``rcu_tpu_torch.utils.profiling`` on the CPU: ``trace`` and
+``ProfilerHook`` write a Chrome trace (the hook only for its steps, and
+also when the epoch ends before ``stop_step``), and the two measurers
+return a finite positive rate at a small size (the numbers mean something
+only on the card) and refuse a 1-device ring. The spans and counters are
+``tests/test_torch_tracing.py``'s."""
 import glob
 import json
 import math
@@ -12,7 +12,6 @@ import os
 import pytest
 import torch
 
-from rcu_tpu.utils import profiling as jax_profiling
 from rcu_tpu_torch.parallel import make_mesh
 from rcu_tpu_torch.utils import profiling
 
@@ -66,20 +65,6 @@ def test_profiler_hook_ends_at_termination(tmp_path):
     assert hook._prof is not None and not traces(str(tmp_path))
     hook.on_termination(None)
     assert hook._prof is None and len(traces(str(tmp_path))) == 1
-
-
-def test_timer_report_is_jax_s(monkeypatch):
-    """The same sections on the same clock readings give JAX's string."""
-    reports = []
-    for module in (profiling, jax_profiling):
-        clock = iter([0.0, 0.25, 1.0, 1.5, 2.0, 2.125])
-        monkeypatch.setattr(module.time, "perf_counter", lambda: next(clock))
-        timer = module.Timer()
-        for name in ("read", "eval", "read"):
-            with timer.section(name):
-                pass
-        reports.append(timer.report())
-    assert reports[0] == reports[1] == "eval=0.500s read=0.375s"
 
 
 def test_measurers_give_a_rate_on_the_cpu():
