@@ -1,6 +1,7 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the two
+"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the three
 hand-written kernels (``csrc/evalstats.cu``, the fused eval statistics;
-``csrc/int8conv.cu``, the int8 convolution), holds each against its plain
+``csrc/int8conv.cu``, the int8 convolution; ``csrc/convepilogue.cu``, the
+f32 eval epilogue of a ConvBnRelu site), holds each against its plain
 PyTorch version, then drives the main path, the BraTS MC-dropout direct
 eval, the four other strategy families of the direct eval, the
 inference variants, int8 included, the native-2D (ISIC) direct eval,
@@ -32,18 +33,27 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    time, the bound, the bound's share of the kernel time
    (``bound_share``), achieved GB/s and occupancy; and the kernel's time
    at half the size and at one block's work, which part its time at the
-   full size into a fixed cost and a streaming rate;
+   full size into a fixed cost and a streaming rate; then the conv
+   epilogue kernel bitwise against its plain version at BraTS level 0 of
+   the MC batch (640 x 32 x 240^2), at its bottom level (640 x 512 x
+   15^2) and at a deterministic batch's head (no dropout); at level 0 its
+   time beside its bound (8 B an element), the plain version's and the
+   four-pass eager chain's, and an MC20 forward with and without it
+   (``epilogue_phase``; the kernels record's third entry);
 4. main path: ``evaluate_subjects`` over 2 in-memory BraTS-shaped subjects
    with the flagship U-Net (config/train_brats_baseline.yaml: depth 4, 32
    start filters, 4 channels, dropout 0.05) at seeded random weights
    (every model's BatchNorm statistics those of its input on the middle
    slices, its class head scaled, centred and antisymmetric), MC=20 at
    batch 32 (config/test_brats_baseline_mc.yaml), called under
-   torch's default TF32 flags as a library caller would. Before it, one
-   deterministic 8-slice batch on the card is held against the CPU. The
-   first subject's eval planes are kept, and the kernel is checked and
-   timed on them as in phase 3 (real fg maps pile into bin 0 and tn;
-   ``real_planes_ms``, ``real_planes_kernel_ms`` and
+   torch's default TF32 flags as a library caller would; the conv
+   epilogue must launch 19 times a forward (every f32 direct path of the
+   flagship's shape is held to that, every bf16 and int8 one to 0, and
+   the count of this run is the kernels record's ``launches``). Before
+   it, one deterministic 8-slice batch on the card is held against the
+   CPU. The first subject's eval planes are kept, and the kernel is
+   checked and timed on them as in phase 3 (real fg maps pile into bin 0
+   and tn; ``real_planes_ms``, ``real_planes_kernel_ms`` and
    ``real_planes_bound_share`` in the record);
 5. breakdown (information): one MC batch's forward time and convolution
    TFLOP/s, in f32 and with TF32 on; one subject under torch.profiler for
@@ -330,7 +340,7 @@ from rcu_tpu_torch.models.unet import ConvBnRelu, upsample_conv
 from rcu_tpu_torch.eval import pipeline
 from rcu_tpu_torch.eval.pipeline import sample_generators
 from rcu_tpu_torch.ops import prepare
-from rcu_tpu_torch.ops.cuda import build, evalstats, int8conv
+from rcu_tpu_torch.ops.cuda import build, convepilogue, evalstats, int8conv
 
 SEED = 20
 FLAGSHIP = dict(nb_classes=2, in_channels=4, depth=4, start_filters=32,
@@ -338,7 +348,7 @@ FLAGSHIP = dict(nb_classes=2, in_channels=4, depth=4, start_filters=32,
 BRATS = (155, 240, 240)
 MC_STEPS, BATCH = 20, 32
 MEMBERS = 10  # config/train_ensemble/train_brats_ensemble_{0..9}.yaml
-KERNELS = ("evalstats", "int8conv")
+KERNELS = ("evalstats", "int8conv", "convepilogue")
 DEVICE = "cuda"
 # H100 memory rates and the SXM part's 67 TFLOP/s f32 peak outside the
 # tensor cores (NVIDIA data sheets); the latter bounds the kernel's
@@ -596,6 +606,144 @@ def kernel_phase(hbm_rate, ptxas):
     return record
 
 
+# BraTS level 0 of the MC batch: 32 slices x T = 20, 32 channels at 240^2
+EPILOGUE_SHAPE = (MC_STEPS * BATCH, FLAGSHIP["start_filters"]) + BRATS[1:]
+# (label, shape, dropout) of the sites held bitwise against the plain
+# version, BatchNorm and ReLU at each: level 0 of the MC batch, the MC
+# bottom level (15 x 15 planes: an element a plane index, not a float4),
+# the head of a deterministic batch (no dropout)
+EPILOGUE_CHECKS = (
+    ("MC level 0", EPILOGUE_SHAPE, True),
+    ("MC bottom level", (MC_STEPS * BATCH, FLAGSHIP["start_filters"] << 4)
+     + tuple(d >> 4 for d in BRATS[1:]), True),
+    ("deterministic head", (BATCH,) + EPILOGUE_SHAPE[1:], False))
+
+
+def epilogue_site(shape, dropout):
+    """A seeded eval-mode ConvBnRelu of ``shape[1]`` channels on the card
+    (BatchNorm statistics and affine weights and the conv bias drawn),
+    a seeded conv output of ``shape`` and, with ``dropout``, the MC
+    dropout divisor of its rows: -> (layer, y, bias, divisor)."""
+    n, c = shape[:2]
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    layer = ConvBnRelu(c, c, FLAGSHIP["dropout"]).to(DEVICE).eval()
+    bn = layer.BatchNorm_0
+    with torch.no_grad():
+        for t in (bn.running_mean, bn.weight, bn.bias, layer.Conv_0.bias):
+            t.copy_(torch.randn(c, generator=g, device=DEVICE))
+        bn.running_var.copy_(torch.rand(c, generator=g, device=DEVICE) + 0.1)
+    y = torch.randn(shape, generator=g, device=DEVICE)
+    divisor = layer.dropout.divisor(y, sample_generators(
+        (SEED, 0), 0, n // BATCH, DEVICE)) if dropout else None
+    return layer, y, layer.Conv_0.bias.detach(), divisor
+
+
+def epilogue_phase(hbm_rate):
+    """The conv epilogue kernel bitwise against its plain version at each
+    of :data:`EPILOGUE_CHECKS`; then at ``EPILOGUE_SHAPE`` with dropout,
+    BatchNorm and ReLU, as the MC path runs it, the kernel's device time
+    (torch.profiler) beside its bound (8 B an element at the spec's memory
+    rate), the wrapper's, the plain version's and the four-pass eager
+    chain's that it replaces (the conv's own bias add, dropout's divide,
+    cuDNN's BatchNorm, relu_), each by CUDA events; then one MC forward of
+    a seeded flagship U-Net with the kernel and with the eager chain.
+    Returns the JSON record (its ``launches`` are the main path's, filled
+    in by the caller)."""
+    checked = []
+    with torch.inference_mode():
+        for label, shape, dropout in EPILOGUE_CHECKS:
+            layer, y, bias, divisor = epilogue_site(shape, dropout)
+            bn = layer.BatchNorm_0
+            want = convepilogue.conv_epilogue_reference(y, bias, divisor, bn)
+            got = convepilogue.conv_epilogue(y, bias, divisor, bn)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError("conv_epilogue differs from its plain "
+                                     f"version at the {label} {shape}")
+            checked.append(list(shape))
+            del layer, y, got, want
+        layer, work, bias, divisor = epilogue_site(EPILOGUE_SHAPE, True)
+        bn = layer.BatchNorm_0
+
+        def fused():
+            convepilogue.conv_epilogue(work, bias, divisor, bn)
+
+        def eager():  # aten::convolution's bias add, then the site's chain
+            t = work.add_(bias[:, None, None])
+            t.div_(divisor[:, :, None, None])
+            t = torch.nn.functional.batch_norm(
+                t, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                False, 0.0, bn.eps)
+            torch.nn.functional.relu_(t)
+
+        kernel = kernel_ms(profiled_ms(fused), convepilogue.KERNEL)
+        wrapper = cuda_ms(fused, 20)
+        plain = cuda_ms(lambda: convepilogue.conv_epilogue_reference(
+            work, bias, divisor, bn), 5)
+        chain = cuda_ms(eager, 10)
+    del work, layer
+    nbytes = convepilogue.BYTES_PER_ELEMENT * math.prod(EPILOGUE_SHAPE)
+    bound = nbytes / hbm_rate * 1e3
+    record = {"name": "conv_epilogue", "route": "cuda",
+              "source": "rcu_tpu_torch/csrc/convepilogue.cu",
+              "replaces": None, "shape": list(EPILOGUE_SHAPE),
+              "bitwise_at": checked, "kernel_ms": kernel, "ms": wrapper,
+              "bound_ms": bound,
+              "bound_share": None if kernel is None else bound / kernel,
+              "plain_ms": plain, "eager_chain_ms": chain,
+              "library_ms": None}
+    record.update(epilogue_forward_ms())
+    log(f"conv_epilogue bitwise its plain version at {checked}; at "
+        f"{EPILOGUE_SHAPE}: kernel {kernel} ms, wrapper {wrapper:.4f} ms, "
+        f"bound {bound:.4f} ms ({nbytes / 1e9:.3f} GB at "
+        f"{hbm_rate / 1e12} TB/s), share {record['bound_share']}; plain "
+        f"{plain:.3f} ms; the eager chain it replaces {chain:.3f} ms; "
+        f"MC{MC_STEPS} forward of {BATCH} slices "
+        f"{record['forward_fused_ms']:.1f} ms with it, "
+        f"{record['forward_eager_ms']:.1f} ms with the eager chain")
+    return record
+
+
+def epilogue_forward_ms():
+    """One MC forward (``BATCH`` slices x ``MC_STEPS``) of a seeded
+    flagship U-Net, with every ConvBnRelu through the kernel and through
+    the eager chain (CUDA events)."""
+    rng = np.random.RandomState(SEED)
+    images = torch.from_numpy(rng.standard_normal(
+        (BATCH,) + BRATS[1:] + (FLAGSHIP["in_channels"],)).astype(
+            np.float32)).to(DEVICE)
+    model = seeded_unet(SEED, images[:8].permute(0, 3, 1, 2).contiguous())
+
+    def mc():
+        steps.mc_forward(model, images,
+                         sample_generators((SEED, 0), 0, MC_STEPS, DEVICE))
+
+    out = {}
+    with torch.inference_mode():
+        out["forward_fused_ms"] = cuda_ms(mc, 3)
+        fuses = ConvBnRelu.fuses_epilogue
+        ConvBnRelu.fuses_epilogue = lambda self, x: False
+        try:
+            out["forward_eager_ms"] = cuda_ms(mc, 3)
+        finally:
+            ConvBnRelu.fuses_epilogue = fuses
+    return out
+
+
+def epilogue_launches(models, dataset):
+    """The conv epilogue kernel's launches on an f32 direct eval of the
+    U-Net ``models`` (a list for an ensemble) over ``dataset``: one a
+    ConvBnRelu site (19 in the flagship: 8 down, 2 bottom, 8 up, 1 head)
+    and forward, a forward a batch of ``BATCH`` slices (its MC rows in it)
+    and member; 0 off a card, where every site keeps the eager chain."""
+    if DEVICE != "cuda":
+        return 0
+    sites = sum(isinstance(m, ConvBnRelu) for model in (
+        models if isinstance(models, list) else [models])
+        for m in model.modules())
+    return sites * -(-BRATS[0] // BATCH) * len(dataset.subjects)
+
+
 class BratsLikeDataset:
     """Two BraTS-shaped subjects in memory (the SubjectDataset read
     interface): an ellipsoid head with a raw t2 NIfTI for the mask, a
@@ -736,13 +884,16 @@ def gpu_vs_cpu_check(model, dataset):
 
 
 def run_path(dataset, out_dir, models, run_id, int8_launches=0,
-             eval_launches=None, keep=None, **kwargs):
-    """``evaluate_subjects`` with both kernels' launch counts set to 0
+             eval_launches=None, keep=None, epilogue_launches=None,
+             **kwargs):
+    """``evaluate_subjects`` with the three kernels' launch counts set to 0
     before it and read after it; the path fails unless it launched the
     eval kernel once per subject (or ``eval_launches`` times: a latency
-    mesh launches once per data device and subject) and the int8 conv
-    ``int8_launches`` times (never its plain version), and every ECE is
-    finite. Returns (launches, seconds, eces, the first subject's eval
+    mesh launches once per data device and subject), the int8 conv
+    ``int8_launches`` times (never its plain version) and, where
+    ``epilogue_launches`` is given, the conv epilogue that many times
+    (:func:`epilogue_launches` on an f32 path, 0 on a bf16 or int8 one),
+    and every ECE is finite. Returns (launches, seconds, eces, the first subject's eval
     planes (ECE plane, target, prediction, uncertainty, mask); none on a
     mesh that splits the subject). With ``keep`` (a list) every subject's
     planes are appended to it: per device, its (ECE plane, prediction,
@@ -768,6 +919,7 @@ def run_path(dataset, out_dir, models, run_id, int8_launches=0,
     pipeline.sharded_subject_eval = keep_shards
     evalstats.fused_eval_stats.launches = 0
     int8conv.int8_conv.launches = 0
+    convepilogue.conv_epilogue.launches = 0
     plain_int8 = int8conv.int8_conv.plain_calls
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -793,6 +945,11 @@ def run_path(dataset, out_dir, models, run_id, int8_launches=0,
             f"{run_id}: int8_conv launched {int8conv.int8_conv.launches} "
             f"times (expected {int8_launches}), its plain version "
             f"{int8conv.int8_conv.plain_calls - plain_int8} times")
+    if epilogue_launches not in (None, convepilogue.conv_epilogue.launches):
+        raise AssertionError(
+            f"{run_id}: conv_epilogue launched "
+            f"{convepilogue.conv_epilogue.launches} times (expected "
+            f"{epilogue_launches})")
     if not all(math.isfinite(e) for e in eces.values()):
         raise AssertionError(f"{run_id}: non-finite ECE: {eces}")
     return launches, seconds, eces, planes
@@ -816,14 +973,17 @@ def check_csvs(out_dir, run_id, result_id, n):
 
 
 def main_path_phase(model, dataset, out_dir):
-    """Returns the kernel's launches in the run and the first subject's
-    eval planes (fg, target, prediction, entropy / ln 2, mask)."""
+    """Returns the eval kernel's launches in the run, the conv epilogue's
+    (19 a forward) and the first subject's eval planes (fg, target,
+    prediction, entropy / ln 2, mask)."""
     # torch's defaults, as a library caller has them: evaluate_subjects
     # runs the f32 U-Net in full float32 all the same
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
-    launches, seconds, eces, planes = run_path(dataset, out_dir, model,
-                                               "smoke", mc=MC_STEPS)
+    fused = epilogue_launches(model, dataset)
+    launches, seconds, eces, planes = run_path(
+        dataset, out_dir, model, "smoke", epilogue_launches=fused,
+        mc=MC_STEPS)
     if not (torch.backends.cudnn.allow_tf32
             and torch.backends.cuda.matmul.allow_tf32):
         raise AssertionError("evaluate_subjects did not restore the TF32 flags")
@@ -835,8 +995,8 @@ def main_path_phase(model, dataset, out_dir):
     log(f"main path: MC{MC_STEPS} direct eval of {n} subjects {BRATS} in "
         f"{seconds:.2f} s = {seconds / n:.3f} s/subject, "
         f"{voxels / seconds / 1e6:.3f} M voxels/s, peak memory {peak_gb:.2f} GB, "
-        f"eces {eces}")
-    return launches, planes
+        f"conv_epilogue launches {fused}, eces {eces}")
+    return launches, fused, planes
 
 
 def conv_flops_per_image(model):
@@ -1293,7 +1453,8 @@ def variants_phase(flagship, families, dataset, tmp, hbm_rate, ptxas):
 
     mc_f32 = (os.path.join(tmp, "eval"), "smoke")
     det_f32 = (os.path.join(tmp, "deterministic"), "deterministic")
-    run("deterministic", flagship, "deterministic", "deterministic", mc=0)
+    run("deterministic", flagship, "deterministic", "deterministic", mc=0,
+        epilogue_launches=epilogue_launches(flagship, dataset))
     paths = [
         ("mc_bf16", "unet", BF16, dict(mc=MC_STEPS), mc_f32, True),
         ("mc_bf16_fast", "unet", BF16_FAST, dict(mc=MC_STEPS), mc_f32, True),
@@ -1321,7 +1482,7 @@ def variants_phase(flagship, families, dataset, tmp, hbm_rate, ptxas):
                       variant_of(postnet, "postnet", POSTNET, **flags))
         suffix = "_rescale" if kind == "auxiliary_feat" else ""
         record, planes = run(label, models, label, label + suffix, f32,
-                             **kwargs)
+                             epilogue_launches=0, **kwargs)
         if gated and max(record["ece_delta"], record["dice_delta"]) > GATE:
             raise AssertionError(f"{label}: ECE/Dice against f32 beyond {GATE}:"
                                  f" {record}")
@@ -1805,7 +1966,8 @@ def int8_phase(flagship, families, dataset, tmp, hbm_rate, evalstats_ptxas):
             ("trained_deterministic", trained, dict(mc=0)),
             ("trained_ensemble", members, dict(strategy="ensemble"))):
         launches, seconds, eces, _ = run_path(
-            dataset, os.path.join(tmp, label), models, label, **kwargs)
+            dataset, os.path.join(tmp, label), models, label,
+            epilogue_launches=epilogue_launches(models, dataset), **kwargs)
         dice = {k: v[1] for k, v in ece_dice(os.path.join(tmp, label),
                                              label).items()}
         eval_paths[label] = {"launches": launches, "s_per_subject": seconds / n,
@@ -1840,7 +2002,8 @@ def int8_phase(flagship, families, dataset, tmp, hbm_rate, evalstats_ptxas):
             len(models) if ensemble else 1)
         out_dir = os.path.join(tmp, label)
         launches, seconds, eces, planes = run_path(
-            dataset, out_dir, models, label, int8_launches=expected, **kwargs)
+            dataset, out_dir, models, label, int8_launches=expected,
+            epilogue_launches=0, **kwargs)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         check_csvs(out_dir, label, label, n)
         if any(p.is_floating_point() and p.dtype != torch.float32
@@ -2607,7 +2770,11 @@ class ForwardDecisions:
     units and windows where that run's own values would have chosen
     otherwise. Where rounding puts a ReLU's input on the other side of 0,
     the forward moves by that rounding but the unit's gradient by its
-    whole value: a difference of the choice, not of the arithmetic."""
+    whole value: a difference of the choice, not of the arithmetic. Only
+    the ReLUs under autograd count: outside it no gradient flows through
+    the choice, and an eval-mode f32 site on a card (a frozen segmenter's,
+    under ``no_grad``) runs the fused epilogue kernel, which calls no
+    ``relu_``."""
 
     def __init__(self):
         self.relu, self.pool, self.differ = [], [], 0
@@ -2618,7 +2785,8 @@ class ForwardDecisions:
         relu_, pool = torch.nn.functional.relu_, torch.nn.functional.max_pool2d
 
         def record_relu(y):
-            self.relu.append(y > 0)
+            if torch.is_grad_enabled():
+                self.relu.append(y > 0)
             return relu_(y)
 
         def record_pool(x, *args, **kwargs):
@@ -2634,11 +2802,13 @@ class ForwardDecisions:
     @contextlib.contextmanager
     def replaying(self):
         from unittest import mock
-        pool = torch.nn.functional.max_pool2d
+        relu_, pool = torch.nn.functional.relu_, torch.nn.functional.max_pool2d
         relus, pools = iter(self.relu), iter(self.pool)
         self.differ = 0
 
         def replay_relu(y):
+            if not torch.is_grad_enabled():
+                return relu_(y)
             mask = next(relus).to(y.device)
             self.differ += int(((y > 0) != mask).sum())
             return torch.where(mask, y, 0.0)
@@ -4723,10 +4893,12 @@ def options_phase(tmp, dataset):
         numbers = {"card_vs_cpu_f32_max_abs_err": f32_err,
                    "card_vs_cpu_bf16_max_abs_err": bf16_err}
         for path, models, kwargs in (
-                (f"{label}_mc", model, dict(mc=MC_STEPS)),
+                (f"{label}_mc", model, dict(
+                    mc=MC_STEPS,
+                    epilogue_launches=epilogue_launches(model, subject))),
                 (f"{label}_deterministic_bf16_fast"
                  + ("_fold" if "fold_bn" in flags else ""), variant,
-                 dict(mc=0))):
+                 dict(mc=0, epilogue_launches=0))):
             out_dir = os.path.join(tmp, path)
             launches, seconds, eces, planes = run_path(subject, out_dir, models,
                                                        path, **kwargs)
@@ -5029,14 +5201,15 @@ def main():
     summaries = build_phase()
     ptxas = summaries["evalstats"]
     record = kernel_phase(hbm_rate, ptxas)
+    epilogue_record = epilogue_phase(hbm_rate)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         dataset = BratsLikeDataset(tmp)
         log(f"synthetic data: {time.perf_counter() - t0:.1f} s")
         model = seeded_unet(SEED, middle_batch(dataset).to(DEVICE))
         cpu_batch, cpu_logits = gpu_vs_cpu_check(model, dataset)
-        record["launches"], planes = main_path_phase(
-            model, dataset, os.path.join(tmp, "eval"))
+        record["launches"], epilogue_record["launches"], planes = \
+            main_path_phase(model, dataset, os.path.join(tmp, "eval"))
         label = f"real planes of {dataset.subjects[0]} {BRATS}"
         check_kernel(planes, DEFAULT_THRESHOLDS, label)
         real = time_kernel(planes, label, hbm_rate, ptxas)
@@ -5104,7 +5277,7 @@ def main():
                     "card_vs_cpu_grad_err": train_err,
                     "bf16_training": bf16_training, "remat": remat_steps,
                     "model_options": options, "strategy_api": strategy_api}))
-    log(json.dumps({"kernels": [record, int8_record]}))
+    log(json.dumps({"kernels": [record, int8_record, epilogue_record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -80,8 +80,11 @@ from torch.nn import functional as F
 
 from rcu_tpu_torch.engine import remat
 from rcu_tpu_torch.ops import quant
+from rcu_tpu_torch.ops.cuda.convepilogue import (BYTES_PER_ELEMENT,
+                                                 conv_epilogue)
 from rcu_tpu_torch.ops.cuda.int8conv import int8_conv_dequant
 from rcu_tpu_torch.parallel.mesh import all_sum, current_part
+from rcu_tpu_torch.utils import profiling
 
 # the production bundle of checkpoint-compatible decoder rewrites
 # (``rcu_tpu`` unet.py:483)
@@ -107,18 +110,26 @@ class ChannelDropout(nn.Module):
         self.p = p
 
     def forward(self, x, generators=None, inplace=True):
-        if generators is None or self.p == 0.0:
+        divisor = self.divisor(x, generators)
+        if divisor is None:
             return x
+        # where(keep, x / keep_prob, 0) as flax computes it, in one pass: a
+        # dropped channel divides by inf (x is finite), and its gradient,
+        # 1 / inf, is 0. In place under autograd too: x is a conv output,
+        # which no backward reads (not in place where x is a remat region's
+        # input, which its rerun reads again)
+        divisor = divisor[:, :, None, None]
+        return x.div_(divisor) if inplace else x / divisor
+
+    def divisor(self, x, generators=None):
+        """The (rows, C) divisor of ``x`` in its dtype: keep_prob rounded to
+        x's dtype as flax rounds it, inf for a dropped channel; None where
+        no dropout is active."""
+        if generators is None or self.p == 0.0:
+            return None
         # drawn once: a remat rerun replays the forward's divisor
         divisor = remat.replayed(lambda: self._divisor(x, generators))
-        # where(keep, x / keep_prob, 0) as flax computes it, with keep_prob
-        # rounded to x's dtype as flax rounds it, in one pass: a dropped
-        # channel divides by inf (x is finite), and its gradient, 1 / inf,
-        # is 0. In place under autograd too: x is a conv output, which no
-        # backward reads (not in place where x is a remat region's input,
-        # which its rerun reads again)
-        divisor = divisor.to(x.dtype)[:, :, None, None]
-        return x.div_(divisor) if inplace else x / divisor
+        return divisor.to(x.dtype)
 
     def _divisor(self, x, generators):
         keep = 1.0 - self.p
@@ -307,7 +318,8 @@ class ConvBnRelu(nn.Module):
     sets both); ``split_input`` marks a conv that takes a pair at
     load-time quantization. Under the ``'conv'`` remat policy
     (``engine.remat``) a train-mode site keeps its conv output and
-    recomputes the epilogue in the backward pass."""
+    recomputes the epilogue in the backward pass. An f32 site in eval mode
+    on a card runs its epilogue as one kernel (:meth:`fuses_epilogue`)."""
 
     def __init__(self, in_ch: int, out_ch: int, dropout: float | None = None,
                  kernel: int = 3, fold_bn: bool = False, bn: bool = True,
@@ -330,12 +342,13 @@ class ConvBnRelu(nn.Module):
         return (width // 2, width - width // 2) if self.split_input \
             else (width,)
 
-    def conv_out(self, x, stats=None):
+    def conv_out(self, x, stats=None, bias=True):
         """The conv's output, before dropout. ``x`` a tensor, or a pair
         ``(a, b)`` that stands for their channel concatenation: the conv
         then runs over the kernel's input-channel halves and adds
         (``split_decoder_concat``). A quantized site runs
-        :func:`int8_conv_out`."""
+        :func:`int8_conv_out`. ``bias=False`` leaves the bias out (an
+        unquantized site whose epilogue adds it)."""
         conv = self.Conv_0
         inputs = x if isinstance(x, tuple) else (x,)
         dtype = inputs[0].dtype
@@ -351,7 +364,9 @@ class ConvBnRelu(nn.Module):
             return int8_conv_out(inputs, scales, conv,
                                  folded_bias=self.fold_bn)
         lo = None
-        if self.fold_bn and dtype != torch.float32:
+        if not bias:
+            bias = None
+        elif self.fold_bn and dtype != torch.float32:
             bias, lo = bias_terms(conv.bias, dtype)
         else:
             bias = conv.bias.to(dtype)
@@ -360,8 +375,32 @@ class ConvBnRelu(nn.Module):
             y += lo[:, None, None]
         return y
 
+    def fuses_epilogue(self, x) -> bool:
+        """Whether this call's epilogue is one ``conv_epilogue`` kernel on
+        the bias-free conv output: in eval mode, outside autograd, at an
+        unquantized site whose conv output is an NCHW float32 CUDA tensor
+        (``x``, or the first of a pair, is). Every other call keeps the
+        eager chain of :meth:`epilogue`."""
+        x = x[0] if isinstance(x, tuple) else x
+        return (x.device.type == "cuda" and x.dtype == torch.float32
+                and not self.training and self.quant_scales is None
+                and not torch.is_grad_enabled()
+                and _memory_format(x) == torch.contiguous_format)
+
     def forward(self, x, generators=None, stats=None):
+        if self.fuses_epilogue(x):
+            y = self.conv_out(x, stats, bias=False)
+            divisor = None if self.dropout is None \
+                else self.dropout.divisor(y, generators)
+            profiling.count("unet.epilogue_fused")
+            profiling.count("unet.epilogue_bytes",
+                            BYTES_PER_ELEMENT * y.numel())
+            return conv_epilogue(y, self.Conv_0.bias.float(), divisor,
+                                 getattr(self, "BatchNorm_0", None),
+                                 self.activation)
         y = self.conv_out(x, stats)
+        if y.is_cuda:
+            profiling.count("unet.epilogue_eager")
         if self.training and remat.policy() == "conv":
             return remat.checkpoint(self.epilogue, y, generators, False)
         return self.epilogue(y, generators)
