@@ -5,7 +5,10 @@ Module names are the same on both sides (``models.unet`` mirrors flax's),
 so the map is per leaf: a conv ``kernel`` HWIO -> ``weight`` OIHW, conv
 ``bias`` -> ``bias``; BatchNorm ``scale``/``bias`` -> ``weight``/``bias``
 from ``params`` and ``mean``/``var`` -> ``running_mean``/``running_var``
-from ``batch_stats``.
+from ``batch_stats``. The checkpoints of the port's other models
+(``models.transunet``) take the same layout: a dense ``kernel`` (in, out)
+-> ``weight`` (out, in), a GroupNorm's or LayerNorm's ``scale`` ->
+``weight``, and any other leaf (a position table) by its own name.
 """
 from __future__ import annotations
 
@@ -31,8 +34,10 @@ def state_dict_from_flax(params: dict, batch_stats: dict) -> dict:
     for path, value in _flatten(params):
         value = np.asarray(value, np.float32)
         if path[-1] == "kernel":
-            value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-        state[".".join(path[:-1] + (_PARAM_LEAVES[path[-1]],))] = \
+            # HWIO -> OIHW; a dense (in, out) -> (out, in)
+            value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+        leaf = _PARAM_LEAVES.get(path[-1], path[-1])
+        state[".".join(path[:-1] + (leaf,))] = \
             torch.from_numpy(np.array(value, order="C"))
     for path, value in _flatten(batch_stats):
         prefix = ".".join(path[:-1])
@@ -51,13 +56,15 @@ def flax_from_state_dict(state: dict) -> tuple:
         if leaf == "num_batches_tracked":
             continue
         value = tensor.detach().float().cpu().numpy()
-        is_bn = path[-1].startswith("BatchNorm")
         if leaf in ("running_mean", "running_var"):
             tree, leaf = trees[1], leaf[len("running_"):]
         elif leaf == "weight":
-            tree, leaf = trees[0], "scale" if is_bn else "kernel"
-            if not is_bn:
-                value = value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+            # a norm's (C,) scale; a conv's OIHW -> HWIO; a dense (out, in)
+            # -> (in, out)
+            tree, leaf = trees[0], "scale" if value.ndim == 1 else "kernel"
+            if value.ndim > 1:
+                value = value.transpose(2, 3, 1, 0) if value.ndim == 4 \
+                    else value.T
         else:
             tree = trees[0]
         for key in path:

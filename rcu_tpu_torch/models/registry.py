@@ -1,12 +1,14 @@
 """String -> model and optimizer registries, the config surface of
 ``rcu_tpu.models.registry`` (``model: {unet: {...}}``, ``model: {postnet:
-{...}}``, ``optimizer: {adam: {lr: ...}}``)."""
+{...}}``, ``optimizer: {adam: {lr: ...}}``), and the port's own
+``model: {transunet: {...}}`` (``models.transunet``)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from rcu_tpu_torch.models.optim import get_optimizer  # noqa: F401
+from rcu_tpu_torch.models.transunet import TransUNet
 from rcu_tpu_torch.models.unet import PostNet, UNet
 
 _KEYS = {"unet": {"nb_classes", "in_channels", "depth", "start_filters",
@@ -15,8 +17,12 @@ _KEYS = {"unet": {"nb_classes", "in_channels", "depth", "start_filters",
                   "fused_upsample", "fold_bn", "quant_scales",
                   "quant_skip_levels"},
          "postnet": {"nb_classes", "in_channels", "nb_convs", "dropout",
-                     "dtype", "fold_bn"}}
-_BUILD = {"unet": UNet, "postnet": PostNet}
+                     "dtype", "fold_bn"},
+         "transunet": {"nb_classes", "in_channels", "img_size", "hidden",
+                       "mlp_dim", "heads", "layers", "resnet_units", "width",
+                       "decoder_channels", "head_channels", "n_skip",
+                       "dropout", "attention_dropout", "dtype"}}
+_BUILD = {"unet": UNet, "postnet": PostNet, "transunet": TransUNet}
 _DTYPES = {None: torch.float32, "float32": torch.float32,
            "bfloat16": torch.bfloat16}
 
@@ -29,7 +35,9 @@ def get_model(model_type: str, params: dict) -> nn.Module:
     ``bn``, which the JAX package's PostNet has not (a key outside a
     model's fields raises ``ValueError``). A PostNet needs
     ``in_channels``, which flax infers and a model.json may leave out
-    (``eval.direct.load_model`` reads it from the checkpoint)."""
+    (``eval.direct.load_model`` reads it from the checkpoint). A TransUNet
+    takes the published R50-ViT-B/16 widths where the node leaves them
+    out, and float32 only."""
     if model_type not in _BUILD:
         raise NotImplementedError(
             f'model type "{model_type}" is not ported to rcu_tpu_torch yet')

@@ -316,16 +316,22 @@ class ConvBnRelu(nn.Module):
     without the relu. ``site`` is the module's flax path and
     ``quant_scales`` the scale dict of a quantized site (the owning U-Net
     sets both); ``split_input`` marks a conv that takes a pair at
-    load-time quantization. Under the ``'conv'`` remat policy
-    (``engine.remat``) a train-mode site keeps its conv output and
-    recomputes the epilogue in the backward pass. An f32 site in eval mode
-    on a card runs its epilogue as one kernel (:meth:`fuses_epilogue`)."""
+    load-time quantization. ``bias=False`` builds the conv without a bias
+    (a site whose BatchNorm follows it, as TransUNet's decoder has them).
+    Under the ``'conv'`` remat policy (``engine.remat``) a train-mode site
+    keeps its conv output and recomputes the epilogue in the backward pass.
+    An f32 site in eval mode on a card runs its epilogue as one kernel
+    (:meth:`fuses_epilogue`)."""
 
     def __init__(self, in_ch: int, out_ch: int, dropout: float | None = None,
                  kernel: int = 3, fold_bn: bool = False, bn: bool = True,
-                 activation: bool = True):
+                 activation: bool = True, bias: bool = True):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_ch, out_ch, kernel, padding=kernel // 2)
+        self.Conv_0 = nn.Conv2d(in_ch, out_ch, kernel, padding=kernel // 2,
+                                bias=bias)
+        if not bias:  # what the fused epilogue adds in place of a bias
+            self.register_buffer("zero_bias", torch.zeros(out_ch),
+                                 persistent=False)
         self.dropout = ChannelDropout(dropout) if dropout is not None else None
         self.fold_bn = fold_bn and bn
         self.activation = activation
@@ -364,7 +370,7 @@ class ConvBnRelu(nn.Module):
             return int8_conv_out(inputs, scales, conv,
                                  folded_bias=self.fold_bn)
         lo = None
-        if not bias:
+        if not bias or conv.bias is None:
             bias = None
         elif self.fold_bn and dtype != torch.float32:
             bias, lo = bias_terms(conv.bias, dtype)
@@ -395,7 +401,9 @@ class ConvBnRelu(nn.Module):
             profiling.count("unet.epilogue_fused")
             profiling.count("unet.epilogue_bytes",
                             BYTES_PER_ELEMENT * y.numel())
-            return conv_epilogue(y, self.Conv_0.bias.float(), divisor,
+            bias = self.zero_bias if self.Conv_0.bias is None \
+                else self.Conv_0.bias.float()
+            return conv_epilogue(y, bias, divisor,
                                  getattr(self, "BatchNorm_0", None),
                                  self.activation)
         y = self.conv_out(x, stats)

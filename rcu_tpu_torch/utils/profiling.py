@@ -20,6 +20,11 @@ profiler draws each user annotation a second time on the device's
 timeline (``gpu_user_annotation``, from its first kernel's start to its
 last one's end), which a reading of the device's activity from the trace
 would count as busy time.
+
+A span given a CUDA ``device`` also records a CUDA event on that device's
+current stream at each of its ends; :func:`device_seconds` resolves the
+pairs after the work into the seconds the device's stream took between
+them, by span name.
 """
 from __future__ import annotations
 
@@ -63,6 +68,7 @@ class _Record:
         self.lock = threading.Lock()
         self.spans: list = []
         self.counters: dict = {}
+        self.events: list = []  # (span name, start event, end event)
         self.threads: dict = {}  # native id -> thread name
         self.local = threading.local()  # each thread's stack of open spans
 
@@ -74,10 +80,12 @@ class _Record:
                 threading.current_thread().name
         return stack
 
-    def add(self, entry: Span):
+    def add(self, entry: Span, events=None):
         with self.lock:
             if len(self.spans) < MAX_SPANS:
                 self.spans.append(entry)
+                if events is not None:
+                    self.events.append((entry.name,) + events)
             else:
                 self.counters["spans.dropped"] = \
                     self.counters.get("spans.dropped", 0) + 1
@@ -100,24 +108,30 @@ class _Off:
 _OFF = _Off()
 
 
-def span(name: str, item: int = None):
-    """``with span(name, item=None):`` records the block while a torch
-    profiler runs (see the module doc); ``item`` is the index that the
-    spans of one eval item or train step share across threads, inherited
-    from the enclosing span where not given. With no profiler running it
-    costs one flag test and returns a shared object that does nothing."""
+def span(name: str, item: int = None, device=None):
+    """``with span(name, item=None, device=None):`` records the block while
+    a torch profiler runs (see the module doc); ``item`` is the index that
+    the spans of one eval item or train step share across threads,
+    inherited from the enclosing span where not given; a CUDA ``device``
+    adds the pair of events that :func:`device_seconds` reads. With no
+    profiler running it costs one flag test and returns a shared object
+    that does nothing."""
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
-    return _Span(name, item)
+    return _Span(name, item, device)
 
 
 class _Span:
     """An open span: a host op of the profiler and, at its end, an entry of
-    the record."""
-    __slots__ = ("name", "item", "_function", "_parent", "_start")
+    the record (with its device events where it has a CUDA device)."""
+    __slots__ = ("name", "item", "_function", "_parent", "_start", "_stream",
+                 "_events")
 
-    def __init__(self, name: str, item):
+    def __init__(self, name: str, item, device=None):
         self.name, self.item = name, item
+        self._stream = torch.cuda.current_stream(device) \
+            if device is not None and torch.device(device).type == "cuda" \
+            else None
 
     def __enter__(self):
         stack = _RECORD.stack()
@@ -127,16 +141,24 @@ class _Span:
             self.item = parent.item
         self._function = _HostOp(self.name)
         self._function.__enter__()
+        self._events = None
+        if self._stream is not None:
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+            self._events[0].record(self._stream)
         self._start = time.time_ns()
         stack.append(self)
         return self
 
     def __exit__(self, *exc):
         end = time.time_ns()
+        if self._events is not None:
+            self._events[1].record(self._stream)
         _RECORD.stack().pop()
         self._function.__exit__(*exc)
         _RECORD.add(Span(self.name, self._start, end,
-                         threading.get_native_id(), self._parent, self.item))
+                         threading.get_native_id(), self._parent, self.item),
+                    self._events)
         return False
 
 
@@ -160,12 +182,26 @@ def counters() -> dict:
         return dict(_RECORD.counters)
 
 
+def device_seconds() -> dict:
+    """{span name: seconds} of the spans recorded with a CUDA device: for
+    each, the time its stream took from the event at its start to the one
+    at its end, summed by name (waits for those events)."""
+    with _RECORD.lock:
+        events = list(_RECORD.events)
+    seconds = {}
+    for name, start, end in events:
+        end.synchronize()
+        seconds[name] = seconds.get(name, 0.0) + start.elapsed_time(end) / 1e3
+    return seconds
+
+
 def clear():
     """Forget every span and counter (:func:`trace` and
     :class:`ProfilerHook` clear as their profiler starts)."""
     with _RECORD.lock:
         _RECORD.spans.clear()
         _RECORD.counters.clear()
+        _RECORD.events.clear()
 
 
 def _activities():
