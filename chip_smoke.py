@@ -181,8 +181,9 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    the 2 subjects: MC20 f32 unscored, then scored (target and the t2>0
    mask) from a fresh service at the same request index (the maps
    bitwise the unscored ones); deterministic f32 scored, whose ECE and 11
-   correction rows must equal ``evaluate_subjects``' row of the subject,
-   counts exact; MC20 in bf16 + fast decoder unscored and scored; MC20 in
+   correction rows must equal ``evaluate_subjects``' row of the subject
+   run with the service's conv engines (cuDNN's heuristic,
+   :func:`heuristic_convs`), counts exact; MC20 in bf16 + fast decoder unscored and scored; MC20 in
    bf16 + fast + int8 (the first request calibrates; the ECE against the
    f32 service's for information); aleatoric scored with the subject's
    sigma range (``volume_sigma_minmax``) as its bounds; the 10-member
@@ -3862,6 +3863,23 @@ def same_arrays(label, got, want):
             raise AssertionError(f"serve {label}: {key} differs")
 
 
+@contextlib.contextmanager
+def heuristic_convs():
+    """The direct eval with cuDNN's heuristic conv engines within the
+    block, as the service runs them: it answers each request on a thread
+    of its own, and cuDNN keeps the measured choice of
+    ``eval.device.measured_conv_engines`` per thread, so the service does
+    not take it (where two engines time alike two threads may pick
+    either, and the maps would differ in the last bits)."""
+    from rcu_tpu_torch.eval import device
+    rule = device.float32_eval
+    device.float32_eval = lambda models: False
+    try:
+        yield
+    finally:
+        device.float32_eval = rule
+
+
 def served_vs_direct(served, out_dir, run_id):
     """The served deterministic scored request against the direct eval's
     row of the same subject: the ECE and the 11 correction rows, counts
@@ -4003,9 +4021,10 @@ def serve_phase(tmp, dataset, checkpoints):
         serial[s1], _ = serve_path("deterministic_1", url, bodies["scored_1"],
                                    1)
         direct_dir = os.path.join(tmp, "serve_direct")
-        run_path(dataset.subset([s0], os.path.join(tmp, "serve_store")),
-                 direct_dir, load_model(flagship, "best", DEVICE),
-                 "serve_direct", mc=0)
+        with heuristic_convs():
+            run_path(dataset.subset([s0], os.path.join(tmp, "serve_store")),
+                     direct_dir, load_model(flagship, "best", DEVICE),
+                     "serve_direct", mc=0)
         served_vs_direct(serial[s0], direct_dir, "serve_direct")
         # concurrency: the answers of 4 client threads equal the serial ones
         threads, each = SERVE_CONCURRENT

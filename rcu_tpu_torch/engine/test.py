@@ -35,7 +35,8 @@ from rcu_tpu_torch.data.loader import prefetch
 from rcu_tpu_torch.data.split import load_split
 from rcu_tpu_torch.engine import config as cfg_lib
 from rcu_tpu_torch.engine import databuild, hooks as hooks_lib, steps as steps_lib
-from rcu_tpu_torch.eval.device import Fetch, full_float32
+from rcu_tpu_torch.eval.device import (Fetch, full_float32,
+                                       measured_conv_engines)
 from rcu_tpu_torch.eval.direct import (_primary_test_at, load_model,
                                        resolve_device)
 from rcu_tpu_torch.ops import metrics as metrics_lib
@@ -204,8 +205,11 @@ class TestLoop:
         try:
             with full_float32(), torch.inference_mode():
                 self.load_state()
-                self.hook.on_startup(self)
-                self._predict(dataset, subject_results)
+                # a mesh's part threads are new every call: no search there
+                with measured_conv_engines(
+                        self.model if self.mesh is None else None):
+                    self.hook.on_startup(self)
+                    self._predict(dataset, subject_results)
         finally:
             # a failed background write must surface, also when the loop
             # itself raised (it then chains through __context__)

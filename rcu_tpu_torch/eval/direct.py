@@ -42,7 +42,8 @@ from rcu_tpu_torch.engine import config as cfg_lib
 from rcu_tpu_torch.engine import databuild
 from rcu_tpu_torch.eval import hooks as ev_hooks
 from rcu_tpu_torch.eval import pipeline
-from rcu_tpu_torch.eval.device import Fetch, full_float32
+from rcu_tpu_torch.eval.device import (Fetch, full_float32,
+                                       measured_conv_engines)
 from rcu_tpu_torch.models import (FAST_DECODER_KWARGS, fold_bn_params,
                                   get_model, precast_params)
 from rcu_tpu_torch.models.convert import state_dict_from_flax
@@ -807,8 +808,10 @@ def evaluate_subjects(models, dataset, out_dir: str, *, strategy: str = "mc",
 
     The f32 models and the f32 heads of the others are held to the f32
     bar, so cuDNN and matmul TF32 are off while they run (torch's default
-    lets cuDNN use TF32, which misses that bar); the caller's flags are
-    restored afterwards, also on error."""
+    lets cuDNN use TF32, which misses that bar); f32 models take cuDNN's
+    conv engines by measurement (``eval.device.measured_conv_engines``)
+    outside a latency mesh. The caller's flags are restored afterwards,
+    also on error."""
     _check_models(strategy, models)
     device = run_device(device, mesh)
     sinks = _EvalSinks(out_dir, run_id, thresholds, strategy, layout, masked)
@@ -836,7 +839,9 @@ def evaluate_subjects(models, dataset, out_dir: str, *, strategy: str = "mc",
                      _input_dtype(strategy, models), device, is_2d)
     pool = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="direct")
     try:
-        with full_float32():
+        # a latency mesh's part threads are new every call: no search there
+        with full_float32(), measured_conv_engines(
+                models if mesh is None or subject_parallel else None):
             run = _run_images if is_2d else _run_volumes
             return run(dataset, sinks, reader, pool, where, window,
                        strategy=strategy, mc=mc, is_log_sigma=is_log_sigma,

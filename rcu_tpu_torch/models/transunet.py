@@ -67,8 +67,9 @@ from torch import nn
 from torch.nn import functional as F
 
 from rcu_tpu_torch.engine import remat
-from rcu_tpu_torch.models.unet import ConvBnRelu, UNetOutput
+from rcu_tpu_torch.models.unet import ConvBnRelu, UNetOutput, conv2d
 from rcu_tpu_torch.utils import profiling
+
 
 def standardized(weight, eps: float = 1e-5):
     """A conv kernel standardized over (cin, kh, kw) with its biased
@@ -78,12 +79,20 @@ def standardized(weight, eps: float = 1e-5):
     return (weight - mean) / torch.sqrt(var + eps)
 
 
-class StdConv2d(nn.Conv2d):
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` run by ``models.unet.conv2d``, as every conv of the
+    model is."""
+
+    def forward(self, x):
+        return conv2d(x, self.weight, self.bias, self.stride, self.padding)
+
+
+class StdConv2d(Conv2d):
     """The published weight-standardized conv (no bias in the trunk)."""
 
     def forward(self, x):
-        return F.conv2d(x, standardized(self.weight), self.bias, self.stride,
-                        self.padding)
+        return conv2d(x, standardized(self.weight), self.bias, self.stride,
+                      self.padding)
 
 
 class ElementDropout(nn.Module):
@@ -199,8 +208,8 @@ class Embeddings(nn.Module):
         grid = img_size // 16
         patch = img_size // 16 // grid
         self.hybrid_model = ResNetV2(in_channels, units, width)
-        self.patch_embeddings = nn.Conv2d(width * 16, hidden, patch,
-                                          stride=patch)
+        self.patch_embeddings = Conv2d(width * 16, hidden, patch,
+                                       stride=patch)
         self.position_embeddings = nn.Parameter(
             torch.zeros(1, grid * grid, hidden))
         self.dropout = ElementDropout(dropout)
@@ -382,7 +391,7 @@ class TransUNet(nn.Module):
         self.decoder = DecoderCup(hidden, head_channels,
                                   tuple(decoder_channels), skips)
         self.segmentation_head = nn.Sequential(
-            nn.Conv2d(decoder_channels[-1], nb_classes, 3, padding=1))
+            Conv2d(decoder_channels[-1], nb_classes, 3, padding=1))
         self.reset_parameters_like_flax()
         self.train(False)
 

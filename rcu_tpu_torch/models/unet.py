@@ -79,6 +79,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from rcu_tpu_torch.engine import remat
+from rcu_tpu_torch.eval.device import CONV_SEARCH
 from rcu_tpu_torch.ops import quant
 from rcu_tpu_torch.ops.cuda.convepilogue import (BYTES_PER_ELEMENT,
                                                  conv_epilogue)
@@ -208,8 +209,8 @@ def upsample_conv(x, weight, bias):
     x's dtype), flipped in both spatial axes and laid out (I, O, 4, 4).
     The 2h x 2w upsampled input is never written."""
     w4 = _fold3to4(_fold3to4(weight.float(), 2), 3).to(x.dtype)
-    return F.conv_transpose2d(x, w4.flip(2, 3).transpose(0, 1), bias,
-                              stride=2, padding=1)
+    return conv2d(x, w4.flip(2, 3).transpose(0, 1), bias, stride=2,
+                  padding=1, transposed=True)
 
 
 def _site_scale(scales, key):
@@ -295,16 +296,33 @@ def int8_conv_out(inputs, scales, conv, fold=False, folded_bias=False):
         memory_format=_memory_format(inputs[0]))
 
 
+def conv2d(x, weight, bias=None, stride=1, padding=0, transposed=False):
+    """``F.conv2d`` (``F.conv_transpose2d`` where ``transposed``). Every
+    conv of the U-Net, the PostNet and TransUNet runs here, so that inside
+    ``eval.device.measured_conv_engines`` each call counts while a
+    profiler runs: ``conv.measured`` a call, ``conv.new_shapes`` a conv
+    key the block had not seen in this process (where cuDNN times its
+    candidate engines)."""
+    new = CONV_SEARCH.is_new(x, weight, stride, padding, transposed)
+    if new is not None:
+        profiling.count("conv.measured")
+        if new:
+            profiling.count("conv.new_shapes")
+    if transposed:
+        return F.conv_transpose2d(x, weight, bias, stride, padding)
+    return F.conv2d(x, weight, bias, stride, padding)
+
+
 def _split_conv(x, weight, bias, padding):
     """``conv(x)``, ``x`` a tensor or a pair ``(a, b)`` that stands for
     their channel concatenation: then the conv runs over the kernel's
     input-channel halves and adds (``split_decoder_concat``)."""
     if isinstance(x, tuple):
         a, b = x
-        y = F.conv2d(a, weight[:, :a.shape[1]], None, padding=padding)
-        y += F.conv2d(b, weight[:, a.shape[1]:], bias, padding=padding)
+        y = conv2d(a, weight[:, :a.shape[1]], None, padding=padding)
+        y += conv2d(b, weight[:, a.shape[1]:], bias, padding=padding)
         return y
-    return F.conv2d(x, weight, bias, padding=padding)
+    return conv2d(x, weight, bias, padding=padding)
 
 
 class ConvBnRelu(nn.Module):
@@ -509,8 +527,8 @@ def _pad_to(up, target_hw):
 
 def _conv(x, conv):
     """``conv`` applied in x's dtype, its weights cast where not precast."""
-    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
-                    padding=conv.padding)
+    return conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                  padding=conv.padding)
 
 
 class _Trainable(nn.Module):

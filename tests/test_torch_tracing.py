@@ -153,7 +153,10 @@ def test_a_profiler_stopped_inside_a_span_leaves_it_whole():
         [("train.hooks", 4)]
 
 
-def test_direct_eval_records_a_read_and_a_wait_an_item(tmp_path):
+def test_direct_eval_records_a_read_and_a_wait_an_item(tmp_path, monkeypatch):
+    from rcu_tpu_torch.eval import device as eval_device
+    # no conv key seen yet by any thread: each one counts as a search
+    monkeypatch.setattr(eval_device.CONV_SEARCH, "local", threading.local())
     torch.manual_seed(1)
     model = get_model("unet", UNET).eval()
     dataset = Volumes()
@@ -179,7 +182,11 @@ def test_direct_eval_records_a_read_and_a_wait_an_item(tmp_path):
     # a row a subject and the run's finish
     assert [s.item for s in named("direct.sink")] == [0, 1, None]
     counts = profiling.counters()
-    assert counts == {"eval.items": 2, "eval.voxels": 2 * int(np.prod(SHAPE))}
+    # the f32 model takes the measured conv engines: 14 convs a forward
+    # (11 ConvBnRelu, 2 up-convs, the class conv) over 4 forward batches,
+    # 9 conv keys at each of the two batch shapes (8 rows and the 2-row tail)
+    assert counts == {"eval.items": 2, "eval.voxels": 2 * int(np.prod(SHAPE)),
+                      "conv.measured": 14 * 4, "conv.new_shapes": 9 * 2}
 
 
 def test_train_epoch_records_a_feed_wait_and_a_step_a_step(tmp_path):
