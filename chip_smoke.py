@@ -186,7 +186,7 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    :func:`heuristic_convs`), counts exact; MC20 in bf16 + fast decoder unscored and scored; MC20 in
    bf16 + fast + int8 (the first request calibrates; the ECE against the
    f32 service's for information); aleatoric scored with the subject's
-   sigma range (``volume_sigma_minmax``) as its bounds; the 10-member
+   sigma range (``sigma_minmax``) as its bounds; the 10-member
    ensemble in f32 and in bf16 + fast + fold, auxiliary_feat and
    auxiliary_segm (the dilated baseline) scored; one per_image request of 32 ISIC images with
    phase 9's ISIC flagship; 4 client threads of 2 deterministic f32
@@ -3976,7 +3976,7 @@ def serve_phase(tmp, dataset, checkpoints):
     # the aleatoric request's global bounds: pass A of the protocol (the
     # subject's predicted-class sigma range), as a client's minmax run
     # over its subjects gives them
-    sigma_range = pipeline.volume_sigma_minmax(
+    sigma_range = pipeline.sigma_minmax(
         load_model(checkpoints["aleatoric"], "best", DEVICE), BATCH,
         torch.from_numpy(a0["images"]).to(DEVICE), False)
     t0 = time.perf_counter()

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import functools
 import logging
 import os
 import time
@@ -52,8 +53,7 @@ from rcu_tpu_torch.parallel.mesh import pad_batch_size_to_mesh
 from rcu_tpu_torch.utils import profiling
 
 DEFAULT_THRESHOLDS = (0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95)
-STRATEGIES = ("mc", "deterministic", "aleatoric", "ensemble",
-              "auxiliary_feat", "auxiliary_segm")
+STRATEGIES = pipeline.STRATEGIES
 # result-id suffix and minmax confidence entry of each strategy family
 _ID_SUFFIX = {"mc": "", "deterministic": "", "ensemble": "",
               "aleatoric": "_globalrescale",
@@ -437,10 +437,7 @@ def _detect_strategy(config, dataset, strategy):
     others.model_dir str -> auxiliary_feat (the frozen segmenter),
     2-channel labels -> auxiliary_segm, else mc."""
     if strategy is not None:
-        if strategy not in STRATEGIES:
-            raise ValueError(f"unknown strategy '{strategy}'; "
-                             f"choose one of {STRATEGIES}")
-        return strategy
+        return _family(strategy).name
     if config.model_dir:
         mf = ckpt_lib.ModelFiles.from_model_dir(config.model_dir)
         model_node, _ = ckpt_lib.load_model_parameters(mf)
@@ -460,6 +457,15 @@ def _detect_strategy(config, dataset, strategy):
     if len(labels_shape) >= 3 and labels_shape[-1] == 2:
         return "auxiliary_segm"
     return "mc"
+
+
+def _family(strategy) -> pipeline.Family:
+    """The family table's record of ``strategy``; an unknown name
+    raises."""
+    if strategy not in pipeline.FAMILIES:
+        raise ValueError(f"unknown strategy '{strategy}'; "
+                         f"choose one of {STRATEGIES}")
+    return pipeline.FAMILIES[strategy]
 
 
 def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
@@ -521,16 +527,8 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
     try:
         transform = databuild.build_transform(config.test_data.transform)
         strategy = _detect_strategy(config, dataset, strategy)
-        if fold_bn and strategy == "mc" and int(mc) != 0:
-            raise ValueError(
-                "fold_bn covers the deterministic single-forward protocols "
-                "(deterministic/ensemble/aleatoric/auxiliary_*); the mc "
-                "protocol samples dropout, which the load-time BN fold "
-                "cannot commute with")
-        if quantize and strategy not in ("mc", "deterministic", "ensemble"):
-            raise ValueError(
-                "quantize=True covers the mc/deterministic/ensemble "
-                f"protocols; strategy '{strategy}' keeps the f32/bf16 paths")
+        family = _family(strategy)
+        family.check_variant(int(mc), fold_bn, quantize)
         models = _load_models(config, strategy, device, dict(
             dtype=dtype, fast_decoder=fast_decoder, fold_bn=fold_bn))
         if quantize:
@@ -539,7 +537,7 @@ def evaluate_direct(config, out_dir: str, run_id: str = "baseline",
                 ensemble=strategy == "ensemble",
                 skip_levels=quantize_skip_levels, transform=transform)
         is_log_sigma = cfg_lib.require_log_sigma(config) \
-            if strategy == "aleatoric" else False
+            if family.sigma else False
         return evaluate_subjects(models, dataset, out_dir, strategy=strategy,
                                  run_id=run_id, mc=int(mc),
                                  is_log_sigma=is_log_sigma,
@@ -618,37 +616,6 @@ def _result(out: Fetch) -> dict:
         return out.result()
 
 
-def _check_models(strategy, models):
-    """Raise where ``models`` is not what ``strategy`` runs."""
-    if strategy not in STRATEGIES:
-        raise ValueError(f"unknown strategy '{strategy}'; "
-                         f"choose one of {STRATEGIES}")
-    if strategy == "ensemble":
-        if isinstance(models, torch.nn.Module) or not models:
-            raise TypeError("ensemble takes a non-empty list of members")
-    elif strategy == "auxiliary_feat":
-        if isinstance(models, torch.nn.Module) or len(models) != 2 \
-                or not getattr(models[0], "provide_features", False):
-            raise TypeError("auxiliary_feat takes a (segmenter with "
-                            "provide_features, PostNet) pair")
-    elif not isinstance(models, torch.nn.Module):
-        raise TypeError(f"{strategy} takes one model")
-    elif strategy == "aleatoric" and not getattr(models, "sigma_out", False):
-        raise ValueError("strategy 'aleatoric' needs a sigma-headed model")
-
-
-def _input_dtype(strategy, models) -> torch.dtype:
-    """The dtype the images travel in: the compute dtype of the models that
-    read them where they share one, else float32. A model's first op casts
-    its input to its compute dtype, so casting on the host first is the
-    same rounding and halves the bytes of the host-to-device copy under
-    bf16."""
-    readers = models if strategy == "ensemble" else \
-        models[:1] if strategy == "auxiliary_feat" else [models]
-    dtypes = {getattr(m, "dtype", torch.float32) for m in readers}
-    return dtypes.pop() if len(dtypes) == 1 else torch.float32
-
-
 def _split_labels(labels, needs_baseline: bool, is_2d: bool = False):
     """-> (target bool, baseline uint8 or None). auxiliary_segm labels carry
     [gt, baseline prediction] on the trailing axis; otherwise a channel
@@ -672,10 +639,10 @@ class _Reader:
     torch tensor in pinned memory when the run's device is a card. No CUDA
     stream is touched here: the dispatching thread makes the copies."""
 
-    def __init__(self, dataset, transform, strategy, masked, dtype, device,
-                 is_2d):
+    def __init__(self, dataset, transform, needs_baseline, masked, dtype,
+                 device, is_2d):
         self.dataset, self.transform = dataset, transform
-        self.needs_baseline = strategy == "auxiliary_segm"
+        self.needs_baseline = needs_baseline
         self.masked, self.dtype, self.is_2d = masked, dtype, is_2d
         self.pin = device.type == "cuda"
 
@@ -729,20 +696,18 @@ class _Reader:
         return {k: self._tensor(v, self.dtype if k == "images" else None)
                 for k, v in arrays.items()}
 
-    def subject(self, subject, images_only=False) -> dict:
-        arrays = self.item(subject, images_only)
-        if not images_only:
-            profiling.count("eval.items")
-        with profiling.span("direct.host_tensors"):
-            return self.host(arrays)
-
-    def chunk(self, group, images_only=False) -> list:
-        """A chunk of native-2D images as same-shape parts, in order: runs
-        of consecutive images of one shape (``load_chunk``), each
-        ``(start in the chunk, subjects, host tensors (n, ...))``."""
+    def parts(self, group, images_only=False) -> list:
+        """An item's same-shape parts, in order, each ``(start in the
+        item, subjects, host tensors)``: on a volume store the item is one
+        subject and its volume the one part; on a native-2D dataset the
+        item is a chunk of images and a part each run of consecutive
+        images of one shape (``load_chunk``), stacked (n, ...)."""
         items = [self.item(s, images_only) for s in group]
         if not images_only:
             profiling.count("eval.items")
+        if not self.is_2d:
+            with profiling.span("direct.host_tensors"):
+                return [(0, group, self.host(items[0]))]
         parts, start = [], 0
         for i in range(1, len(items) + 1):
             if i == len(items) or \
@@ -795,8 +760,8 @@ def evaluate_subjects(models, dataset, out_dir: str, *, strategy: str = "mc",
     - latency mode: ``batch_size`` rounds up to the data axis
       (``parallel.pad_batch_size_to_mesh``), each batch (a native-2D
       part) splits over the data devices, each holding its own copy of
-      the models (``pipeline.place``; an ensemble's members over the
-      model axis of a 2-D mesh), and the eval is one kernel launch per
+      the models (``pipeline.Family.slots``; an ensemble's members over
+      the model axis of a 2-D mesh), and the eval is one kernel launch per
       data device and item, the sums added on the first device;
     - throughput mode (``subject_parallel``): item ``i`` (a native-2D
       chunk ``c``'s part ``p``: ``c + p``) runs whole on device ``i % n``
@@ -812,183 +777,103 @@ def evaluate_subjects(models, dataset, out_dir: str, *, strategy: str = "mc",
     conv engines by measurement (``eval.device.measured_conv_engines``)
     outside a latency mesh. The caller's flags are restored afterwards,
     also on error."""
-    _check_models(strategy, models)
+    family = _family(strategy)
+    family.check(models)
     device = run_device(device, mesh)
     sinks = _EvalSinks(out_dir, run_id, thresholds, strategy, layout, masked)
     # native-2D: images (H, W, C) with no slice axis (ISIC)
     is_2d = len(dataset.shape(dataset.subjects[0], "images")) == 3
-    window = _WINDOW
-    if mesh is None:
-        def where(i):
-            return models, device, None
-    elif subject_parallel:
-        per_device = pipeline.replicas(strategy, models, mesh.devices)
-        window = 2 * mesh.size
-
-        def where(i):
-            return per_device[i % mesh.size], mesh.devices[i % mesh.size], \
-                None
-    else:
+    if mesh is not None and not subject_parallel:
         batch_size = pad_batch_size_to_mesh(batch_size, mesh)
-        placed = pipeline.place(strategy, models, mesh)
-
-        def where(i):
-            # the item stays on the host: each device copies its rows
-            return placed, None, mesh
-    reader = _Reader(dataset, transform, strategy, masked,
-                     _input_dtype(strategy, models), device, is_2d)
+    slots = family.slots(models, device, mesh, subject_parallel)
+    reader = _Reader(dataset, transform, family.baseline, masked,
+                     family.input_dtype(models), device, is_2d)
     pool = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="direct")
     try:
         # a latency mesh's part threads are new every call: no search there
         with full_float32(), measured_conv_engines(
                 models if mesh is None or subject_parallel else None):
-            run = _run_images if is_2d else _run_volumes
-            return run(dataset, sinks, reader, pool, where, window,
-                       strategy=strategy, mc=mc, is_log_sigma=is_log_sigma,
-                       batch_size=batch_size, seed=seed,
-                       thresholds=thresholds)
+            return _run(dataset, sinks, reader, pool, slots, family,
+                        mc=mc, is_log_sigma=is_log_sigma,
+                        batch_size=batch_size, seed=seed,
+                        thresholds=thresholds)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
 
-_WINDOW = 2  # items in flight on the device, and items read ahead
+_WINDOW = 2  # items in flight on the device (a slot), and items read ahead
 
 
-def _eval_call(strategy, models, data, thresholds, mc, bounds, is_log_sigma,
-               rng, batch_size=None, mesh=None):
-    """The pipeline function of ``strategy`` on one item's tensors: a
-    volume's (``batch_size`` slices a forward) or, with ``batch_size``
-    None, a part's images in one batch, each image's own row; ``mesh``
-    its latency mode (``models`` then ``pipeline.place``'s)."""
-    images = data["images"]
-    per_image = batch_size is None
-    n = len(images) if per_image else batch_size
-    common = (data["target"], data["mask"], thresholds)
-    kw = {"per_image": per_image, "mesh": mesh}
-    if strategy in ("mc", "deterministic"):
-        return pipeline.volume_mc_eval(models, mc if strategy == "mc" else 0,
-                                       n, images, *common, rng, **kw)
-    if strategy == "aleatoric":
-        return pipeline.volume_aleatoric_eval(models, n, images, *common,
-                                              *bounds, is_log_sigma, **kw)
-    if strategy == "ensemble":
-        return pipeline.volume_ensemble_eval(models, n, images, *common, **kw)
-    if strategy == "auxiliary_feat":
-        return pipeline.volume_aux_feat_eval(*models, n, images, *common,
-                                             **kw)
-    return pipeline.volume_aux_segm_eval(models, n, images, data["baseline"],
-                                         *common, **kw)
-
-
-def _placed(where, i, host):
-    """Item ``i``'s models, its tensors (on its device, or on the host for
-    a latency mesh) and the mesh."""
-    models, device, mesh = where(i)
-    if device is None:
-        return models, host, mesh
-    with profiling.span("direct.copy_in"):
-        data = {k: v.to(device, non_blocking=True) for k, v in host.items()}
-    return models, data, mesh
-
-
-def _run_volumes(dataset, sinks, reader, pool, where, window, *, strategy,
-                 mc, is_log_sigma, batch_size, seed, thresholds):
+def _run(dataset, sinks, reader, pool, slots, family, *, mc, is_log_sigma,
+         batch_size, seed, thresholds):
+    """The run loop (:func:`evaluate_subjects`; ``rcu_tpu.eval.direct``'s
+    volume loop and ``_evaluate_direct_2d``): each same-shape part of an
+    item (:meth:`_Reader.parts`) is one dispatch, part ``p`` of item
+    ``i`` on slot ``i + p``. A native-2D part runs at its own length: an
+    eager program needs no padding to a static shape, and the JAX package
+    drops its padded rows before the CSVs."""
+    per_image = reader.is_2d
     names = list(dataset.subjects)
-    bounds = None
-    if strategy == "aleatoric":
-        def minmax_dispatch(si, subject, host):
-            models, data, mesh = _placed(where, si, host)
-            mn, mx = pipeline.volume_sigma_minmax(
-                models, batch_size, data["images"], is_log_sigma, mesh=mesh)
-            return Fetch({"min": mn, "max": mx})
+    chunk = max(1, int(batch_size)) if per_image else 1
+    starts = list(range(0, len(names), chunk))
+    groups = [names[s:s + chunk] for s in starts]
+    window = _WINDOW * len(slots)
 
-        def minmax_fetch(subject, out, t0):
-            got = _result(out)
-            sinks.add_bounds(got["min"], got["max"])
-
-        _drive(pool, names, lambda si, s: reader.subject(s, images_only=True),
-               minmax_dispatch, minmax_fetch, window)
-        bounds = _global_bounds(sinks.bounds)
-        logging.info("direct aleatoric: global sigma range [%.6f, %.6f]",
-                     *bounds)
-    eces = {}
-
-    def dispatch(si, subject, host):
-        models, data, mesh = _placed(where, si, host)
-        return Fetch(_eval_call(strategy, models, data, thresholds, mc,
-                                bounds, is_log_sigma, (seed, si), batch_size,
-                                mesh))
-
-    def fetch(subject, out, t0):
-        row = _result(out)
-        sinks.write_subject(subject, row)
-        eces[subject] = float(row["ece"])
-        logging.info("direct eval %s ece=%.5f (%.2fs)", subject,
-                     eces[subject], time.perf_counter() - t0)
-
-    _drive(pool, names, lambda si, s: reader.subject(s), dispatch, fetch,
-           window)
-    sinks.finish()
-    return eces
-
-
-def _run_images(dataset, sinks, reader, pool, where, window, *, strategy, mc,
-                is_log_sigma, batch_size, seed, thresholds):
-    """The native-2D run (``rcu_tpu.eval.direct._evaluate_direct_2d``).
-    A part runs at its own length: an eager program needs no padding to a
-    static shape, and the JAX package drops its padded rows before the
-    CSVs. Part ``p`` of chunk ``c`` is item ``c + p`` of :func:`where`."""
-    k = max(1, int(batch_size))
-    names = list(dataset.subjects)
-    starts = list(range(0, len(names), k))
-    groups = [names[s:s + k] for s in starts]
-    bounds = None
-    if strategy == "aleatoric":
-        def minmax_dispatch(ci, group, parts):
+    def dispatcher(call):
+        def dispatch(i, group, parts):
             outs = []
-            for pi, (_, subjects, host) in enumerate(parts):
-                models, data, mesh = _placed(where, ci + pi, host)
-                mn, mx = pipeline.image_batch_sigma_minmax(
-                    models, data["images"], is_log_sigma, mesh=mesh)
-                outs.append((subjects, Fetch({"min": mn, "max": mx})))
+            for p, (start, subjects, data) in enumerate(parts):
+                models, device, mesh = slots[(i + p) % len(slots)]
+                if device is not None:  # a latency mesh's devices copy
+                    with profiling.span("direct.copy_in"):
+                        data = {k: v.to(device, non_blocking=True)
+                                for k, v in data.items()}
+                n = len(subjects) if per_image else batch_size
+                outs.append((subjects, Fetch(call(
+                    models, data, n, rng=(seed, starts[i] + start),
+                    mesh=mesh))))
             return outs
+        return dispatch
 
-        def minmax_fetch(group, outs, t0):
-            for subjects, out in outs:
+    bounds = None
+    if family.sigma:
+        def minmax(models, data, n, rng, mesh):
+            mn, mx = pipeline.sigma_minmax(models, n, data["images"],
+                                           is_log_sigma, per_image, mesh)
+            return {"min": mn, "max": mx}
+
+        def add_bounds(group, outs, t0):
+            for _, out in outs:
                 got = _result(out)
-                for i in range(len(subjects)):
-                    sinks.add_bounds(got["min"][i], got["max"][i])
+                for mn, mx in zip(np.atleast_1d(got["min"]),
+                                  np.atleast_1d(got["max"])):
+                    sinks.add_bounds(mn, mx)
 
-        _drive(pool, groups,
-               lambda ci, g: reader.chunk(g, images_only=True),
-               minmax_dispatch, minmax_fetch, window)
+        _drive(pool, groups, lambda i, g: reader.parts(g, images_only=True),
+               dispatcher(minmax), add_bounds, window)
         bounds = _global_bounds(sinks.bounds)
-        logging.info("direct 2d aleatoric: global sigma range [%.6f, %.6f]",
-                     *bounds)
-    eces = {}
+        logging.info("direct %s: global sigma range [%.6f, %.6f]",
+                     family.name, *bounds)
 
-    def dispatch(ci, group, parts):
-        outs = []
-        for pi, (start, subjects, host) in enumerate(parts):
-            models, data, mesh = _placed(where, ci + pi, host)
-            outs.append((subjects, Fetch(_eval_call(
-                strategy, models, data, thresholds, mc, bounds, is_log_sigma,
-                (seed, starts[ci] + start), mesh=mesh))))
-        return outs
+    evaluate = functools.partial(
+        pipeline.evaluate, family.name, thresholds=thresholds, mc=mc,
+        is_log_sigma=is_log_sigma, bounds=bounds, per_image=per_image)
+    eces = {}
 
     def fetch(group, outs, t0):
         for subjects, out in outs:
             host = _result(out)
             for i, subject in enumerate(subjects):
-                row = _image_row(host, i)
+                row = _image_row(host, i) if per_image else host
                 sinks.write_subject(subject, row)
                 eces[subject] = float(row["ece"])
-        logging.info("direct eval [%s..%s] mean ece=%.5f (%d images, %.2fs)",
-                     group[0], group[-1],
+        logging.info("direct eval %s ece=%.5f (%d item(s), %.2fs)",
+                     group[0] if len(group) == 1
+                     else f"[{group[0]}..{group[-1]}] mean",
                      float(np.mean([eces[s] for s in group])), len(group),
                      time.perf_counter() - t0)
 
-    _drive(pool, groups, lambda ci, g: reader.chunk(g), dispatch, fetch,
-           window)
+    _drive(pool, groups, lambda i, g: reader.parts(g), dispatcher(evaluate),
+           fetch, window)
     sinks.finish()
     return eces

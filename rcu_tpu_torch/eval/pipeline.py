@@ -1,17 +1,26 @@
 """Whole-volume and image-batch inference + eval reductions of every
 strategy family (``rcu_tpu.eval.pipeline`` counterparts of the ``_*_scan``
 helpers, ``_entropy_eval``, ``_confidence_eval``, the
-``make_volume_*_eval_fn`` and ``make_image_batch_*_fn`` factories, with
-``make_volume_mc_fn``).
+``make_volume_*_eval_fn``, ``make_volume_*_fn`` and
+``make_image_batch_*_fn`` factories).
+
+:data:`FAMILIES` holds a :class:`Family` record for each name of
+:data:`STRATEGIES` (``deterministic`` is ``mc`` with 0 samples): its
+models, their placement, its forwards (a ``_*_scan`` helper: the loop
+over the slice batches), its protocol and what its callers must know.
+The direct eval (``eval.direct``) and the service
+(``rcu_tpu_torch.serve``) call three entry points with a strategy name:
+:func:`evaluate` (one item's eval dict; ``artifacts`` adds the per-voxel
+maps), :func:`infer` (the maps only) and :func:`sigma_minmax`
+(aleatoric's first pass).
 
 PyTorch runs eagerly, so the JAX factories become plain functions: a
 Python loop over the volume's slice batches, then one call of the fused
-eval kernel per subject (``volume_*``); or, on native-2D datasets, one
+eval kernel per subject; or, on native-2D datasets (``per_image``), one
 batch of K same-shape images, then one call of the kernel for all K with
-each image's own reductions, as the JAX programs vmap them
-(``image_batch_*``: every result has a leading K axis, and an image is a
-subject: its own confidence rescale, its own minmax bounds). Two
-protocols feed the kernel:
+each image's own reductions, as the JAX programs vmap them (every result
+has a leading K axis, and an image is a subject: its own confidence
+rescale, its own minmax bounds). Two protocols feed the kernel:
 - entropy (mc, deterministic, ensemble): the fg probability is the ECE
   plane, the entropy in bits the uncertainty plane, ``fg > 0.5`` the
   prediction;
@@ -34,8 +43,8 @@ distributional.
 Mesh (``mesh=``, a ``parallel.Mesh``; the JAX programs' latency mode):
 each slice batch splits into contiguous parts over the mesh's data
 devices (``parallel.Split``), each part runs on its device's copy of the
-models (:func:`place`), and each device keeps the planes of its own
-slices. The eval is one kernel launch per device on those planes, the
+models (:meth:`Family.slots`), and each device keeps the planes of its
+own slices. The eval is one kernel launch per device on those planes, the
 sums added on the first device (``parallel.inference``); the confidence
 families take the global min and max over the devices before each
 device rescales its planes. A part draws its rows of the whole batch's
@@ -44,18 +53,11 @@ per-voxel maps come back as ``parallel.Sharded`` values that
 ``eval.device.Fetch`` copies once per device and joins in slice order.
 Ensembles on a 2-D mesh shard their members over the model axis
 (``parallel.ensemble``).
-
-Serving (``rcu_tpu_torch.serve``) reads the same forwards: each family's
-loop over the slice batches lives in one ``_*_scan`` helper, which its
-unscored function (``volume_mc``, ``volume_aleatoric``,
-``volume_ensemble``, ``volume_aux_feat``, ``volume_aux_segm``: the
-per-voxel artifacts only, the ``make_volume_*_fn`` programs) and its
-scored one (``volume_*_eval``; ``artifacts=True`` adds the per-voxel maps
-to the eval dict under the JAX programs' keys) share.
 """
 from __future__ import annotations
 
 import math
+import typing
 
 import torch
 
@@ -78,32 +80,6 @@ def sample_generators(rng, batch_index: int, mc_steps: int, device,
     ``rows`` names a mesh device's part of the batch
     (``steps.batch_generators``)."""
     return batch_generators((*rng, batch_index), mc_steps, device, rows)
-
-
-def place(strategy: str, models, mesh):
-    """The models of a run, placed on ``mesh``'s data devices as the
-    functions here take them there: per data device its copy of the
-    model (``parallel.replicate``); for ``ensemble`` its rows of members
-    (``parallel.ensemble.shard_members``, the model axis of a 2-D mesh);
-    for ``auxiliary_feat`` the (segmenter, PostNet) copies. A mesh's
-    latency mode."""
-    if strategy == "ensemble":
-        return shard_members(models, mesh)
-    if strategy == "auxiliary_feat":
-        return tuple(replicate(m, mesh.data_devices) for m in models)
-    return replicate(models, mesh.data_devices)
-
-
-def replicas(strategy: str, models, devices) -> list:
-    """Per entry of ``devices``, its copy of ``models`` in the form one
-    device takes them (``parallel.replicate``: a repeated device shares
-    its copy): a mesh's throughput mode."""
-    if strategy == "ensemble":
-        copies = [replicate(m, devices) for m in models]
-        return [[c[i] for c in copies] for i in range(len(devices))]
-    if strategy == "auxiliary_feat":
-        return list(zip(*(replicate(m, devices) for m in models)))
-    return replicate(models, devices)
 
 
 def _listed(x):
@@ -284,43 +260,6 @@ def _confidence_eval(confidence, prediction, target, mask, thresholds,
     return {**row, "conf_min": conf_min, "conf_max": conf_max}
 
 
-@torch.inference_mode()
-def volume_mc_eval(model, mc_steps: int, batch_size: int, volume, target,
-                   mask, thresholds, rng, per_image: bool = False,
-                   artifacts: bool = False, mesh=None):
-    """MC inference + eval reductions of one volume -> the eval dict.
-
-    ``volume`` (Z, H, W, C) float32 or the model's compute dtype,
-    ``target``/``mask`` (Z, H, W) bool or uint8, all on the model's device
-    (with ``mesh``: anywhere, each device copies its rows; ``model`` then
-    :func:`place`'s); ``rng`` names the volume's MC stream. With
-    ``per_image`` each slice is an image with its own eval row.
-    ``artifacts`` adds the per-voxel ``fg`` and ``entropy`` (bits),
-    bitwise those of :func:`volume_mc` on the same stream."""
-    split, outs = _mc_scan(model, mc_steps, volume, batch_size, rng, mesh)
-    fg, ent = _outputs(outs)
-    ent = _each(_normalize_entropy, ent)
-    out = _entropy_eval(fg, ent, split.shards(target), split.shards(mask),
-                        thresholds, per_image)
-    if artifacts:
-        out.update(fg=split.joined(fg), entropy=split.joined(ent))
-    return out
-
-
-@torch.inference_mode()
-def volume_mc(model, mc_steps: int, batch_size: int, volume, rng, mesh=None):
-    """Inference only: the per-voxel artifacts {fg, entropy, prediction},
-    with the same MC stream as :func:`volume_mc_eval`. The JAX program
-    also returns the weight-scaling map ``ws_fg`` (a 21st forward under
-    MC), which its service never sends, so the port does not compute
-    it."""
-    split, outs = _mc_scan(model, mc_steps, volume, batch_size, rng, mesh)
-    fg, ent = _outputs(outs)
-    return {"fg": split.joined(fg),
-            "entropy": split.joined(_each(_normalize_entropy, ent)),
-            "prediction": split.joined(_each(lambda f: f > 0.5, fg))}
-
-
 def _aleatoric_scan(model, is_log_sigma: bool, volume, batch_size: int,
                     mesh=None):
     """One deterministic forward per slice batch -> (the split, per device
@@ -337,49 +276,6 @@ def _aleatoric_scan(model, is_log_sigma: bool, volume, batch_size: int,
                         {"images": volume}, step)
 
 
-@torch.inference_mode()
-def volume_sigma_minmax(model, batch_size: int, volume, is_log_sigma: bool,
-                        per_image: bool = False, mesh=None):
-    """Pass A of the aleatoric protocol: the subject's predicted-class
-    sigma (min, max), its share of the run's global rescale bounds (with
-    ``per_image``, each slice's)."""
-    _, outs = _aleatoric_scan(model, is_log_sigma, volume, batch_size, mesh)
-    return _min_max(_outputs(outs)[2], per_image)
-
-
-@torch.inference_mode()
-def volume_aleatoric_eval(model, batch_size: int, volume, target, mask,
-                          thresholds, sigma_min, sigma_max,
-                          is_log_sigma: bool, per_image: bool = False,
-                          artifacts: bool = False, mesh=None):
-    """Pass B: sigma rescaled by the run's f32 global bounds, folded, one
-    kernel pass. No conf_min/conf_max: the minmax CSV holds pass A's.
-    ``artifacts`` adds the ``prediction``, the raw predicted-class
-    ``sigma`` and the folded ``confidence``."""
-    split, outs = _aleatoric_scan(model, is_log_sigma, volume, batch_size,
-                                  mesh)
-    _, prediction, sigma = _outputs(outs)
-    rescaled = _each(lambda s: prepare.rescale_linear(s, sigma_min,
-                                                      sigma_max), sigma)
-    out, folded = _folded_eval(rescaled, prediction, split.shards(target),
-                               split.shards(mask), thresholds, per_image)
-    if artifacts:
-        out.update(prediction=split.joined(prediction),
-                   sigma=split.joined(sigma), confidence=split.joined(folded))
-    return out
-
-
-@torch.inference_mode()
-def volume_aleatoric(model, batch_size: int, volume, is_log_sigma: bool,
-                     mesh=None):
-    """Inference only (``make_volume_aleatoric_fn``): the softmax ``fg``,
-    the ``prediction`` and the unrescaled predicted-class ``sigma``."""
-    split, outs = _aleatoric_scan(model, is_log_sigma, volume, batch_size,
-                                  mesh)
-    return {k: split.joined(v) for k, v in
-            zip(("fg", "prediction", "sigma"), _outputs(outs))}
-
-
 def _ensemble_scan(members, volume, batch_size: int, mesh=None):
     """Member-mean softmax and its entropy
     (``parallel.ensemble.ensemble_summary``) per slice batch -> (the
@@ -393,33 +289,6 @@ def _ensemble_scan(members, volume, batch_size: int, mesh=None):
         return out["probabilities"][..., 1], out["entropy"]
 
     return split, _scan(split, columns, {"images": volume}, step)
-
-
-@torch.inference_mode()
-def volume_ensemble_eval(members, batch_size: int, volume, target, mask,
-                         thresholds, per_image: bool = False,
-                         artifacts: bool = False, mesh=None):
-    """Member-mean softmax, then the entropy protocol; ``artifacts`` adds
-    the per-voxel ``fg`` and ``entropy`` (bits)."""
-    split, outs = _ensemble_scan(members, volume, batch_size, mesh)
-    fg, ent = _outputs(outs)
-    ent = _each(_normalize_entropy, ent)
-    out = _entropy_eval(fg, ent, split.shards(target), split.shards(mask),
-                        thresholds, per_image)
-    if artifacts:
-        out.update(fg=split.joined(fg), entropy=split.joined(ent))
-    return out
-
-
-@torch.inference_mode()
-def volume_ensemble(members, batch_size: int, volume, mesh=None):
-    """Inference only (``make_volume_ensemble_fn``): the member-mean
-    ``fg``, its ``entropy`` in bits and the ``prediction``."""
-    split, outs = _ensemble_scan(members, volume, batch_size, mesh)
-    fg, ent = _outputs(outs)
-    return {"fg": split.joined(fg),
-            "entropy": split.joined(_each(_normalize_entropy, ent)),
-            "prediction": split.joined(_each(lambda f: f > 0.5, fg))}
 
 
 def _aux_feat_scan(segmenter, postnet, volume, batch_size: int, mesh=None):
@@ -439,35 +308,6 @@ def _aux_feat_scan(segmenter, postnet, volume, batch_size: int, mesh=None):
     return split, _scan(split, columns, {"images": volume}, step)
 
 
-@torch.inference_mode()
-def volume_aux_feat_eval(segmenter, postnet, batch_size: int, volume, target,
-                         mask, thresholds, per_image: bool = False,
-                         artifacts: bool = False, mesh=None):
-    """The frozen segmenter's argmax is the prediction, the PostNet's
-    softmax fg on the segmenter's features the confidence; ``artifacts``
-    adds both maps (``confidence``, ``prediction``)."""
-    split, outs = _aux_feat_scan(segmenter, postnet, volume, batch_size,
-                                 mesh)
-    conf, pred = _outputs(outs)
-    out = _confidence_eval(conf, pred, split.shards(target),
-                           split.shards(mask), thresholds, per_image)
-    if artifacts:
-        out.update(confidence=split.joined(conf),
-                   prediction=split.joined(pred))
-    return out
-
-
-@torch.inference_mode()
-def volume_aux_feat(segmenter, postnet, batch_size: int, volume, mesh=None):
-    """Inference only (``make_volume_aux_feat_fn``): the ``confidence``
-    and the segmenter's ``prediction``."""
-    split, outs = _aux_feat_scan(segmenter, postnet, volume, batch_size,
-                                 mesh)
-    conf, pred = _outputs(outs)
-    return {"confidence": split.joined(conf),
-            "prediction": split.joined(pred)}
-
-
 def _aux_segm_scan(model, volume, baseline, batch_size: int, mesh=None):
     """The error net per slice batch over the images and the baseline
     prediction as a 5th channel (0/1, exact in the images' dtype) ->
@@ -484,91 +324,235 @@ def _aux_segm_scan(model, volume, baseline, batch_size: int, mesh=None):
                         {"images": volume, "baseline": baseline}, step)
 
 
+def _entropy_infer(maps):
+    fg = maps["fg"]
+    return {"fg": fg, "entropy": _each(_normalize_entropy, maps["entropy"]),
+            "prediction": _each(lambda f: f > 0.5, fg)}
+
+
+def _entropy_score(maps, labels, thresholds, per_image, bounds):
+    maps = {"fg": maps["fg"],
+            "entropy": _each(_normalize_entropy, maps["entropy"])}
+    return _entropy_eval(maps["fg"], maps["entropy"], *labels, thresholds,
+                         per_image), maps
+
+
+def _subject_rescale_score(maps, labels, thresholds, per_image, bounds):
+    return _confidence_eval(maps["confidence"], maps["prediction"], *labels,
+                            thresholds, per_image), maps
+
+
+def _global_rescale_score(maps, labels, thresholds, per_image, bounds):
+    """No conf_min/conf_max: the run minmax CSV holds the first pass's
+    (:func:`sigma_minmax`)."""
+    prediction, sigma = maps["prediction"], maps["sigma"]
+    rescaled = _each(lambda s: prepare.rescale_linear(s, *bounds), sigma)
+    row, folded = _folded_eval(rescaled, prediction, *labels, thresholds,
+                               per_image)
+    return row, {"prediction": prediction, "sigma": sigma,
+                 "confidence": folded}
+
+
+# the strategy families' messages for a variant they refuse: the JAX direct
+# eval's words, and the JAX service's
+_FOLD_BN_REFUSED = (
+    "fold_bn covers the deterministic single-forward protocols "
+    "(deterministic/ensemble/aleatoric/auxiliary_*); the mc protocol samples "
+    "dropout, which the load-time BN fold cannot commute with",
+    "fold_bn covers the deterministic single-forward serving strategies "
+    "(mc=0/ensemble/aleatoric/auxiliary_*); the mc protocol samples dropout, "
+    "which the BN fold cannot commute with")
+_INT8_REFUSED = (
+    "quantize=True covers the mc/deterministic/ensemble protocols; strategy "
+    "'{}' keeps the f32/bf16 paths",
+    "quantize=True covers the mc/deterministic/ensemble serving strategies; "
+    "'{}' keeps the f32/bf16 paths")
+
+
+class Family(typing.NamedTuple):
+    """A strategy family of :data:`FAMILIES`: what its models are, what
+    its forwards give, which protocol scores them, and what its callers
+    must know of it."""
+    name: str
+    # "model"; "members" (ensemble, a non-empty list); "pair" (the
+    # segmenter with provide_features, the PostNet)
+    holds: str
+    # (models, data, batch_size, mesh, mc, rng, is_log_sigma) -> the
+    # ``_*_scan`` helper's (split, per-device outputs)
+    scan: typing.Callable
+    outputs: tuple  # the names of the scan's outputs
+    infer: typing.Callable  # maps -> the unscored artifacts
+    # (maps, (target, mask) shards, thresholds, per_image, bounds) ->
+    # (the eval dict, the scored artifacts)
+    score: typing.Callable
+    samples: bool = False   # draws ``mc`` MC-dropout samples
+    # the sigma head: a sigma-headed model, ``is_log_sigma``, the run's
+    # global bounds from a first pass (:func:`sigma_minmax`)
+    sigma: bool = False
+    baseline: bool = False  # reads the baseline, which is its prediction
+    int8: bool = False      # int8 PTQ covers it
+
+    def check(self, models):
+        """Raise where ``models`` are not what the family runs."""
+        if self.holds == "members":
+            if isinstance(models, torch.nn.Module) or not models:
+                raise TypeError(f"{self.name} takes a non-empty list of "
+                                "members")
+        elif self.holds == "pair":
+            if isinstance(models, torch.nn.Module) or len(models) != 2 \
+                    or not getattr(models[0], "provide_features", False):
+                raise TypeError(f"{self.name} takes a (segmenter with "
+                                "provide_features, PostNet) pair")
+        elif not isinstance(models, torch.nn.Module):
+            raise TypeError(f"{self.name} takes one model")
+        elif self.sigma and not getattr(models, "sigma_out", False):
+            raise ValueError(f"strategy '{self.name}' needs a sigma-headed "
+                             "model")
+
+    def check_variant(self, mc: int, fold_bn: bool, quantize: bool,
+                      service: bool = False):
+        """Raise where an inference variant does not cover the family: the
+        load-time BN fold cannot commute with MC-dropout sampling, and
+        int8 covers mc, deterministic and ensemble. The messages are the
+        JAX direct eval's, or with ``service`` the JAX service's."""
+        if fold_bn and self.samples and mc > 0:
+            raise ValueError(_FOLD_BN_REFUSED[service])
+        if quantize and not self.int8:
+            raise ValueError(_INT8_REFUSED[service].format(self.name))
+
+    def input_dtype(self, models) -> torch.dtype:
+        """The dtype the images travel in: the compute dtype of the models
+        that read them where they share one, else float32. A model's first
+        op casts its input to its compute dtype, so casting on the host
+        first is the same rounding and halves the bytes of the
+        host-to-device copy under bf16."""
+        readers = list(models) if self.holds == "members" \
+            else models[:1] if self.holds == "pair" else [models]
+        dtypes = {getattr(m, "dtype", torch.float32) for m in readers}
+        return dtypes.pop() if len(dtypes) == 1 else torch.float32
+
+    def slots(self, models, device, mesh=None, throughput: bool = False):
+        """Where the items of a run (the requests of a service) go: per
+        slot (its models, the device its tensors go to, the mesh its
+        batches split over); item ``i`` takes slot ``i % len(slots)``.
+        Without a mesh, one slot of ``models`` on ``device``. On a
+        latency mesh, one slot of the models placed on its data devices
+        (each device its copy, ``parallel.replicate``; an ensemble's rows
+        of members over the model axis of a 2-D mesh,
+        ``parallel.ensemble.shard_members``), whose tensors stay on the
+        host (device None): each device copies its rows. In throughput
+        mode a slot for each mesh device with its copy of the models (a
+        repeated device shares its copy)."""
+        if mesh is None:
+            return [(models, device, None)]
+        if throughput:
+            if self.holds == "model":
+                copies = replicate(models, mesh.devices)
+            else:
+                copies = [list(c) for c in zip(*(
+                    replicate(m, mesh.devices) for m in models))]
+            return [(c, d, None) for c, d in zip(copies, mesh.devices)]
+        if self.holds == "members":
+            placed = shard_members(models, mesh)
+        elif self.holds == "pair":
+            placed = tuple(replicate(m, mesh.data_devices) for m in models)
+        else:
+            placed = replicate(models, mesh.data_devices)
+        return [(placed, None, mesh)]
+
+
+_MC = Family(
+    "mc", "model",
+    lambda m, d, n, mesh, mc, rng, log_sigma: _mc_scan(
+        m, mc, d["images"], n, rng, mesh),
+    ("fg", "entropy"), _entropy_infer, _entropy_score, samples=True,
+    int8=True)
+FAMILIES = {family.name: family for family in (
+    _MC, _MC._replace(name="deterministic", samples=False),
+    Family("aleatoric", "model",
+           lambda m, d, n, mesh, mc, rng, log_sigma: _aleatoric_scan(
+               m, log_sigma, d["images"], n, mesh),
+           ("fg", "prediction", "sigma"), dict, _global_rescale_score,
+           sigma=True),
+    Family("ensemble", "members",
+           lambda m, d, n, mesh, *_: _ensemble_scan(m, d["images"], n, mesh),
+           ("fg", "entropy"), _entropy_infer, _entropy_score, int8=True),
+    Family("auxiliary_feat", "pair",
+           lambda m, d, n, mesh, *_: _aux_feat_scan(*m, d["images"], n,
+                                                    mesh),
+           ("confidence", "prediction"), dict, _subject_rescale_score),
+    Family("auxiliary_segm", "model",
+           lambda m, d, n, mesh, *_: _aux_segm_scan(m, d["images"],
+                                                    d["baseline"], n, mesh),
+           ("confidence",), dict, _subject_rescale_score, baseline=True))}
+STRATEGIES = tuple(FAMILIES)
+
+
+def _maps(family, models, data, batch_size, mesh, mc, rng, is_log_sigma):
+    """The family's forwards -> (the split, {map name: per-device
+    shards})."""
+    split, outs = family.scan(models, data, batch_size, mesh,
+                              mc if family.samples else 0, rng, is_log_sigma)
+    maps = dict(zip(family.outputs, _outputs(outs)))
+    if family.baseline:
+        maps["prediction"] = split.shards(data["baseline"])
+    return split, maps
+
+
+# ---------------------------------------------------------------------------
+# the entry points
+# ---------------------------------------------------------------------------
+
 @torch.inference_mode()
-def volume_aux_segm_eval(model, batch_size: int, volume, baseline, target,
-                         mask, thresholds, per_image: bool = False,
-                         artifacts: bool = False, mesh=None):
-    """The error net's confidence; the baseline itself (uint8, (Z, H, W))
-    is the prediction. ``artifacts`` adds ``confidence`` and the baseline
-    passed through as ``prediction``."""
-    split, outs = _aux_segm_scan(model, volume, baseline, batch_size, mesh)
-    conf, = _outputs(outs)
-    out = _confidence_eval(conf, split.shards(baseline), split.shards(target),
-                           split.shards(mask), thresholds, per_image)
+def evaluate(strategy: str, models, data: dict, batch_size: int, thresholds,
+             *, mc: int = 0, rng=None, is_log_sigma: bool = False,
+             bounds=None, per_image: bool = False, artifacts: bool = False,
+             mesh=None) -> dict:
+    """The family's inference and eval reductions of one item -> the eval
+    dict (with ``per_image`` a row for each image of the leading axis).
+
+    ``data``: ``images`` (Z, H, W, C) float32 or the models' compute
+    dtype, ``target`` and ``mask`` (Z, H, W) bool or uint8 and, for
+    auxiliary_segm, the ``baseline`` (uint8), all on the models' device
+    (with ``mesh``: anywhere, each device copies its rows; ``models`` then
+    :meth:`Family.slots`'). ``batch_size`` slices a forward; ``mc`` the MC
+    samples and ``rng`` the item's MC stream (mc); ``is_log_sigma`` and
+    ``bounds`` the run's global (sigma min, sigma max) (aleatoric).
+    ``artifacts`` adds the per-voxel maps under the JAX programs' keys,
+    bitwise those of :func:`infer` on the same stream (aleatoric: the
+    ``prediction``, the raw ``sigma`` and the folded ``confidence``)."""
+    family = FAMILIES[strategy]
+    split, maps = _maps(family, models, data, batch_size, mesh, mc, rng,
+                        is_log_sigma)
+    labels = (split.shards(data["target"]), split.shards(data["mask"]))
+    out, kept = family.score(maps, labels, thresholds, per_image, bounds)
     if artifacts:
-        out.update(confidence=split.joined(conf), prediction=baseline)
+        out.update({k: split.joined(v) for k, v in kept.items()})
     return out
 
 
 @torch.inference_mode()
-def volume_aux_segm(model, batch_size: int, volume, baseline, mesh=None):
-    """Inference only (``make_volume_aux_segm_fn``): the error net's
-    ``confidence`` and the baseline passed through as ``prediction``."""
-    split, outs = _aux_segm_scan(model, volume, baseline, batch_size, mesh)
-    return {"confidence": split.joined(_outputs(outs)[0]),
-            "prediction": baseline}
-
-
-# ---------------------------------------------------------------------------
-# native-2D: K same-shape images a call, each image's own eval row
-# ---------------------------------------------------------------------------
-
-@torch.inference_mode()
-def image_batch_mc_eval(model, mc_steps: int, images, targets, masks,
-                        thresholds, rng, mesh=None):
-    """MC (``mc_steps=0``: deterministic) inference over K images in one
-    batch, then each image's eval row (``make_image_batch_mc_eval_fn``).
-    ``images`` (K, H, W, C), ``targets``/``masks`` (K, H, W) bool or uint8;
-    ``rng`` names the batch's MC stream, ``(seed, offset of its first
-    image)``. On a mesh the K images split over the data devices."""
-    return volume_mc_eval(model, mc_steps, len(images), images, targets,
-                          masks, thresholds, rng, per_image=True, mesh=mesh)
+def infer(strategy: str, models, data: dict, batch_size: int, *, mc: int = 0,
+          rng=None, is_log_sigma: bool = False, mesh=None) -> dict:
+    """Inference only (the ``make_volume_*_fn`` programs): the per-voxel
+    artifacts of :func:`evaluate`'s arguments without the labels. The
+    entropy families give ``fg``, ``entropy`` (bits) and ``prediction``
+    (the JAX program's weight-scaling map ``ws_fg``, a 21st forward under
+    MC that its service never sends, is not computed); aleatoric ``fg``,
+    ``prediction`` and the unrescaled predicted-class ``sigma``; the
+    auxiliary families ``confidence`` and ``prediction`` (auxiliary_segm:
+    the baseline passed through)."""
+    family = FAMILIES[strategy]
+    split, maps = _maps(family, models, data, batch_size, mesh, mc, rng,
+                        is_log_sigma)
+    return {k: split.joined(v) for k, v in family.infer(maps).items()}
 
 
 @torch.inference_mode()
-def image_batch_ensemble_eval(members, images, targets, masks, thresholds,
-                              mesh=None):
-    """Member-mean softmax over K images, each image's entropy-protocol
-    row (``make_image_batch_ensemble_eval_fn``)."""
-    return volume_ensemble_eval(members, len(images), images, targets, masks,
-                                thresholds, per_image=True, mesh=mesh)
-
-
-@torch.inference_mode()
-def image_batch_aux_feat_eval(segmenter, postnet, images, targets, masks,
-                              thresholds, mesh=None):
-    """Frozen segmenter + PostNet over K images, each image rescaled by its
-    own confidence range (``make_image_batch_aux_feat_eval_fn``)."""
-    return volume_aux_feat_eval(segmenter, postnet, len(images), images,
-                                targets, masks, thresholds, per_image=True,
-                                mesh=mesh)
-
-
-@torch.inference_mode()
-def image_batch_aux_segm_eval(model, images, baselines, targets, masks,
-                              thresholds, mesh=None):
-    """The error net over K images and their baselines, each image
-    rescaled by its own confidence range
-    (``make_image_batch_aux_segm_eval_fn``)."""
-    return volume_aux_segm_eval(model, len(images), images, baselines,
-                                targets, masks, thresholds, per_image=True,
-                                mesh=mesh)
-
-
-@torch.inference_mode()
-def image_batch_sigma_minmax(model, images, is_log_sigma: bool, mesh=None):
-    """Pass A over K images: each image's predicted-class sigma (min, max),
-    (K,) each (``make_image_batch_sigma_minmax_fn``)."""
-    return volume_sigma_minmax(model, len(images), images, is_log_sigma,
-                               per_image=True, mesh=mesh)
-
-
-@torch.inference_mode()
-def image_batch_aleatoric_eval(model, images, targets, masks, thresholds,
-                               sigma_min, sigma_max, is_log_sigma: bool,
-                               mesh=None):
-    """Pass B over K images: sigma rescaled by the run's global bounds,
-    folded, each image's row (``make_image_batch_aleatoric_eval_fn``)."""
-    return volume_aleatoric_eval(model, len(images), images, targets, masks,
-                                 thresholds, sigma_min, sigma_max,
-                                 is_log_sigma, per_image=True, mesh=mesh)
+def sigma_minmax(model, batch_size: int, volume, is_log_sigma: bool,
+                 per_image: bool = False, mesh=None):
+    """The aleatoric protocol's first pass: the item's predicted-class
+    sigma (min, max), its share of the run's global rescale bounds (with
+    ``per_image``, each image's, (K,) each)."""
+    _, outs = _aleatoric_scan(model, is_log_sigma, volume, batch_size, mesh)
+    return _min_max(_outputs(outs)[2], per_image)

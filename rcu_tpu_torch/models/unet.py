@@ -79,8 +79,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from rcu_tpu_torch.engine import remat
-from rcu_tpu_torch.eval.device import CONV_SEARCH
 from rcu_tpu_torch.ops import quant
+from rcu_tpu_torch.ops.precision import CONV_SEARCH
 from rcu_tpu_torch.ops.cuda.convepilogue import (BYTES_PER_ELEMENT,
                                                  conv_epilogue)
 from rcu_tpu_torch.ops.cuda.int8conv import int8_conv_dequant

@@ -67,6 +67,7 @@ stays outside, so concurrent requests overlap there.
 from __future__ import annotations
 
 import collections
+import functools
 import io
 import json
 import logging
@@ -125,8 +126,7 @@ class VolumeInferenceService:
         if self.mesh is not None:
             self.batch_size = pad_batch_size_to_mesh(self.batch_size,
                                                      self.mesh)
-        self._pool_devices = mesh.devices if self.subject_parallel \
-            else (self.device,)
+        self._given_mesh = mesh  # its devices answer in throughput mode
         self.max_programs = int(max_programs)
         self.members = list(members or [])
         if sum(map(bool, (self.members, segm_model_dir, aux_segm))) > 1:
@@ -169,28 +169,17 @@ class VolumeInferenceService:
             self.models = self.model
         self.is_log_sigma = bool(is_log_sigma) if is_log_sigma is not None \
             else None
-        if fold_bn and self.strategy == "mc" and self.mc > 0:
-            raise ValueError(
-                "fold_bn covers the deterministic single-forward serving "
-                "strategies (mc=0/ensemble/aleatoric/auxiliary_*); the "
-                "mc protocol samples dropout, which the BN fold cannot "
-                "commute with")
+        self._family = pipeline.FAMILIES[self.strategy]
+        self._family.check_variant(self.mc, fold_bn, quantize, service=True)
         self._quant_ready = not quantize
-        if quantize and self.strategy not in ("mc", "ensemble"):
-            raise ValueError(
-                "quantize=True covers the mc/deterministic/ensemble "
-                f"serving strategies; '{self.strategy}' keeps the "
-                "f32/bf16 paths")
-        readers = self.models if self.strategy == "ensemble" else \
-            [self.segm_model or self.model]
-        self._input_dtype = readers[0].dtype
+        self._input_dtype = self._family.input_dtype(self.models)
         self._shapes = collections.OrderedDict()  # bounded LRU of labels
         self._requests = 0
         self._lock = threading.Lock()        # device work (latency mode)
         self._cache_lock = threading.Lock()  # shapes LRU, request counter
-        self._placed = None                  # the models on the devices
-        self._pool = queue.Queue()           # free devices (throughput)
-        for i in range(len(self._pool_devices)):
+        self._placed = None                  # the slots of the models
+        self._pool = queue.Queue()           # free slots (throughput)
+        for i in range(self.pool_size):
             self._pool.put(i)
         if self._quant_ready:
             self._place()
@@ -199,19 +188,15 @@ class VolumeInferenceService:
     def pool_size(self) -> int:
         """Devices answering requests at once (1 outside throughput
         mode)."""
-        return len(self._pool_devices)
+        return self._given_mesh.size if self.subject_parallel else 1
 
     def _place(self):
-        """The models where the requests run: per pool device its copy
-        (throughput), placed on the mesh (latency), or as loaded."""
-        if self.subject_parallel:
-            self._placed = pipeline.replicas(self.strategy, self.models,
-                                             self._pool_devices)
-        elif self.mesh is not None:
-            self._placed = [pipeline.place(self.strategy, self.models,
-                                           self.mesh)]
-        else:
-            self._placed = [self.models]
+        """The models where the requests run (``pipeline.Family.slots``):
+        per pool device its copy (throughput), placed on the mesh
+        (latency), or as loaded."""
+        self._placed = self._family.slots(self.models, self.device,
+                                          self._given_mesh,
+                                          self.subject_parallel)
 
     # ------------------------------------------------------------ bookkeeping
     def _effective_batch(self, nz: int) -> int:
@@ -312,25 +297,35 @@ class VolumeInferenceService:
                          "first request (%d items; %d finest levels kept "
                          "in the compute dtype)", len(scales), n, skip)
 
-    def _run(self, fn, host: dict):
-        """``fn(tensors, models, mesh)`` with TF32 off: on a device checked
-        out of the pool (throughput mode), else under the device lock;
-        its results reach the host in one copy per device. -> (numpy
-        results, device seconds: CUDA events around the copies and the
-        work on a card; the wall clock to the host results on the CPU
-        and on a latency mesh, whose work spans several streams)."""
+    def _run(self, host: dict, batch: int, scored: bool, sigma_bounds,
+             per_image: bool = False):
+        """The request's pipeline entry point (``pipeline.evaluate``: the
+        eval dict, with the artifacts unless ``per_image``; unscored
+        ``pipeline.infer``: the artifacts) on the stream ``(seed, request
+        index)``, with TF32 off: on a slot checked out of the pool
+        (throughput mode), else under the device lock; its results reach
+        the host in one copy per device. -> (numpy results, device
+        seconds: CUDA events around the copies and the work on a card;
+        the wall clock to the host results on the CPU and on a latency
+        mesh, whose work spans several streams)."""
+        kw = dict(mc=self.mc, rng=(self.seed, self._next_request()),
+                  is_log_sigma=self.is_log_sigma)
+        if scored:
+            kw.update(thresholds=self.thresholds, bounds=sigma_bounds,
+                      per_image=per_image, artifacts=not per_image)
+        call = functools.partial(pipeline.evaluate if scored
+                                 else pipeline.infer, self.strategy,
+                                 batch_size=batch, **kw)
         if self.subject_parallel:
             i = self._pool.get()
             try:
-                return self._work(fn, host, self._placed[i],
-                                  self._pool_devices[i])
+                return self._work(call, host, *self._placed[i])
             finally:
                 self._pool.put(i)
         with self._lock:
-            return self._work(fn, host, self._placed[0],
-                              None if self.mesh is not None else self.device)
+            return self._work(call, host, *self._placed[0])
 
-    def _work(self, fn, host, models, device):
+    def _work(self, call, host, models, device, mesh):
         events = device is not None and device.type == "cuda"
         if events:
             stream = torch.cuda.current_stream(device)
@@ -339,8 +334,8 @@ class VolumeInferenceService:
             start.record(stream)
         t0 = time.perf_counter()
         with full_float32():
-            fetch = Fetch(fn(self._on_device(host, device), models,
-                             self.mesh))
+            fetch = Fetch(call(models, self._on_device(host, device),
+                               mesh=mesh))
         if events:
             end.record(stream)
         out = fetch.result()
@@ -401,11 +396,11 @@ class VolumeInferenceService:
     def predict_timed(self, images, target=None, mask=None, sigma_bounds=None,
                       baseline=None, per_image=False):
         """:meth:`predict` -> (its result, the request's device seconds)."""
-        if self.strategy == "auxiliary_segm" and baseline is None:
+        if self._family.baseline and baseline is None:
             raise ValueError(
                 "an auxiliary-segm service scores a BASELINE segmentation: "
                 "send its prediction volume as 'baseline'")
-        if baseline is not None and self.strategy != "auxiliary_segm":
+        if baseline is not None and not self._family.baseline:
             raise ValueError("'baseline' only applies to an auxiliary-segm "
                              f"service; this server runs '{self.strategy}'")
         if target is None and mask is not None:
@@ -414,7 +409,7 @@ class VolumeInferenceService:
                 "eval reductions (ece), never the prediction artifacts — "
                 "send a target to score, or drop the mask")
         if sigma_bounds is not None:
-            if self.strategy != "aleatoric":
+            if not self._family.sigma:
                 raise ValueError("sigma_min/sigma_max only apply to an "
                                  "aleatoric (sigma-headed) service; this "
                                  f"server runs '{self.strategy}'")
@@ -422,8 +417,7 @@ class VolumeInferenceService:
             if not smax > smin:
                 raise ValueError(f"degenerate sigma bounds [{smin}, {smax}]")
             sigma_bounds = (np.float32(smin), np.float32(smax))
-        if target is not None and self.strategy == "aleatoric" \
-                and sigma_bounds is None:
+        if target is not None and self._family.sigma and sigma_bounds is None:
             raise ValueError(
                 "scoring an aleatoric request needs the run-level global "
                 "sigma bounds: send sigma_min/sigma_max (the offline "
@@ -446,55 +440,13 @@ class VolumeInferenceService:
         batch = self._effective_batch(nz)
         self._served((nz, True, batch) if scored
                      else (-(-nz // batch) * batch, False, batch))
-        rng = (self.seed, self._next_request())
-        out, device_s = self._run(
-            lambda data, models, mesh: self._volume_call(
-                data, models, mesh, batch, scored, rng, sigma_bounds), host)
+        out, device_s = self._run(host, batch, scored, sigma_bounds)
         return self._host_result(out, scored, sigma_bounds), device_s
-
-    def _volume_call(self, data, models, mesh, batch, scored, rng,
-                     sigma_bounds):
-        """The pipeline function of the service's family on one request's
-        tensors and the models where it runs: the artifacts only, or with
-        ``scored`` the eval dict with the artifacts."""
-        images = data["images"]
-        if not scored:
-            if self.strategy == "mc":
-                return pipeline.volume_mc(models, self.mc, batch, images, rng,
-                                          mesh=mesh)
-            if self.strategy == "aleatoric":
-                return pipeline.volume_aleatoric(models, batch, images,
-                                                 self.is_log_sigma, mesh=mesh)
-            if self.strategy == "ensemble":
-                return pipeline.volume_ensemble(models, batch, images,
-                                                mesh=mesh)
-            if self.strategy == "auxiliary_feat":
-                return pipeline.volume_aux_feat(*models, batch, images,
-                                                mesh=mesh)
-            return pipeline.volume_aux_segm(models, batch, images,
-                                            data["baseline"], mesh=mesh)
-        common = (data["target"], data["mask"], self.thresholds)
-        kw = {"artifacts": True, "mesh": mesh}
-        if self.strategy == "mc":
-            return pipeline.volume_mc_eval(models, self.mc, batch, images,
-                                           *common, rng, **kw)
-        if self.strategy == "aleatoric":
-            return pipeline.volume_aleatoric_eval(
-                models, batch, images, *common, *sigma_bounds,
-                self.is_log_sigma, **kw)
-        if self.strategy == "ensemble":
-            return pipeline.volume_ensemble_eval(models, batch, images,
-                                                 *common, **kw)
-        if self.strategy == "auxiliary_feat":
-            return pipeline.volume_aux_feat_eval(*models, batch, images,
-                                                 *common, **kw)
-        return pipeline.volume_aux_segm_eval(models, batch, images,
-                                             data["baseline"], *common, **kw)
 
     def _predict_per_image(self, images, target, mask, sigma_bounds,
                            baseline):
         """Per-image scoring (the native-2D eval protocol): K independent
-        images in one call of ``pipeline.image_batch_*_eval``."""
+        images in one batch and one call of ``pipeline.evaluate``."""
         if target is None:
             raise ValueError(
                 "per_image requests are scored-only: send targets [K,H,W] "
@@ -509,34 +461,12 @@ class VolumeInferenceService:
                 self._binarized(baseline, want, "baseline"))
         self._ensure_quant_calibrated(images)
         self._served((0, "per_image", 0))
-        rng = (self.seed, self._next_request())
-        out, device_s = self._run(
-            lambda data, models, mesh: self._image_call(
-                data, models, mesh, rng, sigma_bounds), host)
+        out, device_s = self._run(host, len(images), True, sigma_bounds,
+                                  per_image=True)
         result = {"ece": np.asarray(out["ece"], np.float32),
                   "dice": np.asarray(out["dice"], np.float32)}
         result.update(_correction(out))
         return result, device_s
-
-    def _image_call(self, data, models, mesh, rng, sigma_bounds):
-        common = (data["target"], data["mask"], self.thresholds)
-        images = data["images"]
-        if self.strategy == "mc":
-            return pipeline.image_batch_mc_eval(models, self.mc, images,
-                                                *common, rng, mesh=mesh)
-        if self.strategy == "aleatoric":
-            return pipeline.image_batch_aleatoric_eval(
-                models, images, *common, *sigma_bounds, self.is_log_sigma,
-                mesh=mesh)
-        if self.strategy == "ensemble":
-            return pipeline.image_batch_ensemble_eval(models, images, *common,
-                                                      mesh=mesh)
-        if self.strategy == "auxiliary_feat":
-            return pipeline.image_batch_aux_feat_eval(*models, images,
-                                                      *common, mesh=mesh)
-        return pipeline.image_batch_aux_segm_eval(models, images,
-                                                  data["baseline"], *common,
-                                                  mesh=mesh)
 
     def _host_result(self, out, scored, sigma_bounds):
         """The request's numpy results, in the JAX service's keys and

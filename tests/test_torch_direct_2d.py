@@ -374,7 +374,7 @@ def test_deterministic_run_is_invariant_to_k(env, tmp_path):
 
 def test_mc_stream_is_named_by_the_chunk_offset(env, tmp_path):
     """A chunk's MC stream is ``(seed, offset of its first image)``: the
-    run's rows equal ``image_batch_mc_eval`` called on each chunk alone
+    run's rows equal ``pipeline.evaluate`` called on each chunk alone
     with that name, and another K (other chunks at other offsets) samples
     another stream."""
     model_dir = env.model("deterministic", deterministic_dir)
@@ -390,9 +390,11 @@ def test_mc_stream_is_named_by_the_chunk_offset(env, tmp_path):
         images = torch.from_numpy(np.stack([a[0] for a in chunk]))
         targets = torch.from_numpy(np.stack([a[1] for a in chunk]) > 0)
         with eval_device.full_float32():
-            out = pipeline.image_batch_mc_eval(
-                model, 3, images, targets, torch.ones_like(targets),
-                port_direct.DEFAULT_THRESHOLDS, (20, offset))
+            out = pipeline.evaluate(
+                "mc", model, {"images": images, "target": targets,
+                              "mask": torch.ones_like(targets)}, 2,
+                port_direct.DEFAULT_THRESHOLDS, mc=3, rng=(20, offset),
+                per_image=True)
         for i in range(2):
             assert float(rows[1 + offset + i][ece]) == float(out["ece"][i])
     other = env.config("mc_stream", model_dir, {"mc": 3}, "flat",

@@ -77,3 +77,20 @@ def test_chip_smoke_imports_no_jax():
             imported.add(node.module or "")
     assert "rcu_tpu_torch.eval.direct" in imported
     assert not {m for m in imported if m.split(".")[0] in NEVER}, imported
+
+
+def test_the_models_import_no_eval_module():
+    """The layers stack one way: ``models.unet`` (and with it the state of
+    the conv engine search, ``ops.precision``) loads no module of
+    ``rcu_tpu_torch.eval``."""
+    script = textwrap.dedent("""
+        import sys
+        import rcu_tpu_torch.models.unet
+        print(" ".join(m for m in sys.modules
+                       if m.startswith("rcu_tpu_torch.eval")))
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": REPO_ROOT})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == []

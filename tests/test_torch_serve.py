@@ -8,8 +8,8 @@ and the eval counts exactly, the ECE at the direct-eval tests' rtol 1e-4.
 The weights keep every fg value away from the bin edges and 0.5
 (``tests.test_torch_direct._margin_weights``), where a 1-ulp difference
 between the frameworks would flip a count. The MC masks cannot equal
-flax's: an MC request must equal the port's own ``_mc_scan`` on the stream
-``(seed, request index)`` bitwise, scored and unscored alike.
+flax's: an MC request must equal the port's own ``pipeline.infer`` on the
+stream ``(seed, request index)`` bitwise, scored and unscored alike.
 """
 import numpy as np
 import pytest
@@ -104,19 +104,20 @@ def test_deterministic_matches_jax(env, services, subject, scored, masked):
 
 def test_mc_request_is_the_ports_mc_scan(env):
     """Request ``i`` of a service draws from the stream ``(seed, i)``: the
-    unscored artifacts equal ``_mc_scan`` on it bitwise, a scored request
-    at the same index gives the same maps, a fresh service repeats them,
-    the next request draws anew; the schema is the JAX service's."""
+    unscored artifacts equal ``pipeline.infer`` (the port's ``_mc_scan``)
+    on it bitwise, a scored request at the same index gives the same maps,
+    a fresh service repeats them, the next request draws anew; the schema
+    is the JAX service's."""
     images, labels = env["subjects"]["s02"]
     first = port_service(env["model_dir"], mc=3, seed=5)
     got = first.predict(images)
-    with torch.inference_mode():
-        _, [(fg, ent)] = pipeline._mc_scan(first.model, 3,
-                                           torch.from_numpy(images), 2, (5, 1))
-    np.testing.assert_array_equal(got["probabilities"], fg.numpy())
-    np.testing.assert_array_equal(
-        got["entropy"], pipeline._normalize_entropy(ent).numpy())
-    np.testing.assert_array_equal(got["prediction"], fg.numpy() > 0.5)
+    want = pipeline.infer("mc", first.model,
+                          {"images": torch.from_numpy(images)}, 2, mc=3,
+                          rng=(5, 1))
+    np.testing.assert_array_equal(got["probabilities"], want["fg"].numpy())
+    np.testing.assert_array_equal(got["entropy"], want["entropy"].numpy())
+    np.testing.assert_array_equal(got["prediction"],
+                                  want["prediction"].numpy())
     scored = port_service(env["model_dir"], mc=3, seed=5).predict(
         images, target=labels)
     for key in ("probabilities", "entropy", "prediction"):

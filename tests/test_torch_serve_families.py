@@ -121,6 +121,29 @@ def test_unscored_aleatoric_with_bounds_folds_on_the_host(env, services,
 
 @pytest.mark.parametrize("family", ["aleatoric", "ensemble", "auxiliary_feat",
                                     "auxiliary_segm"])
+def test_unscored_artifacts_are_the_scored_ones(env, services, sigma_bounds,
+                                                family):
+    """An unscored request's artifacts (``pipeline.infer``; aleatoric with
+    the run's bounds, folded on the host) equal a scored request's
+    (``pipeline.evaluate`` with ``artifacts``) bitwise: every map the
+    scored one sends, the unscored one sends too."""
+    _, subjects = env
+    port = services[family][1]
+    unscored = port.predict(**request(family, subjects["s02"], False,
+                                      sigma_bounds))
+    scored = port.predict(**request(family, subjects["s02"], True,
+                                    sigma_bounds))
+    maps = {k for k in scored if k != "ece"
+            and not k.startswith("correction_")}
+    assert maps and maps <= set(unscored)
+    for key in maps:
+        assert scored[key].dtype == unscored[key].dtype, key
+        np.testing.assert_array_equal(scored[key], unscored[key],
+                                      err_msg=key)
+
+
+@pytest.mark.parametrize("family", ["aleatoric", "ensemble", "auxiliary_feat",
+                                    "auxiliary_segm"])
 def test_per_image_rows_equal_single_requests(env, services, sigma_bounds,
                                               family):
     _, subjects = env

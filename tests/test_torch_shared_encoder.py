@@ -101,8 +101,10 @@ def test_volume_mc_eval_shared_equals_full():
     model = center_model(3, 1)
     volume = torch.from_numpy(np.random.RandomState(1).rand(6, 24, 20, 3)
                               .astype(np.float32))
-    shared = pipeline.volume_mc(model, 3, 2, volume, rng=(20, 0))
-    full = pipeline.volume_mc(Unshared(model), 3, 2, volume, rng=(20, 0))
+    shared = pipeline.infer("mc", model, {"images": volume}, 2, mc=3,
+                            rng=(20, 0))
+    full = pipeline.infer("mc", Unshared(model), {"images": volume}, 2, mc=3,
+                          rng=(20, 0))
     for key in ("fg", "entropy", "prediction"):
         assert torch.equal(shared[key], full[key]), key
 

@@ -19,6 +19,7 @@ from rcu_tpu_torch.cli import eval_direct as port_cli
 from rcu_tpu_torch.data.h5 import SubjectDataset
 from rcu_tpu_torch.engine import config as port_cfg
 from rcu_tpu_torch.eval import direct as port_direct
+from rcu_tpu_torch.eval import pipeline
 from rcu_tpu_torch.ops.cuda import evalstats
 from tests.test_torch_direct import SHAPE, make_store, read_dir
 from tests.test_torch_unet import flax_net
@@ -113,6 +114,18 @@ def test_detects_the_strategy_as_jax_does(env, name):
     finally:
         jax_ds.close()
         port_ds.close()
+
+
+def test_every_strategy_has_a_family_record():
+    """Each strategy of the direct eval (the JAX package's six) has one
+    record in the pipeline's family table under its own name, and
+    ``deterministic`` is ``mc`` without its samples."""
+    assert port_direct.STRATEGIES == tuple(jax_direct.STRATEGIES)
+    assert set(pipeline.FAMILIES) == set(port_direct.STRATEGIES)
+    for name in port_direct.STRATEGIES:
+        assert pipeline.FAMILIES[name].name == name
+    assert pipeline.FAMILIES["deterministic"]._replace(
+        name="mc", samples=True) == pipeline.FAMILIES["mc"]
 
 
 @pytest.mark.parametrize("name,match", [
