@@ -1,8 +1,9 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the three
-hand-written kernels (``csrc/evalstats.cu``, the fused eval statistics;
-``csrc/int8conv.cu``, the int8 convolution; ``csrc/convepilogue.cu``, the
-f32 eval epilogue of a ConvBnRelu site), holds each against its plain
-PyTorch version, then drives the main path, the BraTS MC-dropout direct
+"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the four
+hand-written kernel sources (``csrc/evalstats.cu``, the fused eval
+statistics; ``csrc/int8conv.cu``, the int8 convolution;
+``csrc/convepilogue.cu``, the f32 eval epilogue of a ConvBnRelu site;
+``csrc/trainepilogue.cu``, its f32 train-mode epilogue forward and
+backward), holds each against its plain PyTorch version, then drives the main path, the BraTS MC-dropout direct
 eval, the four other strategy families of the direct eval, the
 inference variants, int8 included, the native-2D (ISIC) direct eval,
 training, the staged chain, serving, the inference paths on a device
@@ -39,7 +40,15 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    15^2) and at a deterministic batch's head (no dropout); at level 0 its
    time beside its bound (8 B an element), the plain version's and the
    four-pass eager chain's, and an MC20 forward with and without it
-   (``epilogue_phase``; the kernels record's third entry);
+   (``epilogue_phase``; the kernels record's third entry); then the
+   train epilogue's four kernels at every site shape of a BraTS train
+   batch (32 x 32 x 240^2 down to 32 x 512 x 15^2, dropout 0.05): the
+   apply kernel bitwise its plain version, forward and backward within
+   1e-4 of the plain version's in float64, two runs bitwise, four
+   launches; each kernel's time beside the bound (32 B an element), the
+   wrapper's, the plain version's and the eager chain's, forward and
+   backward (``train_epilogue_phase``; the fourth entry, whose
+   ``launches`` are phase 10's BraTS default run's);
 4. main path: ``evaluate_subjects`` over 2 in-memory BraTS-shaped subjects
    with the flagship U-Net (config/train_brats_baseline.yaml: depth 4, 32
    start filters, 4 channels, dropout 0.05) at seeded random weights
@@ -142,15 +151,18 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    third validated), then aleatoric, auxiliary_feat (on the default
    run's best checkpoint) and auxiliary_segm on the slices through the
    lesion, and ISIC default (config/train_isic_baseline.yaml, 96 + 32
-   images through its rescale, ISIC validation). Each prints its ms per
-   step on one batch after 3 warm-up steps (CUDA-synced), slices or
-   images per second, peak memory, first and last loss, validation
-   seconds per subject, checkpoint write seconds and MB. The default
-   run's best checkpoint goes through ``evaluate_subjects``,
+   images through its rescale, ISIC validation). BraTS default must
+   launch the train epilogue's kernels 4 times a site and step (19 sites,
+   every step of the epoch, the warm-up and the timed ones). Each prints
+   its ms per step on one batch after 3 warm-up steps (CUDA-synced),
+   slices or images per second, peak memory, first and last loss,
+   validation seconds per subject, checkpoint write seconds and MB. The
+   default run's best checkpoint goes through ``evaluate_subjects``,
    deterministic and MC20, on the valid subject (the eval kernel once
    each); one train step of each kind at flagship width on 2 slices runs
    on the card and the CPU from the same weights (and in float64 on the
-   card as the reference; the bars at ``TRAIN_LOSS_RTOL``); 10 BraTS
+   card on the card step's own ReLU and pool choices as the reference;
+   the bars at ``TRAIN_LOSS_RTOL``); 10 BraTS
    default steps run under torch.profiler (busy share, the 8 costliest
    kernels);
 11. staged: the staged chain on the same 2 BraTS subjects (phase 4's,
@@ -243,7 +255,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    (``measure_practical_hbm``), which gives the eval kernel's record a
    second bound (``practical_bound_ms``), and the ring over the mesh
    devices (``measure_practical_ici``; on a virtual mesh an on-card
-   copy). Training launches neither hand kernel;
+   copy). Mesh training launches neither the eval statistics kernel nor
+   the int8 conv (its parts' BatchNorm sums add over the parts, so they
+   keep the eager epilogue; the single-device steps they are held
+   against run the train epilogue's kernels);
 15. import: a seeded flagship U-Net and its sigma-head variant written as
    reference model dirs (``torch.save`` of a state_dict under the
    reference implementation's key names), imported by ``python -m
@@ -341,7 +356,8 @@ from rcu_tpu_torch.models.unet import ConvBnRelu, upsample_conv
 from rcu_tpu_torch.eval import pipeline
 from rcu_tpu_torch.eval.pipeline import sample_generators
 from rcu_tpu_torch.ops import prepare
-from rcu_tpu_torch.ops.cuda import build, convepilogue, evalstats, int8conv
+from rcu_tpu_torch.ops.cuda import (build, convepilogue, evalstats,
+                                   int8conv, trainepilogue)
 
 SEED = 20
 FLAGSHIP = dict(nb_classes=2, in_channels=4, depth=4, start_filters=32,
@@ -349,7 +365,7 @@ FLAGSHIP = dict(nb_classes=2, in_channels=4, depth=4, start_filters=32,
 BRATS = (155, 240, 240)
 MC_STEPS, BATCH = 20, 32
 MEMBERS = 10  # config/train_ensemble/train_brats_ensemble_{0..9}.yaml
-KERNELS = ("evalstats", "int8conv", "convepilogue")
+KERNELS = ("evalstats", "int8conv", "convepilogue", "trainepilogue")
 DEVICE = "cuda"
 # H100 memory rates and the SXM part's 67 TFLOP/s f32 peak outside the
 # tensor cores (NVIDIA data sheets); the latter bounds the kernel's
@@ -729,6 +745,206 @@ def epilogue_forward_ms():
         finally:
             ConvBnRelu.fuses_epilogue = fuses
     return out
+
+
+# every ConvBnRelu output shape of a BraTS train batch (config/
+# train_brats_baseline.yaml: 32 slices; the flagship's levels, 240^2 x 32
+# down to 15^2 x 512) and the train epilogue's four kernels
+TRAIN_EPILOGUE_SHAPES = tuple(
+    (BATCH, FLAGSHIP["start_filters"] << k) + tuple(d >> k for d in BRATS[1:])
+    for k in range(FLAGSHIP["depth"] + 1))
+TRAIN_EPILOGUE_STAGES = ("stats", "apply", "grad_sums", "grad_apply")
+# the kernels' error against float64, relative to each tensor's max (the
+# conv bias's gradient, a sum of terms that cancel, to its terms' sum per
+# channel): the f32 batch sums' error (~1e-5 of their terms at these
+# sizes) magnified by E[z^2] / var (< 3 for these draws), with room; a
+# wrong mask or term misses by O(1)
+TRAIN_EPILOGUE_RTOL = 1e-4
+
+
+def train_epilogue_site(shape):
+    """A seeded train-mode ConvBnRelu of ``shape[1]`` channels on the card
+    (its BatchNorm's affine weights and its conv bias drawn), a seeded
+    conv output of ``shape``, the dropout divisor of a train step's
+    generator and a seeded cotangent: -> (layer, c, divisor, cotangent)."""
+    channels = shape[1]
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    layer = ConvBnRelu(channels, channels, FLAGSHIP["dropout"]).to(
+        DEVICE).train()
+    with torch.no_grad():
+        layer.BatchNorm_0.weight.uniform_(-2, 2, generator=g)
+        layer.BatchNorm_0.bias.uniform_(-1, 1, generator=g)
+        layer.Conv_0.bias.uniform_(-1, 1, generator=g)
+    c = torch.randn(shape, generator=g, device=DEVICE)
+    cotangent = torch.randn(shape, generator=g, device=DEVICE)
+    divisor = layer.dropout.divisor(
+        c, [steps.step_generator(SEED, 4, 0, DEVICE)])
+    return layer, c, divisor, cotangent
+
+
+def train_epilogue_step(fn, layer, c, divisor, cotangent):
+    """``fn`` (``train_epilogue`` or its plain version) forward and
+    backward from a copy of ``layer``'s BatchNorm: (y, the running mean
+    and variance, the gradients of c, the conv bias, the BatchNorm's
+    weight and bias)."""
+    bn = copy.deepcopy(layer.BatchNorm_0)
+    c = c.detach().requires_grad_(True)
+    bias = layer.Conv_0.bias.detach().requires_grad_(True)
+    y = fn(c, bias, divisor, bn)
+    grads = torch.autograd.grad(y, [c, bias, bn.weight, bn.bias], cotangent)
+    return (y.detach(), bn.running_mean, bn.running_var) + grads
+
+
+def train_epilogue_float64(layer, c, divisor, cotangent, y):
+    """The plain version in float64 on the same inputs, its gradients on
+    the ReLU choices of the kernels' output ``y`` (a unit whose input lies
+    within rounding of 0 may fall on the other side in float64, and its
+    gradient moves by its whole value): the tuple of
+    :func:`train_epilogue_step`."""
+    bn = copy.deepcopy(layer.BatchNorm_0).double()
+    args = [c.double(), layer.Conv_0.bias.detach().double(),
+            None if divisor is None else divisor.double()]
+    with torch.no_grad():
+        y64 = trainepilogue.train_epilogue_reference(*args, copy.deepcopy(bn))
+    args[0].requires_grad_(True)
+    args[1].requires_grad_(True)
+    pre = trainepilogue.train_epilogue_reference(*args, bn, False)
+    grads = torch.autograd.grad(pre, args[:2] + [bn.weight, bn.bias],
+                                cotangent.double() * (y > 0))
+    return (y64, bn.running_mean, bn.running_var) + grads
+
+
+def train_epilogue_errors(got, want):
+    """Each f32 tensor of :func:`train_epilogue_step`'s tuple against
+    float64's, relative to :data:`TRAIN_EPILOGUE_RTOL`'s scale: {name:
+    error / scale}."""
+    names = ("y", "running_mean", "running_var", "d_c", "d_bias", "d_weight",
+             "d_shift")
+    out = {}
+    for name, a, b in zip(names, got, want):
+        gap = (a.double() - b).abs()
+        if name == "d_bias":
+            terms = want[3].abs().sum((0, 2, 3))
+            out[name] = float((gap / terms).max())
+        else:
+            out[name] = float(gap.max()) / float(b.abs().max())
+    return out
+
+
+def train_epilogue_phase(hbm_rate):
+    """The train epilogue's kernels at each of
+    :data:`TRAIN_EPILOGUE_SHAPES`, with the train cell's dropout: the apply
+    kernel bitwise its plain version on the stats kernel's sums; the
+    forward and backward within :data:`TRAIN_EPILOGUE_RTOL` of the plain
+    version's in float64 on the same inputs; two runs bitwise alike; four
+    launches. Then at each shape the four kernels' device times
+    (torch.profiler) beside their bound (32 B an element at the spec's
+    memory rate), the wrapper's forward and forward + backward, the plain
+    version's and the eager chain's (``ConvBnRelu.epilogue`` on the conv
+    output with its bias, and its autograd) by CUDA events. Returns the
+    JSON record (its ``launches`` are the BraTS default training run's,
+    filled in by the caller)."""
+    fused, sites = trainepilogue.train_epilogue, []
+    nbytes_per = sum(trainepilogue._STAGE_BYTES)
+    for shape in TRAIN_EPILOGUE_SHAPES:
+        layer, c, divisor, cotangent = train_epilogue_site(shape)
+        n, _, h, w = shape
+        bias = layer.Conv_0.bias.detach()
+        s1, s2 = trainepilogue._Kernels.stats(c, bias, divisor)
+        mean, _, _, mul = trainepilogue.batch_constants(
+            s1, s2, n * h * w, copy.deepcopy(layer.BatchNorm_0))
+        shift = layer.BatchNorm_0.bias.detach()
+        want = trainepilogue._Plain.apply(c, bias, divisor, mean, mul, shift,
+                                          True)
+        got = trainepilogue._Kernels.apply(c, bias, divisor, mean, mul, shift,
+                                           True)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError("train_epilogue's apply kernel differs from "
+                                 f"its plain version at {shape}")
+        del got, want
+        launches = fused.launches
+        first = train_epilogue_step(fused, layer, c, divisor, cotangent)
+        second = train_epilogue_step(fused, layer, c, divisor, cotangent)
+        torch.cuda.synchronize()
+        if fused.launches - launches != 8:
+            raise AssertionError(f"train_epilogue at {shape}: "
+                                 f"{fused.launches - launches} launches for "
+                                 "two forwards and backwards, not 8")
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(first, second)):
+            raise AssertionError(f"train_epilogue at {shape}: two runs differ")
+        del second
+        errors = train_epilogue_errors(first, train_epilogue_float64(
+            layer, c, divisor, cotangent, first[0]))
+        del first
+        worst = max(errors.values())
+        if not worst <= TRAIN_EPILOGUE_RTOL:
+            raise AssertionError(f"train_epilogue at {shape} against float64: "
+                                 f"{errors}")
+        wrt = [c.detach().requires_grad_(True),
+               layer.Conv_0.bias, layer.BatchNorm_0.weight,
+               layer.BatchNorm_0.bias]
+
+        def forward():
+            return fused(c, bias, divisor, layer.BatchNorm_0)
+
+        def both(fn=fused):
+            y = fn(wrt[0], wrt[1], divisor, layer.BatchNorm_0)
+            torch.autograd.grad(y, wrt, cotangent)
+
+        def eager():  # the conv's bias add, then the site's chain
+            y = layer.epilogue(wrt[0] + wrt[1][:, None, None], [
+                steps.step_generator(SEED, 4, 0, DEVICE)])
+            torch.autograd.grad(y, wrt, cotangent)
+
+        times = profiled_ms(both)
+        kernels = {stage: sum(ms for key, ms in times.items()
+                              if f"{trainepilogue.KERNEL}{stage}<" in key)
+                   for stage in TRAIN_EPILOGUE_STAGES}
+        total = sum(kernels.values())
+        with torch.no_grad():
+            forward_ms = cuda_ms(forward, 20)
+        site = {"shape": list(shape), "kernel_ms": kernels,
+                "kernels_total_ms": total,
+                "bound_ms": nbytes_per * c.numel() / hbm_rate * 1e3,
+                "wrapper_forward_ms": forward_ms,
+                "wrapper_forward_backward_ms": cuda_ms(both, 20),
+                "plain_ms": cuda_ms(lambda: both(
+                    trainepilogue.train_epilogue_reference), 5),
+                "eager_chain_ms": cuda_ms(eager, 10),
+                "float64_errors": errors}
+        site["bound_share"] = site["bound_ms"] / total if total else None
+        sites.append(site)
+        log(f"train_epilogue {shape}: apply bitwise its plain version, "
+            f"two runs bitwise, within {worst:.1e} of float64 (bar "
+            f"{TRAIN_EPILOGUE_RTOL:.0e}); kernels " + ", ".join(
+                f"{k} {v:.4f}" for k, v in kernels.items())
+            + f" = {total:.4f} ms, bound {site['bound_ms']:.4f} ms "
+            f"({nbytes_per} B an element at {hbm_rate / 1e12} TB/s), share "
+            f"{site['bound_share']}; wrapper forward {forward_ms:.4f} ms, "
+            f"forward + backward {site['wrapper_forward_backward_ms']:.4f} "
+            f"ms; plain {site['plain_ms']:.3f} ms; the eager chain it "
+            f"replaces {site['eager_chain_ms']:.3f} ms")
+        del layer, c, divisor, cotangent, wrt
+        torch.cuda.empty_cache()
+    return {"name": "train_epilogue", "route": "cuda",
+            "source": "rcu_tpu_torch/csrc/trainepilogue.cu",
+            "replaces": None, "sites": sites, "launches": None,
+            "library_ms": None}
+
+
+def train_epilogue_launches(loop, record):
+    """The train epilogue's launches over :func:`run_training` of a
+    single-device f32 U-Net: four a ConvBnRelu site with its own BatchNorm
+    (19 in the flagship) and step, the epoch's, the warm-up's and the timed
+    ones (validation runs in eval mode); 0 off a card, where every site
+    keeps the eager chain."""
+    if DEVICE != "cuda":
+        return 0
+    sites = sum(isinstance(m, ConvBnRelu)
+                and getattr(m, "BatchNorm_0", None) is not None
+                for m in loop.state.model.modules())
+    return 4 * sites * (record["steps"] + TRAIN_WARMUP + TRAIN_TIMED)
 
 
 def epilogue_launches(models, dataset):
@@ -2533,10 +2749,10 @@ ISIC_TRAIN, ISIC_VALID = 96, 32  # images: 3 steps of 32, one valid batch
 # its conv kernel's). Where the card misses TRAIN_GRAD_SCALE, the two
 # sides took some ReLU or pool choice otherwise (a unit whose input
 # float32 rounds to the other side of 0 carries its whole gradient on one
-# side and none on the other); then a card step that takes the CPU's
-# choices (ForwardDecisions) must lie within the same bar of the CPU's
-# gradient or, where the CPU's float32 lies the farther from it, of
-# float64's on those choices. A TF32 convolution misses it, and the check
+# side and none on the other); then the card step's gradient must lie
+# within the same bar of float64's on the card step's own choices
+# (ForwardDecisions), so that the card's own code, hand kernels included,
+# is what the bar holds. A TF32 convolution misses it, and the check
 # shows it does. Then the BatchNorm running statistics relative to their
 # tensor's max; adam's new parameters from identical gradients
 TRAIN_LOSS_RTOL, TRAIN_GRAD_SCALE = 1e-5, 1e-3
@@ -2766,16 +2982,19 @@ class GradRecorder:
 class ForwardDecisions:
     """The discrete choices of a forward pass, in call order: each ReLU's
     mask and each max-pool's argmax (``rcu_tpu_torch.models.unet`` makes
-    both through ``torch.nn.functional``). :meth:`recording` keeps a run's
-    choices; :meth:`replaying` makes another run take them, and counts the
-    units and windows where that run's own values would have chosen
-    otherwise. Where rounding puts a ReLU's input on the other side of 0,
-    the forward moves by that rounding but the unit's gradient by its
-    whole value: a difference of the choice, not of the arithmetic. Only
-    the ReLUs under autograd count: outside it no gradient flows through
-    the choice, and an eval-mode f32 site on a card (a frozen segmenter's,
-    under ``no_grad``) runs the fused epilogue kernel, which calls no
-    ``relu_``."""
+    both through ``torch.nn.functional``, or, at an f32 site training on a
+    card, in the train epilogue's kernels, whose output's sign is the
+    mask). :meth:`recording` keeps a run's choices; :meth:`replaying` makes
+    another run take them, and counts the units and windows where that
+    run's own values would have chosen otherwise. Where rounding puts a
+    ReLU's input on the other side of 0, the forward moves by that rounding
+    but the unit's gradient by its whole value: a difference of the choice,
+    not of the arithmetic. Only the ReLUs under autograd count: outside it
+    no gradient flows through the choice, and an eval-mode f32 site on a
+    card (a frozen segmenter's, under ``no_grad``) runs the fused epilogue
+    kernel, which calls no ``relu_``. A replaying run takes every ReLU
+    through ``relu_``, so it is one that takes no hand kernel: a float64
+    or a CPU run."""
 
     def __init__(self):
         self.relu, self.pool, self.differ = [], [], 0
@@ -2783,7 +3002,10 @@ class ForwardDecisions:
     @contextlib.contextmanager
     def recording(self):
         from unittest import mock
+
+        from rcu_tpu_torch.models import unet
         relu_, pool = torch.nn.functional.relu_, torch.nn.functional.max_pool2d
+        fused = unet.train_epilogue
 
         def record_relu(y):
             if torch.is_grad_enabled():
@@ -2795,9 +3017,16 @@ class ForwardDecisions:
             self.pool.append(index)
             return y
 
+        def record_fused(c, bias, divisor, bn, relu=True):
+            y = fused(c, bias, divisor, bn, relu)
+            if relu:
+                self.relu.append(y.detach() > 0)
+            return y
+
         with mock.patch.object(torch.nn.functional, "relu_", record_relu), \
                 mock.patch.object(torch.nn.functional, "max_pool2d",
-                                  record_pool):
+                                  record_pool), \
+                mock.patch.object(unet, "train_epilogue", record_fused):
             yield
 
     @contextlib.contextmanager
@@ -2828,6 +3057,16 @@ class ForwardDecisions:
             raise AssertionError("the replayed forward took fewer choices "
                                  "than the recorded one")
 
+    def differences(self, other):
+        """The ReLU units and pool windows where ``other``, a recording of
+        the same forward, chose otherwise."""
+        if (len(self.relu), len(self.pool)) != (len(other.relu),
+                                                len(other.pool)):
+            raise AssertionError("the two forwards took different numbers "
+                                 "of choices")
+        return sum(int((a.cpu() != b.cpu()).sum()) for a, b in zip(
+            self.relu + self.pool, other.relu + other.pool))
+
 
 @contextlib.contextmanager
 def cudnn_tf32():
@@ -2846,15 +3085,16 @@ def train_step_card_vs_cpu(label, model, make_step, batch, frozen=None,
     """One train step of ``make_step(frozen)`` from ``model``'s weights on
     the card and on the CPU in float32 (TF32 off): the loss, each
     gradient, the BatchNorm running statistics at the TRAIN_* bars. A
-    gradient that misses its bar is held again from a card step that
-    replays the CPU's forward choices (:class:`ForwardDecisions`),
-    against the nearer of the CPU's and float64's on those choices. Then
-    adam from both sides' weights fed the CPU's gradients: the new
-    parameters at TRAIN_ADAM_RTOL. With ``tf32_control`` the replaying
-    card step runs once more with cuDNN's TF32 on, and the check fails
-    unless that run misses the bar: the check is shown to reject the
-    precision it exists to exclude. Returns the largest card-vs-CPU
-    gradient error relative to its tensor's max."""
+    gradient that misses its bar against the CPU's is held against
+    float64's on the card step's own forward choices
+    (:class:`ForwardDecisions`): the gradients held are always the card
+    step's, hand kernels included. Then adam from both sides' weights fed
+    the CPU's gradients: the new parameters at TRAIN_ADAM_RTOL. With
+    ``tf32_control`` a card step runs once more with cuDNN's TF32 on and is
+    held the same way, and the check fails unless that step misses the
+    bar: the check is shown to reject the precision it exists to exclude.
+    Returns the largest card-vs-CPU gradient error relative to its
+    tensor's max."""
     from rcu_tpu_torch.engine.state import TrainState
     from rcu_tpu_torch.models.optim import Adam
     pre_bn_bias = re.compile(r"ConvBnRelu_\d+\.Conv_0\.bias$")
@@ -2878,55 +3118,55 @@ def train_step_card_vs_cpu(label, model, make_step, batch, frozen=None,
                 {k: v.detach().cpu() for k, v in m.state_dict().items()
                  if "running" in k}, m)
 
-    choices = ForwardDecisions()
-    l_cpu, g_cpu, s_cpu, m_cpu = step("cpu", torch.float32, choices)
-    l_gpu, g_gpu, s_gpu, m_gpu = step(DEVICE, torch.float32)
-    g_replay = step(DEVICE, torch.float32, choices, replay=True)[1]
-    flips = choices.differ
-    g64 = step(DEVICE, torch.float64, choices, replay=True)[1]
+    cpu, card = ForwardDecisions(), ForwardDecisions()
+    l_cpu, g_cpu, s_cpu, m_cpu = step("cpu", torch.float32, cpu)
+    l_gpu, g_gpu, s_gpu, m_gpu = step(DEVICE, torch.float32, card)
+    g64 = step(DEVICE, torch.float64, card, replay=True)[1]
+    flips = cpu.differences(card)
 
     def scale_of(name):
         return float(g_cpu[name[:-len("bias")] + "weight"
                            if pre_bn_bias.search(name) else name].abs().max())
 
-    def replay_err(grads, name):
-        """(vs the CPU, vs float64), on the CPU's choices."""
+    def errs(grads, exact, name):
+        """(vs the CPU, vs ``exact``: float64 on the step's own choices)."""
         got = grads[name].double()
         return (float((got - g_cpu[name].double()).abs().max()),
-                float((got - g64[name]).abs().max()))
+                float((got - exact[name]).abs().max()))
 
     failures, rows = [], []
     if not abs(l_gpu - l_cpu) <= TRAIN_LOSS_RTOL * abs(l_cpu):
         failures.append(f"loss card {l_gpu} vs CPU {l_cpu}")
     worst = 0.0
-    for name, want in g_cpu.items():
+    for name in g_cpu:
         scale = scale_of(name)
-        err = float((g_gpu[name] - want).abs().max())
-        rows.append((err / scale, name) + tuple(
-            e / scale for e in replay_err(g_replay, name)))
-        if not (err <= TRAIN_GRAD_SCALE * scale
-                or min(replay_err(g_replay, name)) <= TRAIN_GRAD_SCALE * scale):
-            failures.append(f"gradient {name} card vs CPU {err}; on the "
-                            f"CPU's choices vs CPU and vs float64 "
-                            f"{replay_err(g_replay, name)} (max {scale})")
-        worst = max(worst, err / scale)
+        vs_cpu, vs_f64 = errs(g_gpu, g64, name)
+        rows.append((vs_cpu / scale, name, vs_f64 / scale))
+        if not min(vs_cpu, vs_f64) <= TRAIN_GRAD_SCALE * scale:
+            failures.append(f"gradient {name} card vs CPU {vs_cpu}, vs "
+                            f"float64 on the card's choices {vs_f64} (max "
+                            f"{scale})")
+        worst = max(worst, vs_cpu / scale)
     log(f"  {label}: {flips} ReLU units and pool windows of the card's "
-        f"forward would choose otherwise than the CPU's")
-    for rel, name, cpu, f64 in sorted(rows, reverse=True)[:4]:
-        log(f"  {label} gradient {name}: card vs CPU {rel:.2e}; on the "
-            f"CPU's choices vs CPU {cpu:.2e}, vs float64 {f64:.2e} x its max")
+        f"forward chose otherwise than the CPU's; float64's own values "
+        f"would at {card.differ} of the card's")
+    for rel, name, f64 in sorted(rows, reverse=True)[:4]:
+        log(f"  {label} gradient {name}: card vs CPU {rel:.2e}, vs float64 "
+            f"on the card's choices {f64:.2e} x its max")
     for name, want in s_cpu.items():
         err = float((s_gpu[name] - want).abs().max())
         if not err <= TRAIN_STATS_RTOL * float(want.abs().max()):
             failures.append(f"{name} card vs CPU {err}")
     if tf32_control:
+        tf32 = ForwardDecisions()
         with cudnn_tf32():
-            g_tf32 = step(DEVICE, torch.float32, choices, replay=True)[1]
-        control = max(min(replay_err(g_tf32, name)) / scale_of(name)
+            g_tf32 = step(DEVICE, torch.float32, tf32)[1]
+        g64_tf32 = step(DEVICE, torch.float64, tf32, replay=True)[1]
+        control = max(min(errs(g_tf32, g64_tf32, name)) / scale_of(name)
                       for name in g_tf32)
-        log(f"  {label} control, cuDNN TF32 on, on the CPU's choices: the "
-            f"farthest gradient lies {control:.2e} x its max from the "
-            f"nearer of CPU and float64 (bar {TRAIN_GRAD_SCALE:.0e})")
+        log(f"  {label} control, cuDNN TF32 on: the farthest gradient lies "
+            f"{control:.2e} x its max from the nearer of the CPU's and "
+            f"float64's on its own choices (bar {TRAIN_GRAD_SCALE:.0e})")
         if not control > TRAIN_GRAD_SCALE:
             failures.append(f"the TF32 control's gradients lie within "
                             f"{control} of the CPU's or float64's: the bar "
@@ -3038,9 +3278,17 @@ def train_phase(tmp, dataset=None):
     lesion = ParametricNode("with-foreground", {})
     with memory_stores(stores):
         config = train_config("default", root, "brats_train", "brats_valid")
+        trainepilogue.train_epilogue.launches = 0
         default, runs["brats_default"] = run_training(
             "brats default", strategies.train_default, config,
             config.train_data.batch_size)
+        launches = train_epilogue_launches(default, runs["brats_default"])
+        if trainepilogue.train_epilogue.launches != launches:
+            raise AssertionError(
+                f"brats default: the train epilogue launched "
+                f"{trainepilogue.train_epilogue.launches} times, not "
+                f"{launches}")
+        runs["brats_default"]["train_epilogue_launches"] = launches
         runs["brats_default"]["busy_share"] = profile_train_steps(default)
         config = train_config("aleatoric", root, "brats_train", "brats_valid")
         config.train_data.selection_strategy = lesion
@@ -4642,7 +4890,8 @@ def mesh_train_phase(tmp, stores, single):
     phase's single-device run (``single``) under a ``ProfilerHook``,
     whose trace must hold CUDA kernels; the fused 10-member ensemble
     (:func:`fused_ensemble_check`); the practical HBM rate and the ring
-    over the mesh devices. Training launches neither hand kernel.
+    over the mesh devices. Training launches neither the eval statistics
+    kernel nor the int8 conv.
     Returns ({check: numbers}, the practical HBM rate in bytes/s)."""
     from rcu_tpu_torch import strategies
     from rcu_tpu_torch.engine import databuild
@@ -5033,7 +5282,8 @@ def bf16_train_phase(tmp, stores, single):
     (ms/step, slices/s, peak GB, the host's enqueue time, beside the f32
     run of the train phase, ``single``), 10 profiled steps (busy share);
     :func:`bf16_losses_check` and :func:`bf16_mesh_check`. Training
-    launches neither hand kernel. Returns {check: numbers}."""
+    launches neither the eval statistics kernel nor the int8 conv.
+    Returns {check: numbers}."""
     from rcu_tpu_torch import strategies
     from rcu_tpu_torch.data.loader import prefetch
     from rcu_tpu_torch.parallel import Mesh
@@ -5221,6 +5471,7 @@ def main():
     ptxas = summaries["evalstats"]
     record = kernel_phase(hbm_rate, ptxas)
     epilogue_record = epilogue_phase(hbm_rate)
+    train_epilogue_record = train_epilogue_phase(hbm_rate)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         dataset = BratsLikeDataset(tmp)
@@ -5296,7 +5547,10 @@ def main():
                     "card_vs_cpu_grad_err": train_err,
                     "bf16_training": bf16_training, "remat": remat_steps,
                     "model_options": options, "strategy_api": strategy_api}))
-    log(json.dumps({"kernels": [record, int8_record, epilogue_record]}))
+    train_epilogue_record["launches"] = \
+        train_runs["brats_default"]["train_epilogue_launches"]
+    log(json.dumps({"kernels": [record, int8_record, epilogue_record,
+                                train_epilogue_record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -74,6 +74,12 @@ def replaying() -> bool:
     return tape is not None and tape.replay
 
 
+def in_region() -> bool:
+    """Whether this thread runs a region, its forward or its rerun (under
+    ``'full'`` the whole model call, which sets no :func:`policy`)."""
+    return getattr(_LOCAL, "tape", None) is not None
+
+
 class _Saved(typing.NamedTuple):
     tensor: typing.Any
     requires_grad: bool

@@ -23,10 +23,11 @@ train mode (:meth:`UNet.train`, float32 or bfloat16 models without the
 fold or int8) it is flax's ``nn.BatchNorm(momentum=0.9)``: the batch
 statistics ``E[x]`` and ``E[x^2] - E[x]^2`` (clipped at 0), and the
 running statistics updated with that biased variance
-(:func:`batch_norm_train`). A training step passes its one generator as
-``generators=[g]``; a bf16 model trains with float32 parameters, each
-conv casting its weights at the call (autograd casts their gradients
-back to float32, as flax's ``promote_dtype`` does).
+(:func:`batch_norm_train`; an f32 site on a card runs the same function in
+the kernels of ``ops.cuda.trainepilogue``). A training step passes its one
+generator as ``generators=[g]``; a bf16 model trains with float32
+parameters, each conv casting its weights at the call (autograd casts
+their gradients back to float32, as flax's ``promote_dtype`` does).
 
 The inference variants keep flax's dtype islands and rewrites:
 - ``dtype`` (compute dtype, ``torch.bfloat16`` or float32): the input is
@@ -84,6 +85,8 @@ from rcu_tpu_torch.ops.precision import CONV_SEARCH
 from rcu_tpu_torch.ops.cuda.convepilogue import (BYTES_PER_ELEMENT,
                                                  conv_epilogue)
 from rcu_tpu_torch.ops.cuda.int8conv import int8_conv_dequant
+from rcu_tpu_torch.ops.cuda.trainepilogue import (batch_constants,
+                                                  train_epilogue)
 from rcu_tpu_torch.parallel.mesh import all_sum, current_part
 from rcu_tpu_torch.utils import profiling
 
@@ -152,7 +155,9 @@ def batch_norm_train(x, bn):
     flax promotes), in flax's order of operations, and updates ``bn``'s
     running statistics in place (outside autograd) as ``0.9 * running +
     0.1 * batch``, with the biased variance (``nn.BatchNorm2d`` would
-    take the unbiased one).
+    take the unbiased one): the constants of
+    :func:`ops.cuda.trainepilogue.batch_constants`, which the fused train
+    epilogue takes too.
 
     In a part of a mesh train step (``parallel.mesh.current_part``) the
     per-channel sums of x and x^2 are added over the parts first
@@ -166,13 +171,8 @@ def batch_norm_train(x, bn):
     s1, s2 = xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))
     s1, s2, n = remat.replayed(
         lambda: _batch_sums(s1, s2, xf.numel() // xf.shape[1]))
-    mean = s1 / n
-    var = torch.clamp_min(s2 / n - mean * mean, 0.0)
-    if not remat.replaying():
-        with torch.no_grad():
-            bn.running_mean.mul_(0.9).add_(0.1 * mean)
-            bn.running_var.mul_(0.9).add_(0.1 * var)
-    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    mean, _, _, mul = batch_constants(s1, s2, n, bn,
+                                      update=not remat.replaying())
     y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
     return y.to(x.dtype)
 
@@ -339,7 +339,8 @@ class ConvBnRelu(nn.Module):
     Under the ``'conv'`` remat policy (``engine.remat``) a train-mode site
     keeps its conv output and recomputes the epilogue in the backward pass.
     An f32 site in eval mode on a card runs its epilogue as one kernel
-    (:meth:`fuses_epilogue`)."""
+    (:meth:`fuses_epilogue`); an f32 BatchNorm site training on a card as
+    two kernels forward and two backward (:meth:`fuses_train_epilogue`)."""
 
     def __init__(self, in_ch: int, out_ch: int, dropout: float | None = None,
                  kernel: int = 3, fold_bn: bool = False, bn: bool = True,
@@ -411,19 +412,50 @@ class ConvBnRelu(nn.Module):
                 and not torch.is_grad_enabled()
                 and _memory_format(x) == torch.contiguous_format)
 
+    def fuses_train_epilogue(self, x) -> bool:
+        """Whether this call's epilogue is ``train_epilogue`` on the
+        bias-free conv output: in train mode under autograd, at an
+        unquantized site with its own ``BatchNorm_0`` (not BN-free, not
+        folded) whose conv output is an NCHW float32 CUDA tensor and whose
+        BatchNorm parameters are float32 (a float64 model's f32 sigma head
+        has neither), outside a remat policy and a remat region (whose
+        reruns replay the sums and update no statistic) and a mesh part
+        (whose sums add over the parts). Every other call keeps the eager
+        chain of :meth:`epilogue`."""
+        x = x[0] if isinstance(x, tuple) else x
+        bn = getattr(self, "BatchNorm_0", None)
+        return (x.device.type == "cuda" and x.dtype == torch.float32
+                and self.training and torch.is_grad_enabled()
+                and self.quant_scales is None
+                and bn is not None and bn.weight.dtype == torch.float32
+                and remat.policy() is None and not remat.in_region()
+                and current_part() is None
+                and _memory_format(x) == torch.contiguous_format)
+
+    def _fused_input(self, x, generators, stats):
+        """The bias-free conv output, its dropout divisor and the bias the
+        fused epilogue adds."""
+        y = self.conv_out(x, stats, bias=False)
+        divisor = None if self.dropout is None \
+            else self.dropout.divisor(y, generators)
+        bias = self.zero_bias if self.Conv_0.bias is None \
+            else self.Conv_0.bias.float()
+        return y, divisor, bias
+
     def forward(self, x, generators=None, stats=None):
         if self.fuses_epilogue(x):
-            y = self.conv_out(x, stats, bias=False)
-            divisor = None if self.dropout is None \
-                else self.dropout.divisor(y, generators)
+            y, divisor, bias = self._fused_input(x, generators, stats)
             profiling.count("unet.epilogue_fused")
             profiling.count("unet.epilogue_bytes",
                             BYTES_PER_ELEMENT * y.numel())
-            bias = self.zero_bias if self.Conv_0.bias is None \
-                else self.Conv_0.bias.float()
             return conv_epilogue(y, bias, divisor,
                                  getattr(self, "BatchNorm_0", None),
                                  self.activation)
+        if self.fuses_train_epilogue(x):
+            y, divisor, bias = self._fused_input(x, generators, stats)
+            profiling.count("unet.train_epilogue_fused")
+            return train_epilogue(y, bias, divisor, self.BatchNorm_0,
+                                  self.activation)
         y = self.conv_out(x, stats)
         if y.is_cuda:
             profiling.count("unet.epilogue_eager")

@@ -631,9 +631,9 @@ def test_cuda_train_step_matches_cpu(cuda_device, kind):
     """One train step on the card against the CPU from the same weights,
     at the smoke run's bars (``chip_smoke.train_step_card_vs_cpu`` raises
     on a miss: the loss rtol 1e-5, each gradient within 1e-3 of its
-    tensor's max, or, where a ReLU or pool choice went otherwise, a card
-    step on the CPU's choices within 1e-3 of the CPU's or float64's; the
-    BatchNorm statistics, adam's update from identical gradients), with
+    tensor's max, or, where a ReLU or pool choice went otherwise, within
+    1e-3 of float64's on the card step's own choices; the BatchNorm
+    statistics, adam's update from identical gradients), with
     TF32 off and the caller's flags back afterwards."""
     import chip_smoke
     from rcu_tpu_torch.engine import steps
