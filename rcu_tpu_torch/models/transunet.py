@@ -95,15 +95,20 @@ class StdConv2d(Conv2d):
                       self.padding)
 
 
-class ElementDropout(nn.Module):
-    """Element-wise dropout with explicit generators (see the module doc).
-    Generators with ``rows=(start, stop, total)`` (a mesh device's part of
-    a batch, ``engine.steps.ShardGenerators``) draw the whole batch's
-    masks and keep those rows, as ``models.unet.ChannelDropout`` does."""
+DROPOUT_COUNTER = "transunet.dropout_elements"
 
-    def __init__(self, p: float):
+
+class ElementDropout(nn.Module):
+    """Element-wise dropout with explicit generators (see the module doc),
+    counting the elements it masks under ``counter``, the owning model's
+    name for it. Generators with ``rows=(start, stop, total)`` (a mesh
+    device's part of a batch, ``engine.steps.ShardGenerators``) draw the
+    whole batch's masks and keep those rows, as
+    ``models.unet.ChannelDropout`` does."""
+
+    def __init__(self, p: float, counter: str):
         super().__init__()
-        self.p = p
+        self.p, self.counter = p, counter
 
     def forward(self, x, generators=None):
         if generators is None or self.p == 0.0:
@@ -111,7 +116,7 @@ class ElementDropout(nn.Module):
         keep_prob = 1.0 - self.p
         # drawn once: a remat rerun replays the forward's masks
         keep = remat.replayed(lambda: self._keep(x, generators, keep_prob))
-        profiling.count("transunet.dropout_elements", x.numel())
+        profiling.count(self.counter, x.numel())
         return torch.where(keep, x / keep_prob, 0.0)
 
     @staticmethod
@@ -212,7 +217,7 @@ class Embeddings(nn.Module):
                                        stride=patch)
         self.position_embeddings = nn.Parameter(
             torch.zeros(1, grid * grid, hidden))
-        self.dropout = ElementDropout(dropout)
+        self.dropout = ElementDropout(dropout, DROPOUT_COUNTER)
 
     def forward(self, x):
         """Images -> (the tokens plus positions, before the dropout; the
@@ -230,8 +235,8 @@ class Attention(nn.Module):
         self.key = nn.Linear(hidden, hidden)
         self.value = nn.Linear(hidden, hidden)
         self.out = nn.Linear(hidden, hidden)
-        self.attn_dropout = ElementDropout(dropout)
-        self.proj_dropout = ElementDropout(dropout)
+        self.attn_dropout = ElementDropout(dropout, DROPOUT_COUNTER)
+        self.proj_dropout = ElementDropout(dropout, DROPOUT_COUNTER)
 
     def _heads(self, x):
         b, n, d = x.shape
@@ -257,11 +262,15 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, hidden: int, mlp_dim: int, dropout: float):
+    """Linear, exact GELU, dropout, linear, dropout; the dropout counts under
+    ``counter`` (:class:`ElementDropout`)."""
+
+    def __init__(self, hidden: int, mlp_dim: int, dropout: float,
+                 counter: str):
         super().__init__()
         self.fc1 = nn.Linear(hidden, mlp_dim)
         self.fc2 = nn.Linear(mlp_dim, hidden)
-        self.dropout = ElementDropout(dropout)
+        self.dropout = ElementDropout(dropout, counter)
 
     def forward(self, x, generators=None):
         x = self.dropout(F.gelu(self.fc1(x)), generators)
@@ -274,7 +283,7 @@ class Block(nn.Module):
         super().__init__()
         self.attention_norm = nn.LayerNorm(hidden, eps=1e-6)
         self.ffn_norm = nn.LayerNorm(hidden, eps=1e-6)
-        self.ffn = Mlp(hidden, mlp_dim, dropout)
+        self.ffn = Mlp(hidden, mlp_dim, dropout, DROPOUT_COUNTER)
         self.attn = Attention(hidden, heads, attention_dropout)
 
     def forward(self, x, generators=None):
